@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of ``phendiff_tpu_torch``
+(and ``chip_smoke.py``) loads neither ``jax`` nor ``phendiff_tpu`` nor
+``triton``, builds no kernel, and entry points default to the card."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_FORBIDDEN_CHECK = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import phendiff_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(phendiff_tpu_torch.__path__,
+                                                   "phendiff_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "phendiff_tpu", "triton"))
+    print(len(names), bad)
+    sys.exit(1 if bad or len(names) < 15 else 0)
+""")
+
+
+def _run(code, **kw):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120, **kw)
+
+
+def test_import_every_module_without_jax():
+    proc = _run(_FORBIDDEN_CHECK)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    build = os.path.join(ROOT, "phendiff_tpu_torch", "build")
+    assert not os.path.exists(build) or torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+    os.path.join(d, f)
+    for d, _, files in os.walk(os.path.join(ROOT, "phendiff_tpu_torch"))
+    for f in files if f.endswith(".py")
+))
+def test_sources_never_import_jax(path):
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in ("jax", "jaxlib", "flax", "phendiff_tpu"), (path, m)
+
+
+def test_entry_points_default_to_cuda():
+    from phendiff_tpu_torch.core.device import resolve_device
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig, make_schedule
+
+    if torch.cuda.is_available():
+        assert make_schedule(SchedulerConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_schedule(SchedulerConfig())
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+    assert make_schedule(SchedulerConfig(), device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
