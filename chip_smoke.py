@@ -7,17 +7,30 @@ Run from the root of a checkout.  Phases, each printing one JSON line; any
 failure exits non-zero before the final line:
 
 1. environment: the card (``nvidia-smi``), torch, CUDA and nvcc versions;
-2. build: every CUDA kernel of the main path, from ``phendiff_tpu_torch/csrc``,
-   one ``nvcc`` per source, all in parallel;
-3. kernel checks at the main path's shapes: each kernel against its plain
+2. build: every CUDA kernel library, from ``phendiff_tpu_torch/csrc``, one
+   ``nvcc`` per source, all in parallel, with their ``ptxas -v`` lines;
+3. kernel checks at the main paths' shapes: each kernel against its plain
    PyTorch version on the same inputs, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and the bound;
 4. one full-width ``super_small`` 128 px forward at batch 4 in bf16,
    kernels against plain versions, and the same for every denoiser call
    of a 5-step DDIB at batch 2;
-5. the main path: ``ConditionalDDIMPipeline.init_random`` (``super_small``,
-   seed 0) and a 50-step DDIB class transfer at batch 32, 128 px, with the
-   scheduler of ``bench.py``; the launch counts prove both kernels ran.
+5. the transfer path: ``ConditionalDDIMPipeline.init_random``
+   (``super_small``, seed 0) and a 50-step DDIB class transfer at batch 32,
+   128 px, with the scheduler of ``bench.py``; the launch counts prove both
+   forward kernels ran;
+6. grad_check: one full-width train step at batch 4 with injected draws,
+   kernel path against plain path: loss, every parameter's gradient
+   (finite, non-zero, close) and the parameters after the step;
+7. the training path: ``make_train_step`` on ``super_small`` at 128 px,
+   batch 32, bf16 compute with f32 master params, ``proba_uncond=0.1``, the
+   default optimizer and scheduler (``bench.py``'s ``bench_train``): 10 timed
+   steps after warm-up, with launch counts of the attention forward and
+   backward and GroupNorm kernels, and a bit-equal checkpoint round trip;
+8. the trainer: ``Trainer.run`` for 3 steps over a small image folder this
+   script writes, and the EMA pipeline it saves loaded back;
+9. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
+   kernel against its plain version at [32, 8192, 128] bf16.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -28,8 +41,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH, RES, STEPS = 32, 128, 50
@@ -50,6 +65,17 @@ SFU_PER_CLOCK_PER_SM = 16
 ATTN_TOL = {"bfloat16": dict(rtol=2.0**-6, atol=2e-3), "float32": dict(rtol=1e-4, atol=1e-5)}
 GN_TOL = dict(rtol=2.0**-7, atol=1e-3)  # one bf16 ulp of the output
 FORWARD_REL_L2_TOL = 2e-2  # 41 GroupNorms + 6 attentions, bf16 throughout
+# Attention backward, relative L2 per gradient: in bf16 the kernel takes the
+# row term from the bf16 forward output and rounds ds and p at slightly
+# different values than the plain version, so single bf16 roundings of ds
+# flip (measured 1.6e-3 at the main shape); in f32, f32 rounding and the
+# exp2 approximation (measured 7e-7).
+BWD_REL_L2_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# Train-step gradients of the full-width model in bf16, kernels against
+# plain versions, relative L2 per parameter tensor: bf16 rounding through
+# 41 GroupNorms and 6 attentions, forward and backward (measured 6.3e-3).
+GRAD_REL_L2_TOL = 2e-2
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
 
 
 def emit(obj) -> None:
@@ -251,6 +277,273 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
     return rec
 
 
+def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
+    import torch.nn.functional as F
+
+    from phendiff_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(4321 + d)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    scale = d**-0.5
+    o, lse = fa._launch(q, k, v, scale, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q, k, v, g, scale)
+    torch.cuda.synchronize()
+    errs = {n: rel_l2(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    max_err = max(max_abs(a, r) for a, r in zip(got, ref))
+    ok = (all(a.dtype == dtype and bool(torch.isfinite(a).all()) for a in got)
+          and max(errs.values()) <= BWD_REL_L2_TOL[dtype_name])
+    del ref
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g, scale),
+                       iters=3, warmup=1)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = g.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    el = q.element_size()
+    n_bytes = 8 * b * s * h * d * el + b * h * s * 4  # q k v o g in, dq dk dv out, lse in
+    flops = 10 * b * h * s * s * d  # five products of 2*S*S*D per head
+    exps = b * h * s * s  # one recompute of p
+    flop_rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(flops / flop_rate, exps / sfu_rate)
+    rec = {
+        "phase": "kernel_check", "kernel": "flash_attn_bwd", "dtype": dtype_name,
+        "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": max_err, "rel_l2": errs,
+        "tol_rel_l2": BWD_REL_L2_TOL[dtype_name], "ok": bool(ok), "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bytes": n_bytes, "flops": flops,
+        "exps": exps, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+    }
+    emit(rec)
+    return rec
+
+
+def train_parts(torch, pipe, proba_uncond=0.1):
+    """What ``bench.py``'s ``bench_train`` builds, in the port: the model
+    apply (bf16 compute) and embedding functions over an f32 copy of the
+    pipeline's parameters, its schedule, and the train config."""
+    from torch.func import functional_call
+
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+    from phendiff_tpu_torch.train.train_loop import OptimizerConfig, TrainConfig
+
+    with torch.device("meta"):
+        model = CondUNet2D(pipe.unet_config, dtype=torch.bfloat16)
+
+    def model_apply(p, x, t, class_emb):
+        return functional_call(model, p, (x, t), {"class_emb": class_emb})
+
+    def embed_fn(p, labels):
+        return p["class_embedding.weight"][labels]
+
+    params = {n: p.detach().float().requires_grad_(p.requires_grad)
+              for n, p in pipe.model.named_parameters()}
+    cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig())
+    return model_apply, embed_fn, params, pipe.schedule, cfg
+
+
+def phase_grad_check(torch, pipe):
+    from phendiff_tpu_torch.train.train_loop import (
+        diffusion_loss, init_train_state, make_draws, make_optimizer, make_train_step)
+
+    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    images = torch.randn(4, RES, RES, 3, generator=gen, device="cuda") * 0.5
+    labels = torch.tensor([0, 1, 0, 1], device="cuda")
+    draws = make_draws(SEED, 0, tuple(images.shape), schedule.num_train_timesteps, 0.0, "cuda")
+
+    def loss_and_grads():
+        loss = diffusion_loss(model_apply, params, schedule, images,
+                              embed_fn(params, labels), draws.noise, draws.timesteps)
+        names = [n for n, p in params.items() if p.requires_grad]
+        return loss, dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
+
+    def one_step():
+        opt = make_optimizer(cfg.optimizer)
+        state = init_train_state(params, opt)
+        step = make_train_step(model_apply, embed_fn, schedule, cfg, opt)
+        return step(state, (images, labels), draws)[0]
+
+    loss_k, grads_k = loss_and_grads()
+    state_k = one_step()
+    torch.cuda.synchronize()
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads()
+        state_p = one_step()
+    torch.cuda.synchronize()
+    grad_errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_p}
+    bad = sorted(n for n, gk in grads_k.items()
+                 if not bool(torch.isfinite(gk).all()) or float(gk.abs().max()) == 0.0)
+    lr = cfg.optimizer.learning_rate
+    moved = {n: (state_k.params[n] - state_p.params[n]).detach().abs() for n in params}
+    param_max = max(float(m.max()) for m in moved.values())
+    # an element whose gradient is at bf16 noise takes Adam's update of
+    # either sign, so at most 2 lr apart; the share of such elements is small
+    differ = sum(int((m > 0.1 * lr).sum()) for m in moved.values())
+    total = sum(m.numel() for m in moved.values())
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]
+    rec = {
+        "phase": "grad_check", "batch": 4, "n_params": len(grads_p),
+        "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+        "loss_rel_err": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+        "grad_rel_l2_max": max(grad_errs.values()), "grad_rel_l2_worst": worst,
+        "tol_rel_l2": GRAD_REL_L2_TOL, "zero_or_nonfinite_grads": bad,
+        "param_max_abs_diff_after_step": param_max, "lr": lr,
+        "param_share_differing_by_lr_over_10": differ / total,
+    }
+    emit(rec)
+    if (bad or rec["grad_rel_l2_max"] > GRAD_REL_L2_TOL or rec["loss_rel_err"] > 1e-2
+            or param_max > 2.01 * lr or differ / total > 1e-2):
+        fail("grad_check: the kernel path's gradients disagree with the plain path")
+
+
+def phase_train_path(torch, pipe, env):
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.train.checkpoints import CheckpointManager
+    from phendiff_tpu_torch.train.train_loop import (
+        init_train_state, make_draws, make_optimizer, make_train_step)
+
+    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    opt = make_optimizer(cfg.optimizer)
+    state = init_train_state(params, opt)
+    step = make_train_step(model_apply, embed_fn, schedule, cfg, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    images = torch.randn(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 0.5
+    labels = torch.tensor([0, 1], device="cuda").repeat(TRAIN_BATCH // 2)
+    t_steps = schedule.num_train_timesteps
+
+    def run(n):
+        nonlocal state
+        losses = []
+        for _ in range(n):
+            draws = make_draws(SEED, state.step, tuple(images.shape), t_steps,
+                               cfg.proba_uncond, "cuda")
+            state, m = step(state, (images, labels), draws)
+            losses.append(m["loss"])
+        return torch.stack(losses)
+
+    run(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = fused_group_norm.launches = 0
+    t0 = time.perf_counter()
+    losses = run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"flash_attn_fwd": flash_attention.launches,
+                "flash_attn_bwd": flash_attention_bwd.launches,
+                "group_norm_silu": fused_group_norm.launches}
+    want = {"flash_attn_fwd": 6 * TRAIN_STEPS, "flash_attn_bwd": 6 * TRAIN_STEPS,
+            "group_norm_silu": 41 * TRAIN_STEPS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    ckpt_dir = tempfile.mkdtemp(prefix="phd_ckpt_")
+    mgr = CheckpointManager(ckpt_dir, total_limit=1)
+    mgr.save(state.step, state)
+    restored = init_train_state(params, opt)
+    mgr.restore(restored)
+    sd_a, sd_b = state.state_dict(), restored.state_dict()
+    bit_equal = sd_a["step"] == sd_b["step"] and all(
+        torch.equal(sd_a[k][n], sd_b[k][n]) for k in ("params", "ema_params") for n in sd_a[k]
+    ) and all(torch.equal(sd_a["opt_state"][k][n], sd_b["opt_state"][k][n])
+              for k in ("mu", "nu") for n in sd_a["opt_state"][k])
+    ckpt_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt_dir)
+                     for f in fs)
+    rec = {
+        "phase": "train_path", "batch": TRAIN_BATCH, "res": RES, "steps": TRAIN_STEPS,
+        "seconds": dt, "samples_per_s": TRAIN_BATCH * TRAIN_STEPS / dt,
+        "ms_per_step": 1e3 * dt / TRAIN_STEPS, "peak_mem_gib": peak,
+        "launches": launches, "launches_expected": want,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "losses": [float(x) for x in losses], "loss_finite": bool(torch.isfinite(losses).all()),
+        "checkpoint_round_trip_bit_equal": bool(bit_equal), "checkpoint_mib": ckpt_bytes / 2**20,
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if not rec["loss_finite"] or not bit_equal:
+        fail("train path: non-finite loss or a checkpoint that does not round-trip")
+    if launches != want:
+        fail(f"train path launch counts {launches} != expected {want}")
+    return rec
+
+
+def phase_trainer(torch, pipe):
+    """``Trainer.run`` over a folder of 2 x 48 random 128 px PNGs: 3 steps
+    at batch 32 and one eval that saves the EMA pipeline."""
+    import numpy as np
+    from PIL import Image
+
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.train.train_loop import TrainConfig
+    from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
+
+    root = tempfile.mkdtemp(prefix="phd_trainer_")
+    rng = np.random.default_rng(SEED)
+    for cls in ("DMSO", "drug"):
+        os.makedirs(os.path.join(root, "data", cls))
+        for i in range(48):
+            Image.fromarray(rng.integers(0, 255, (RES, RES, 3), dtype=np.uint8)).save(
+                os.path.join(root, "data", cls, f"{i:03d}.png"))
+    cfg = TrainerConfig(
+        train_data_dir=os.path.join(root, "data"), definition=(RES, RES),
+        train_batch_size=TRAIN_BATCH, num_epochs=1, eval_every_epochs=1,
+        checkpointing_steps=1000, mixed_precision="bf16", metrics_flush_every=3,
+        train=TrainConfig(proba_uncond=0.1),
+    )
+    paths = RunPaths.create(root, "exp", "run0")
+    trainer = for_ddim_pipeline(pipe, cfg, paths)
+    flash_attention.launches = flash_attention_bwd.launches = fused_group_norm.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"flash_attn_fwd": flash_attention.launches,
+                "flash_attn_bwd": flash_attention_bwd.launches,
+                "group_norm_silu": fused_group_norm.launches}
+    with open(os.path.join(paths.run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    loaded = ConditionalDDIMPipeline.from_pretrained(paths.full_pipeline_save, device="cuda")
+    same = all(torch.equal(p, state.ema_params[n]) for n, p in loaded.model.named_parameters())
+    rec = {
+        "phase": "trainer_run", "steps": state.step, "seconds": dt,
+        "logged_steps": [r["step"] for r in recs], "losses": [r["loss"] for r in recs],
+        "checkpoints": trainer.ckpt.all_steps(), "launches": launches,
+        "pipeline_saved_and_loaded": same,
+    }
+    emit(rec)
+    # 3 steps; the end-of-epoch eval only saves the EMA pipeline
+    want = {"flash_attn_fwd": 18, "flash_attn_bwd": 18, "group_norm_silu": 123}
+    if (state.step != 3 or rec["logged_steps"] != [1, 2, 3] or not same
+            or not all(math.isfinite(x) for x in rec["losses"]) or launches != want):
+        fail(f"trainer run: {rec}")
+    return rec
+
+
+def phase_moments():
+    from phendiff_tpu_torch.ops.gn_kernels import channel_moments
+    from phendiff_tpu_torch.tools import bench_gn_moments
+
+    channel_moments.launches = 0
+    rec = bench_gn_moments.measure()
+    rec.update(phase="kernel_check", kernel="channel_moments",
+               launches=channel_moments.launches)
+    # f32 sums of 8192 terms in another order: 1e-5 of the largest sum
+    rec["ok"] = bool(rec["max_rel_err_f64"] < 1e-5 and rec["max_rel_err_plain"] < 1e-5
+                     and rec["deterministic"])
+    emit(rec)
+    if not rec["ok"]:
+        fail("channel_moments disagrees with its float64 reference")
+    return rec
+
+
 def main() -> None:
     try:
         import torch
@@ -263,7 +556,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"phendiff_tpu_torch not importable ({e}): run from the root of a checkout")
 
-    from phendiff_tpu_torch.core.scheduler import SchedulerConfig, make_schedule
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.config import super_small
     from phendiff_tpu_torch.ops.flash_attention import flash_attention
     from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
@@ -321,6 +614,10 @@ def main() -> None:
             rec = gn_check(torch, BATCH, s, c, groups, act)
             gn_recs[(s, c, groups, act)] = rec
             checks_ok &= rec["ok"]
+    bwd = attention_bwd_check(torch, BATCH, 1024, 32, 8, sfu_rate)
+    checks_ok &= bwd["ok"]
+    checks_ok &= attention_bwd_check(torch, BATCH, 1024, 32, 8, sfu_rate, "float32")["ok"]
+    checks_ok &= attention_bwd_check(torch, 2, 4096, 10, 64, sfu_rate)["ok"]
     if not checks_ok:
         fail("a kernel disagrees with its plain version (see kernel_check lines)")
 
@@ -388,7 +685,21 @@ def main() -> None:
     if launches != want:
         fail(f"launch counts {launches} != expected {want}")
 
-    # Times are per batch-32 UNet forward: summed over the kernel's calls in it.
+    # -- 6-9. training: gradients, train path, trainer, moments tool --------
+    train_pipe = ConditionalDDIMPipeline.init_random(
+        ucfg, SchedulerConfig(), seed=SEED, dtype=torch.bfloat16, device="cuda")
+    phase_grad_check(torch, train_pipe)
+    train = phase_train_path(torch, train_pipe, env)
+    trainer = phase_trainer(torch, train_pipe)
+    moments = phase_moments()
+
+    # Forward times are per batch-32 UNet forward and backward times per
+    # batch-32 train step, each summed over the kernel's calls in it.
+    by_path = {
+        name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
+               "trainer": trainer["launches"].get(name, 0)}
+        for name in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu")
+    }
     kernels = [
         {
             "name": "flash_attn_fwd", "route": "cuda",
@@ -397,7 +708,15 @@ def main() -> None:
             "launches": launches["flash_attn_fwd"], "max_abs_err": attn["max_abs_err"],
             **{k: attn_per_forward * attn[k]
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": attn["bound_by"],
+            "bound_by": attn["bound_by"], "launches_by_path": by_path["flash_attn_fwd"],
+        },
+        {
+            "name": "flash_attn_bwd", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "phendiff_tpu/ops/flash_attention.py:155",
+            "launches": train["launches"]["flash_attn_bwd"], "max_abs_err": bwd["max_abs_err"],
+            **{k: 6 * bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": bwd["bound_by"], "launches_by_path": by_path["flash_attn_bwd"],
         },
         {
             "name": "group_norm_silu", "route": "cuda",
@@ -409,6 +728,15 @@ def main() -> None:
             "bound_ms": per_forward_sum("bound_ms"), "bound_by": "bytes",
             "library_ms": per_forward_sum("library_ms"),
             "library_channels_last_ms": per_forward_sum("library_channels_last_ms"),
+            "launches_by_path": by_path["group_norm_silu"],
+        },
+        {
+            "name": "channel_moments", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/group_norm_silu.cu",
+            "replaces": "tools/bench_gn_moments.py:129",
+            "launches": moments["launches"], "max_abs_err": moments["max_abs_err"],
+            **{k: moments[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+            "launches_by_path": {"moments_tool": moments["launches"]},
         },
     ]
     emit({"kernels": kernels, "seconds_total": time.perf_counter() - t_start})

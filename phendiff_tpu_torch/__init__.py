@@ -6,8 +6,11 @@ library) and never ``jax`` or anything of ``phendiff_tpu``.
 
 Layout mirrors the JAX package: ``core/`` (schedules, precision, RNG),
 ``models/`` (config, embeddings, the conditional UNet, weight carry-over),
-``ops/`` (GroupNorm and attention dispatch with hand-written CUDA kernels
-under ``csrc/``), ``pipelines/`` (DDIM sampling, DDIB transfer, folder I/O).
+``ops/`` (GroupNorm and attention, forward and backward, with hand-written
+CUDA kernels under ``csrc/``), ``pipelines/`` (DDIM sampling, DDIB
+transfer, folder I/O), ``train/`` (train step, EMA, checkpoints, Trainer),
+``data/`` (image folder, native loader), ``obs/`` (trackers, timing,
+profiles) and ``tools/`` (kernel microbenchmarks).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; importing the package builds no kernel.

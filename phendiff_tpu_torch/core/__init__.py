@@ -10,5 +10,7 @@ from phendiff_tpu_torch.core.scheduler import (  # noqa: F401
     inversion_timestep_pairs,
     make_schedule,
     predict_x0_eps,
+    snr,
     timestep_pairs,
+    velocity,
 )

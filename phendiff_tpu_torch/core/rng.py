@@ -18,7 +18,7 @@ import torch
 EVAL_SEED = 5742877512
 
 
-def _derive(*words: int) -> int:
+def derive_seed(*words: int) -> int:
     """A 63-bit seed from a tuple of non-negative integers (SeedSequence
     hashing: distinct tuples give independent seeds)."""
     state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
@@ -41,4 +41,4 @@ class KeyStream:
     def fold_in(self, data: int) -> torch.Generator:
         """A CPU generator determined by the root seed and ``data`` only
         (the samplers draw on the generator's device and move the noise)."""
-        return torch.Generator().manual_seed(_derive(self._seed, int(data)))
+        return torch.Generator().manual_seed(derive_seed(self._seed, int(data)))

@@ -252,7 +252,7 @@ def _sqrt_pair(schedule, t, sample):
 
 
 # ---------------------------------------------------------------------------
-# Forward diffusion
+# Forward diffusion and training targets
 # ---------------------------------------------------------------------------
 
 
@@ -262,6 +262,21 @@ def add_noise(
     """q(x_t | x_0): sqrt(a_t) x0 + sqrt(1-a_t) eps."""
     sqrt_a, sqrt_1ma = _sqrt_pair(schedule, t, x0)
     return sqrt_a * x0 + sqrt_1ma * noise
+
+
+def velocity(
+    schedule: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor, t: Timestep
+) -> torch.Tensor:
+    """v-prediction target: sqrt(a) eps - sqrt(1-a) x0 (Salimans & Ho 2022)."""
+    sqrt_a, sqrt_1ma = _sqrt_pair(schedule, t, x0)
+    return sqrt_a * noise - sqrt_1ma * x0
+
+
+def snr(schedule: NoiseSchedule, t: Timestep) -> torch.Tensor:
+    """Signal-to-noise ratio alpha_bar / (1 - alpha_bar), the weight of the
+    'sample' prediction loss."""
+    a = _gather_alpha(schedule, t)
+    return a / (1.0 - a)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,10 @@
 // the CUDA cores (D=8 is half of the 16-deep bf16 MMA); an mma/wgmma
 // version is later work.
 //
+// For the backward (csrc/flash_attn_bwd.cu) the kernel can also write each
+// row's log-sum-exp, f32 [B, H, S] in base-2 units (m + log2(l)); the
+// caller passes a null pointer when no gradient is needed.
+//
 // Numerics.  p stays f32 into the PV product (the TPU kernel rounded p to
 // the input dtype there, the plain version rounds the normalised p to it),
 // so in bf16 the kernel and the plain version differ at bf16 rounding of
@@ -94,7 +98,7 @@ __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
     int S, int H,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -211,11 +215,12 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
       for (int i = 0; i < 8; ++i) f[i] = acc[8 * c + i] * inv;
       store8(op + 8 * c, f);
     }
+    if (lse) lse[static_cast<long long>(bh) * S + row] = m + log2f(l);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
            int S, int H, int D, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -227,7 +232,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   T* op = static_cast<T*>(o);
 #define PHD_LAUNCH(DD)                                                      \
   flash_fwd_kernel<T, DD><<<grid, BQ, 0, st>>>(                             \
-      qp, kp, vp, op, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
+      qp, kp, vp, op, lse, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
       v_sh, o_sb, o_ss, o_sh, scale)
   switch (D) {
     case 8: PHD_LAUNCH(8); break;
@@ -242,11 +247,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, k, v, o: [B, S, H, D] of one dtype (code 0 = f32, 1 = bf16),
 // addressed by (batch, seq, head) strides in elements; the D axis is
-// contiguous.  D is 8 or 64; every pointer is 16-byte aligned and every
+// contiguous.  lse: null, or f32 [B, H, S] for each row's log-sum-exp in
+// base-2 units.  D is 8 or 64; every pointer is 16-byte aligned and every
 // stride a multiple of 8 (the caller checks).  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int phd_flash_attn_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
     int B, int S, int H, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -255,11 +261,11 @@ extern "C" int phd_flash_attn_fwd(
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, S, H, D, q_sb, q_ss, q_sh,
+    return launch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss, q_sh,
                                  k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
                                  o_ss, o_sh, scale, st);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss,
+    return launch<float>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss,
                          k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,6 +25,14 @@
 // Bound.  The work is 2 reads and 1 write of x (the TPU kernel's single
 // read cannot carry over: a sample does not fit on chip), against the
 // bound of 1 read and 1 write: memory, not arithmetic.
+//
+// The same file holds the per-channel moments of the moments tool
+// (phd_channel_moments): the counterpart of `m_pallas` / `_pallas_kernel`
+// in tools/bench_gn_moments.py, f32 sum x and sum x^2 per (sample,
+// channel).  The TPU kernel carried f32 accumulators across a sequential
+// S-tile grid axis; here pass 1 above (gn_stats) writes per-split partial
+// sums from many blocks per sample, and moments_combine adds them in a
+// fixed order (deterministic, no atomics).  One read of x bounds it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,6 +152,24 @@ __global__ void gn_finalize(const float* __restrict__ psum,
   }
 }
 
+// grid B: out[b, c] = sum over splits, in split order, of the partials.
+__global__ void moments_combine(const float* __restrict__ psum,
+                                const float* __restrict__ psq,
+                                float* __restrict__ out_sum,
+                                float* __restrict__ out_sq, int nsplit, int C) {
+  const long long b = blockIdx.x;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, q = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const long long idx = (b * nsplit + sp) * C + c;
+      a += psum[idx];
+      q += psq[idx];
+    }
+    out_sum[b * C + c] = a;
+    out_sq[b * C + c] = q;
+  }
+}
+
 template <typename T, bool SILU>
 __global__ void gn_apply(const T* __restrict__ x,
                          const float* __restrict__ mean,
@@ -200,6 +226,32 @@ void launch_apply(bool silu, dim3 grid, int threads, cudaStream_t st,
         static_cast<T*>(out), S, C, G, rows_per_split);
 }
 
+// The statistics pass's launch shape: blockDim = (C/8) * R threads, R rows
+// of 8-channel vectors in flight, and its shared memory.
+struct StatsShape {
+  int threads, rows_per_split;
+  size_t smem;
+};
+
+StatsShape stats_shape(int S, int C, int nsplit) {
+  const int cvn = C / 8;
+  const int R = cvn >= 256 ? 1 : 256 / cvn;
+  return {cvn * R, (S + nsplit - 1) / nsplit, 2 * sizeof(float) * static_cast<size_t>(R) * C};
+}
+
+int launch_stats(const void* x, int dtype, float* psum, float* psq, int B,
+                 int S, int C, int nsplit, cudaStream_t st) {
+  const StatsShape sh = stats_shape(S, C, nsplit);
+  const dim3 grid(nsplit, B);
+  if (dtype == 1)
+    gn_stats<__nv_bfloat16><<<grid, sh.threads, sh.smem, st>>>(
+        static_cast<const __nv_bfloat16*>(x), psum, psq, S, C, sh.rows_per_split);
+  else
+    gn_stats<float><<<grid, sh.threads, sh.smem, st>>>(
+        static_cast<const float*>(x), psum, psq, S, C, sh.rows_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; out: [B, S, C]
@@ -213,34 +265,39 @@ extern "C" int phd_group_norm_silu(const void* x, int dtype,
                                    int B, int S, int C, int G, float eps,
                                    int silu, int nsplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cvn = C / 8;
-  const int R = cvn >= 256 ? 1 : 256 / cvn;
-  const int threads = cvn * R;
-  const int rows_per_split = (S + nsplit - 1) / nsplit;
+  const StatsShape sh = stats_shape(S, C, nsplit);
   float* psum = workspace;
   float* psq = psum + static_cast<long long>(B) * nsplit * C;
   float* mean = psq + static_cast<long long>(B) * nsplit * C;
   float* rstd = mean + static_cast<long long>(B) * G;
   const dim3 grid(nsplit, B);
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(R) * C;
 
-  if (dtype == 1)
-    gn_stats<__nv_bfloat16><<<grid, threads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), psum, psq, S, C, rows_per_split);
-  else
-    gn_stats<float><<<grid, threads, smem, st>>>(
-        static_cast<const float*>(x), psum, psq, S, C, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = launch_stats(x, dtype, psum, psq, B, S, C, nsplit, st);
+  if (err != 0) return err;
 
   gn_finalize<<<B, 256, 0, st>>>(psum, psq, mean, rstd, nsplit, S, C, G, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
 
   const bool s = silu != 0;
   if (dtype == 1)
-    launch_apply<__nv_bfloat16>(s, grid, threads, st, x, mean, rstd, scale, bias, out, S, C, G, rows_per_split);
+    launch_apply<__nv_bfloat16>(s, grid, sh.threads, st, x, mean, rstd, scale, bias, out, S, C, G, sh.rows_per_split);
   else
-    launch_apply<float>(s, grid, threads, st, x, mean, rstd, scale, bias, out, S, C, G, rows_per_split);
+    launch_apply<float>(s, grid, sh.threads, st, x, mean, rstd, scale, bias, out, S, C, G, sh.rows_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per-channel moments: x as above; out_sum, out_sq: f32 [B, C]; workspace:
+// f32, 2 * B * nsplit * C elements.  Same constraints on C and alignment.
+// Returns the first CUDA launch error (0 on success).
+extern "C" int phd_channel_moments(const void* x, int dtype, float* workspace,
+                                   float* out_sum, float* out_sq, int B, int S,
+                                   int C, int nsplit, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* psum = workspace;
+  float* psq = psum + static_cast<long long>(B) * nsplit * C;
+  const int err = launch_stats(x, dtype, psum, psq, B, S, C, nsplit, st);
+  if (err != 0) return err;
+  moments_combine<<<B, 256, 0, st>>>(psum, psq, out_sum, out_sq, nsplit, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
-"""Observability: device-time profiles of the port on the card."""
+"""Observability: trackers, step timing, and device-time profiles of the
+port on the card."""

@@ -11,18 +11,47 @@ version rounds it to bf16, so outputs agree to about one bf16 ulp (rtol
 sums and the exp2 approximation (rtol 1e-4, atol 1e-5).  GroupNorm outputs
 agree to one bf16 ulp (rtol 2**-7, atol 1e-3), or to f32 rounding of
 differently ordered sums (1e-4) in f32.
+
+The attention backward is held against ``flash_attention_bwd_plain`` by
+relative L2 error per gradient: in bf16 the kernel takes the row term from
+the bf16 forward output and rounds ds and p at slightly different values
+than the plain version, so single bf16 roundings of ds flip (5e-3; 1.6e-3
+measured at B=32, S=1024, H=32, D=8); in f32 the two differ at f32
+rounding and the exp2 approximation (1e-5; 7e-7 measured).  Gradients of a
+whole UNet in f32 through the kernels match the plain path to rel L2 1e-3
+per tensor (f32 rounding through a few dozen layers).  Channel moments are f32 sums
+of up to 8192 terms in another order (rtol 1e-4, atol 1e-2).
 """
 
 import pytest
 import torch
 
-from phendiff_tpu_torch.ops.flash_attention import attention_plain, flash_attention
-from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, group_norm_plain
+from phendiff_tpu_torch.ops import attention as attention_mod
+from phendiff_tpu_torch.ops import group_norm as group_norm_mod
+from phendiff_tpu_torch.ops.flash_attention import (
+    attention_plain,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+)
+from phendiff_tpu_torch.ops.gn_kernels import (
+    channel_moments,
+    channel_moments_plain,
+    fused_group_norm,
+    group_norm_plain,
+)
 
 ATTN_TOL = {torch.bfloat16: dict(rtol=2.0**-6, atol=2e-3),
             torch.float32: dict(rtol=1e-4, atol=1e-5)}
 GN_TOL = {torch.bfloat16: dict(rtol=2.0**-7, atol=1e-3),
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+BWD_REL_L2 = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+UNET_GRAD_REL_L2 = 1e-3
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
 @pytest.fixture
@@ -97,3 +126,96 @@ def test_unet_on_the_card_runs_through_both_kernels(cuda, dtype):
     assert fused_group_norm.launches - gn0 == 21
     assert flash_attention.launches - attn0 == 4
     assert out.dtype == torch.float32 and out.shape == x.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 32, 8), (2, 300, 4, 8), (1, 2048, 4, 64)])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, s, h, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype).requires_grad_()
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    gout = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    (dqkv,) = torch.autograd.grad(out, qkv, gout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (1, 1)
+    ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), gout)
+    for got, want in zip(dqkv.split(h * d, dim=-1), ref):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert _rel_l2(got.unflatten(-1, (h, d)), want) < BWD_REL_L2[dtype]
+    with torch.no_grad():  # no gradient needed: no row log-sum-exp, no backward
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_autograd_on_card_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(2, 256, 64, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    scale = torch.randn(64, generator=g, device=cuda)
+    bias = torch.randn(64, generator=g, device=cuda)
+    gout = torch.randn(2, 256, 64, generator=g, device=cuda).to(dtype)
+    kw = dict(num_groups=8, eps=1e-5, act="silu", out_dtype=dtype)
+    grads = []
+    for fn in (fused_group_norm, group_norm_plain):
+        xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+        out = fn(xs, ss, bs, **kw)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad(out, (xs, ss, bs), gout))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_unet_gradients_on_card_match_plain_path(cuda, monkeypatch):
+    from phendiff_tpu_torch.models.config import UNet2DConfig
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64), layers_per_block=1,
+                       down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                       up_block_types=("AttnUpBlock2D", "UpBlock2D"), norm_num_groups=8,
+                       attention_head_dim=8)
+    model = CondUNet2D(cfg).init_weights(torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    t = torch.tensor([10, 900], device=cuda)
+    labels = torch.tensor([0, 1], device=cuda)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(x, t, class_labels=labels).square().mean().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters() if p.requires_grad}
+
+    b0 = flash_attention_bwd.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches - b0 == 4
+    monkeypatch.setattr(group_norm_mod, "fused_group_norm",
+                        lambda xx, s, b, **kw: group_norm_plain(xx, s, b, **kw))
+    monkeypatch.setattr(attention_mod, "flash_attention",
+                        lambda q, k, v, scale=None: attention_plain(q, k, v, scale=scale))
+    want = grads()
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all() and got[name].abs().max() > 0, name
+        assert _rel_l2(got[name], w) < UNET_GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 8192, 128), torch.bfloat16),
+                                         ((3, 100, 48), torch.float32)])
+def test_channel_moments_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=cuda) + 0.25).to(dtype)
+    before = channel_moments.launches
+    got = channel_moments(x)
+    again = channel_moments(x)
+    torch.cuda.synchronize()
+    assert channel_moments.launches == before + 2
+    for a, b, ref in zip(got, again, channel_moments_plain(x)):
+        assert a.shape == (shape[0], shape[2]) and a.dtype == torch.float32
+        assert torch.equal(a, b)  # fixed-order combine: deterministic
+        torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-2)

@@ -5,13 +5,17 @@ the JAX package's XLA paths and its Pallas kernels run in interpret mode.
 
 Inputs come from numpy and go to both sides.  Tolerances: float32 paths
 agree to float32 rounding of the same sums (atol 1e-5 on O(1) values);
-bfloat16 outputs agree to one bf16 ulp (rtol 2**-7).
+bfloat16 outputs agree to one bf16 ulp (rtol 2**-7).  Gradients: the
+attention backward against ``jax.vjp`` of the Pallas kernel (interpret
+mode), the GroupNorm backward against ``jax.vjp`` of the XLA GroupNorm, at
+the same tolerances (bf16 gradients to one bf16 ulp of the largest one).
 """
 
 import os
 
 os.environ["PHENDIFF_PALLAS_INTERPRET"] = "1"
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -21,9 +25,18 @@ from phendiff_tpu.ops.attention import attention_xla  # noqa: E402
 from phendiff_tpu.ops.flash_attention import flash_attention as jax_flash  # noqa: E402
 from phendiff_tpu.ops.gn_kernels import fused_group_norm as jax_fused_gn  # noqa: E402
 from phendiff_tpu.ops.group_norm import group_norm as jax_group_norm  # noqa: E402
+from phendiff_tpu_torch.ops import flash_attention as fa_mod  # noqa: E402
+from phendiff_tpu_torch.ops import gn_kernels  # noqa: E402
 from phendiff_tpu_torch.ops.attention import attention_plain, multi_head_attention  # noqa: E402
-from phendiff_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402
-from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, group_norm_plain  # noqa: E402
+from phendiff_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_bwd_plain,
+)
+from phendiff_tpu_torch.ops.gn_kernels import (  # noqa: E402
+    channel_moments,
+    fused_group_norm,
+    group_norm_plain,
+)
 from phendiff_tpu_torch.ops.group_norm import group_norm  # noqa: E402
 
 torch.set_num_threads(1)
@@ -111,3 +124,85 @@ def test_wrappers_reject_other_devices():
     q = torch.zeros(1, 4, 1, 8, device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+# -- gradients ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backward_matches_pallas_vjp(dtype):
+    q, k, v, g = _qkv(2, 128, 2, 8, seed=11) + _qkv(2, 128, 2, 8, seed=12)[:1]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(jax_flash, *(jnp.asarray(a, jd) for a in (q, k, v)))
+    want = [np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(g, jd))]
+    tq, tk, tv, tg = (torch.from_numpy(a).to(td) for a in (q, k, v, g))
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    flash_attention(*leaves).backward(tg)  # the CPU path: autograd through the plain forward
+    for got in (flash_attention_bwd_plain(tq, tk, tv, tg), [t.grad for t in leaves]):
+        for a, w in zip(got, want):
+            assert a.dtype == td
+            tol = dict(atol=F32_ATOL) if dtype == "float32" else dict(
+                rtol=BF16_RTOL, atol=BF16_RTOL * np.abs(w).max())
+            np.testing.assert_allclose(a.float().numpy(), w, **tol)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_backward_matches_jax(act):
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((2, 4, 4, 24)) * 2 + 0.5).astype(np.float32)
+    scale, bias = (rng.standard_normal(24).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    kw = dict(num_groups=4, eps=1e-5, act=act)
+    _, vjp = jax.vjp(lambda a, s, b: jax_group_norm(a, scale=s, bias=b, **kw),
+                     *map(jnp.asarray, (x, scale, bias)))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    group_norm(leaves[0], scale=leaves[1], bias=leaves[2], **kw).backward(torch.from_numpy(g))
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4)
+
+
+def test_autograd_functions_route_gradients(monkeypatch):
+    """The card's autograd Functions, with their launches swapped for the
+    plain versions, give the plain path's gradients (their backward
+    plumbing: argument order, dtypes, the recompute under enable_grad)."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy((rng.standard_normal((2, 16, 8)) + 1).astype(np.float32))
+    scale, bias = (torch.from_numpy(rng.standard_normal(8).astype(np.float32)) for _ in "ab")
+    g = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32)).to(torch.bfloat16)
+    kw = dict(num_groups=2, eps=1e-5, act="silu")
+    monkeypatch.setattr(gn_kernels, "_launch", lambda xx, s, b, n, e, a, od: group_norm_plain(
+        xx, s, b, num_groups=n, eps=e, act=a, out_dtype=od))
+    grads = []
+    for fn in (lambda *t: gn_kernels._FusedGroupNorm.apply(*t, 2, 1e-5, "silu", torch.bfloat16),
+               lambda *t: group_norm_plain(*t, out_dtype=torch.bfloat16, **kw)):
+        leaves = [t.clone().to(torch.bfloat16 if i == 0 else torch.float32).requires_grad_()
+                  for i, t in enumerate((x, scale, bias))]
+        out = fn(*leaves)
+        assert out.dtype == torch.bfloat16
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b)
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 32, 2, 8, seed=32))
+    go = torch.from_numpy(rng.standard_normal((2, 32, 2, 8)).astype(np.float32))
+    monkeypatch.setattr(fa_mod, "_launch", lambda qq, kk, vv, sc, with_lse=False: (
+        attention_plain(qq, kk, vv, scale=sc), torch.zeros(qq.shape[0], qq.shape[2], qq.shape[1])))
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd", lambda qq, kk, vv, o, lse, gg, sc: (
+        flash_attention_bwd_plain(qq, kk, vv, gg, sc)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_mod._FlashAttention.apply(*leaves, 0.3)
+    got = torch.autograd.grad(out, leaves, go)
+    for a, b in zip(got, flash_attention_bwd_plain(q, k, v, go, 0.3)):
+        torch.testing.assert_close(a, b)
+
+
+def test_channel_moments_plain_matches_float64():
+    rng = np.random.default_rng(41)
+    x = (rng.standard_normal((3, 512, 16)) + 0.5).astype(np.float32)
+    s, q = channel_moments(torch.from_numpy(x).to(torch.bfloat16))
+    xb = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    assert s.dtype == q.dtype == torch.float32 and s.shape == (3, 16)
+    np.testing.assert_allclose(s.numpy(), xb.sum(1), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(q.numpy(), (xb ** 2).sum(1), rtol=1e-5)
