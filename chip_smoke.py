@@ -8,10 +8,13 @@ failure exits non-zero before the final line:
 
 1. environment: the card (``nvidia-smi``), torch, CUDA and nvcc versions;
 2. build: every CUDA kernel library, from ``phendiff_tpu_torch/csrc``, one
-   ``nvcc`` per source, all in parallel, with their ``ptxas -v`` lines;
+   ``nvcc`` per source, all in parallel, with registers and spills per
+   compiled function (``ptxas -v``); a spill in any tensor-core (bf16)
+   attention kernel fails the run;
 3. kernel checks at the main paths' shapes: each kernel against its plain
-   PyTorch version on the same inputs, with its time, the plain version's,
-   one library call's (a yardstick the port never calls) and the bound;
+   PyTorch version on the same inputs, two calls bit-equal, with its time,
+   the plain version's, one library call's (a yardstick the port never
+   calls) and the bound;
 4. one full-width ``super_small`` 128 px forward at batch 4 in bf16,
    kernels against plain versions, and the same for every denoiser call
    of a 5-step DDIB at batch 2;
@@ -60,21 +63,30 @@ F32_FLOPS = 67e12
 # 9.0), times the SM count and the card's maximum SM clock.
 SFU_PER_CLOCK_PER_SM = 16
 
-# Attention: in bf16 the kernel keeps p f32 where the plain version rounds
-# it to bf16 (about one bf16 ulp of the output); in f32, f32 rounding.
+# Attention: in bf16 the kernel rounds the unnormalised p to bf16 where the
+# plain version rounds the normalised p (about one bf16 ulp of the output);
+# in f32, f32 rounding.
 ATTN_TOL = {"bfloat16": dict(rtol=2.0**-6, atol=2e-3), "float32": dict(rtol=1e-4, atol=1e-5)}
 GN_TOL = dict(rtol=2.0**-7, atol=1e-3)  # one bf16 ulp of the output
 FORWARD_REL_L2_TOL = 2e-2  # 41 GroupNorms + 6 attentions, bf16 throughout
 # Attention backward, relative L2 per gradient: in bf16 the kernel takes the
 # row term from the bf16 forward output and rounds ds and p at slightly
 # different values than the plain version, so single bf16 roundings of ds
-# flip (measured 1.6e-3 at the main shape); in f32, f32 rounding and the
+# flip (measured 1.9e-3 at the main shape); in f32, f32 rounding and the
 # exp2 approximation (measured 7e-7).
 BWD_REL_L2_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 # Train-step gradients of the full-width model in bf16, kernels against
 # plain versions, relative L2 per parameter tensor: bf16 rounding through
-# 41 GroupNorms and 6 attentions, forward and backward (measured 6.3e-3).
+# 41 GroupNorms and 6 attentions, forward and backward (measured 6.6e-3).
 GRAD_REL_L2_TOL = 2e-2
+DESIGN = {
+    "flash_attn_fwd": "bf16: mma.sync m16n8k8 QK^T / m16n8k16 PV, one warp per 16 q rows, "
+                      "online softmax on the accumulator fragments, k/v by cp.async double "
+                      "buffer + ldmatrix; f32: CUDA-core FMA",
+    "flash_attn_bwd": "bf16: two mma.sync kernels (dq per q tile; dk/dv per key tile from "
+                      "S^T = K Q^T), p recomputed from the saved lse, no atomics; f32: "
+                      "CUDA-core FMA",
+}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
 
 
@@ -180,12 +192,15 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        for name, log in logs.items()
-    }
+    ptxas = {name: _build.ptxas_functions(log) for name, log in logs.items()}
+    # the bf16 attention instantiations are the tensor-core kernels (*_mma_kernel<D>)
+    mma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
+           for fn, props in ptxas[name].items() if "_mma_kernel" in fn}
+    spills = sorted(fn for fn, props in mma.items() if props.get("spill_bytes", 1) != 0)
     emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS),
-          "built": sorted(logs), "ptxas": ptxas})
+          "ptxas": ptxas, "mma_kernels_spilling": spills})
+    if len(mma) != 6 or spills:
+        fail(f"tensor-core attention kernels: expected 6 without spills, got {mma}")
 
 
 def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
@@ -200,10 +215,13 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda").to(dtype)
     q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
     out = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = attention_plain(q, k, v)
     torch.cuda.synchronize()
-    ok = out.dtype == dtype and torch.allclose(out.float(), ref.float(), **tol)
+    deterministic = bool(torch.equal(out, again))
+    ok = (out.dtype == dtype and torch.allclose(out.float(), ref.float(), **tol)
+          and deterministic)
     err = max_abs(out, ref)
     ms = cuda_ms(lambda: flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v), iters=5, warmup=1)
@@ -217,7 +235,8 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     rec = {
         "phase": "kernel_check", "kernel": "flash_attn_fwd", "dtype": dtype_name,
         "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": err, "ok": bool(ok),
-        "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "deterministic": deterministic, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
         "bytes": n_bytes, "flops": flops, "exps": exps,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -290,14 +309,16 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     scale = d**-0.5
     o, lse = fa._launch(q, k, v, scale, with_lse=True)
     got = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(q, k, v, g, scale)
     torch.cuda.synchronize()
     errs = {n: rel_l2(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     max_err = max(max_abs(a, r) for a, r in zip(got, ref))
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
     ok = (all(a.dtype == dtype and bool(torch.isfinite(a).all()) for a in got)
-          and max(errs.values()) <= BWD_REL_L2_TOL[dtype_name])
-    del ref
+          and max(errs.values()) <= BWD_REL_L2_TOL[dtype_name] and deterministic)
+    del again, ref
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale))
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g, scale),
                        iters=3, warmup=1)
@@ -314,7 +335,8 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     rec = {
         "phase": "kernel_check", "kernel": "flash_attn_bwd", "dtype": dtype_name,
         "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": max_err, "rel_l2": errs,
-        "tol_rel_l2": BWD_REL_L2_TOL[dtype_name], "ok": bool(ok), "ms": ms,
+        "tol_rel_l2": BWD_REL_L2_TOL[dtype_name], "ok": bool(ok),
+        "deterministic": deterministic, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bytes": n_bytes, "flops": flops,
         "exps": exps, "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -709,6 +731,7 @@ def main() -> None:
             **{k: attn_per_forward * attn[k]
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": attn["bound_by"], "launches_by_path": by_path["flash_attn_fwd"],
+            "design": DESIGN["flash_attn_fwd"],
         },
         {
             "name": "flash_attn_bwd", "route": "cuda",
@@ -717,6 +740,7 @@ def main() -> None:
             "launches": train["launches"]["flash_attn_bwd"], "max_abs_err": bwd["max_abs_err"],
             **{k: 6 * bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": bwd["bound_by"], "launches_by_path": by_path["flash_attn_bwd"],
+            "design": DESIGN["flash_attn_bwd"],
         },
         {
             "name": "group_norm_silu", "route": "cuda",

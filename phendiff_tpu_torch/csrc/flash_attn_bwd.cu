@@ -9,97 +9,316 @@
 // with nothing of size [S, S] written to device memory.  D is 8 (the main
 // path) or 64 (the SD path), the head dims the forward kernel takes.
 //
-// Design.  The TPU kernel held f32 [BQ, S] rows of p, dp and ds in VMEM
-// (BQ = 512 at S = 1024) and carried dk/dv as VMEM accumulators revisited
-// across a sequential q-block grid axis.  A Hopper block holds neither, and
-// blocks run in no order, so the work is split into two kernels launched
-// back to back, each deterministic (no float atomics):
-//   1. dq: one block per (b*h, 128-row q tile), one thread per q row.  The
-//      row's scaled q, g and dq accumulator live in registers; k and v
-//      stream through shared memory in 64-key tiles (as in the forward);
-//      p is recomputed from the row log-sum-exp the forward saved.  The
-//      thread also writes the row term delta (below) for kernel 2.
-//   2. dk/dv: one block per (b*h, 128-key tile), one thread per key row.
-//      The key's k, v and the dk/dv accumulators live in registers; scaled
-//      q, g, the log-sum-exp and delta stream through shared memory in
-//      64-row tiles, read by all threads as broadcasts.
-// Both kernels compute a score with the same operands in the same order,
-// so they see bit-identical p.  Scores are turned into base-2 units
-// before one ex2.approx per probability; the forward's log-sum-exp is
-// stored in those units (lse2 = m + log2(l)).
-//
-// Numerics.  The row term uses rowsum(g * o), with o the forward's output
-// in the input dtype: in exact arithmetic it equals rowsum(p * dp) (the
-// TPU kernel's form) and costs D products per row instead of a pass over
-// the keys.  As in the TPU kernel, ds and p are rounded to the input dtype
+// The TPU kernel held f32 [BQ, S] rows of p, dp and ds in VMEM (BQ = 512 at
+// S = 1024) and carried dk/dv as VMEM accumulators revisited across a
+// sequential q-block grid axis.  A Hopper block holds neither, and blocks
+// run in no order, so the work is split into two kernels launched back to
+// back, each recomputing p from the row log-sum-exp the forward saved
+// (base-2 units: p = ex2(s * log2e - lse2)), each deterministic (fixed
+// order, no float atomics):
+//   1. dq, per q tile: S = Q K^T and dP = G V^T, ds = p * (dp - delta),
+//      dQ += dS K.  It also writes the row term delta for kernel 2.
+//   2. dk/dv, per key tile: S^T = K Q^T and dP^T = V G^T, so that P^T and
+//      dS^T are already A operands (rows = keys); dV += P^T G and
+//      dK += dS^T (Q * scale), with lse and delta read per column.
+// The row term is delta = rowsum(g * o), with o the forward's output in the
+// input dtype: in exact arithmetic it equals rowsum(p * dp) (the TPU
+// kernel's form) and costs D products per row instead of a pass over the
+// keys.  As in the TPU kernel, ds and p are rounded to the input dtype
 // before the products that use them (dq, dk from ds; dv from p); every
 // product accumulates in f32, and dq, dk, dv are written in the input
 // dtype at the end.
+//
+// bf16: tensor cores (flash_bwd_dq_mma_kernel, flash_bwd_dkdv_mma_kernel).
+// One block of 4 warps per (b*h, 64-row tile), each warp owning 16 rows
+// (queries in kernel 1, keys in kernel 2) whose operands stay in registers;
+// the other side streams through shared memory as bf16 tiles, by cp.async,
+// double-buffered, into ldmatrix fragments.  The products are mma.m16n8k8
+// where D = 8 is the depth (q k^T, g v^T and their transposes) and
+// m16n8k16 elsewhere; ds and p, rounded to bf16x2 in registers, are the A
+// operands of the next product.  In kernel 2 q arrives unscaled; each
+// thread multiplies the chunks it copied by scale (rounded to bf16, as the
+// plain version scales q) before the block reads them.  The two kernels
+// compute p with operands in different roles, so their p may differ in the
+// last bit; two calls on the same inputs are bit-identical.  At D = 64 the
+// dk/dv accumulators are 2 x 32 f32 registers a thread.
+//
+// f32: CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel); tensor
+// cores take f32 only as TF32, which misses the f32 tolerances.  One
+// thread per q row (dq) or key row (dk/dv), the other side streaming
+// through shared memory; both compute a score from the same operands in the
+// same order, so they see bit-identical p.
 //
 // Bound.  At the main-path shape (B=32, H=32, S=1024, D=8) one call needs
 // one recompute of p: B*H*S*S = 1.07e9 exponentials, which bound it on the
 // special-function unit (16 exp2 per clock per SM); its 5 products of
 // 2*B*H*S*S*D flops and ~0.1 GB of q, k, v, o, g and gradients take less.
-// This first version recomputes p twice (once per kernel) with plain FMA
-// on the CUDA cores; sharing p between the two passes and tensor-core
-// products are later work.  At D = 64 kernel 2 holds 4*64 floats per
-// thread and spills some registers.
+// The two-kernel design recomputes p twice, so its own floor is twice that.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_mma.cuh"
 
 namespace {
+
+using phd::LOG2E;
+using phd::MMA_ROWS;
+using phd::MMA_THREADS;
+using bf16 = __nv_bfloat16;
+
+// ---- bf16, tensor cores ----------------------------------------------------
+
+template <int D>
+constexpr int MMA_TILE = D == 8 ? 128 : 64;  // rows per streamed tile
+
+// o, g, dq: contiguous [B, S, H, D]; lse, delta: [B*H, S] f32.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ g,
+    const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta,
+    int S, int H,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    float scale) {
+  constexpr int CH = D / 8, BK = MMA_TILE<D>, NT = D / 8;
+  __shared__ __align__(128) uint4 kv_sh[2][2][BK * CH];  // [buffer][k, v]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const long long b = bh / H, h = bh % H;
+  const int r_g = blockIdx.x * MMA_ROWS + warp * 16 + gi;  // rows r_g, r_g + 8
+
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const int ntiles = (S + BK - 1) / BK;
+  phd::load_tile<D, BK>(phd::smem_u32(kv_sh[0][0]), kb, k_ss, 0, S);
+  phd::load_tile<D, BK>(phd::smem_u32(kv_sh[0][1]), vb, v_ss, 0, S);
+  phd::cp_async_commit();
+
+  // q * scale and g as A operands; delta = rowsum(g * o) over the quad
+  const long long rs = static_cast<long long>(H) * D;  // row stride of o, g, dq
+  const long long off = b * S * rs + h * D;
+  uint32_t qa[D / 4], ga[D / 4], oa[D / 4];
+  phd::load_a<D>(qa, q + b * q_sb + h * q_sh, q_ss, r_g, S, t, phd::round_bf16(scale));
+  phd::load_a<D>(ga, g + off, rs, r_g, S, t);
+  phd::load_a<D>(oa, o + off, rs, r_g, S, t);
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 4; ++j) {
+    const float2 gf = phd::unpack_bf16(ga[j]), of = phd::unpack_bf16(oa[j]);
+    const float x = fmaf(gf.y, of.y, gf.x * of.x);
+    if (j & 1) d1 += x; else d0 += x;
+  }
+  d0 = phd::quad_sum(d0);
+  d1 = phd::quad_sum(d1);
+  const long long lrow = static_cast<long long>(bh) * S;
+  if (t == 0) {
+    if (r_g < S) delta[lrow + r_g] = d0;
+    if (r_g + 8 < S) delta[lrow + r_g + 8] = d1;
+  }
+  const float l0 = r_g < S ? lse[lrow + r_g] : 0.f;
+  const float l1 = r_g + 8 < S ? lse[lrow + r_g + 8] : 0.f;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < ntiles) {
+      const int nb = (it + 1) & 1;
+      phd::load_tile<D, BK>(phd::smem_u32(kv_sh[nb][0]), kb, k_ss, k0 + BK, S);
+      phd::load_tile<D, BK>(phd::smem_u32(kv_sh[nb][1]), vb, v_ss, k0 + BK, S);
+      phd::cp_async_commit();
+      phd::cp_async_wait<1>();
+    } else {
+      phd::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ktile = phd::smem_u32(kv_sh[it & 1][0]);
+    const uint32_t vtile = phd::smem_u32(kv_sh[it & 1][1]);
+    const int kn = S - k0;
+
+#pragma unroll
+    for (int j = 0; j < BK / 32; ++j) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      phd::mma_abt32<D>(s, qa, ktile, 32 * j, lane);
+      phd::mma_abt32<D>(dp, ga, vtile, 32 * j, lane);
+      if (kn < BK) {  // keys past S: p = ex2(-inf) = 0, so ds = 0
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (32 * j + 8 * n + 2 * t + (e & 1) >= kn) s[n][e] = -INFINITY;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          const float p = phd::ex2(fmaf(s[n][e], LOG2E, -(hi ? l1 : l0)));
+          s[n][e] = p * (dp[n][e] - (hi ? d1 : d0));  // ds
+        }
+      uint32_t da[2][4];
+      phd::to_a32(da, s);
+      phd::mma_pb32<D>(acc, da, ktile, 32 * j, lane);
+    }
+    __syncthreads();  // the tile is consumed before its buffer is refilled
+  }
+
+  bf16* out = dq + off + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (r_g < S)
+      *reinterpret_cast<uint32_t*>(out + r_g * rs + 8 * n) =
+          phd::pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+    if (r_g + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + (r_g + 8) * rs + 8 * n) =
+          phd::pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// g, dk, dv: contiguous [B, S, H, D]; lse, delta: [B*H, S] f32.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_bwd_dkdv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int S, int H,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    float scale) {
+  constexpr int CH = D / 8, BQ = MMA_TILE<D>, NT = D / 8;
+  __shared__ __align__(128) uint4 qg_sh[2][2][BQ * CH];  // [buffer][q * scale, g]
+  __shared__ __align__(16) float ld_sh[2][2][BQ];        // [buffer][lse, delta]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const long long b = bh / H, h = bh % H;
+  const int r_g = blockIdx.x * MMA_ROWS + warp * 16 + gi;  // key rows r_g, r_g + 8
+  const float scale_t = phd::round_bf16(scale);
+
+  const long long rs = static_cast<long long>(H) * D;  // row stride of g, dk, dv
+  const long long off = b * S * rs + h * D;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* gb = g + off;
+  const float* lb = lse + static_cast<long long>(bh) * S;
+  const float* db = delta + static_cast<long long>(bh) * S;
+  // Rows past S arrive as zeros (q = g = 0, lse = delta = 0): p = 1 there,
+  // but dp = 0 and g = 0, so they add nothing to dk or dv.
+  auto load = [&](int q0, int buf) {
+    phd::load_tile<D, BQ>(phd::smem_u32(qg_sh[buf][0]), qb, q_ss, q0, S);
+    phd::load_tile<D, BQ>(phd::smem_u32(qg_sh[buf][1]), gb, rs, q0, S);
+    for (int i = threadIdx.x; i < BQ; i += MMA_THREADS) {
+      const bool valid = q0 + i < S;
+      const int row = valid ? q0 + i : 0;
+      phd::cp_async4(phd::smem_u32(&ld_sh[buf][0][i]), lb + row, valid);
+      phd::cp_async4(phd::smem_u32(&ld_sh[buf][1][i]), db + row, valid);
+    }
+    phd::cp_async_commit();
+  };
+  // q * scale, rounded to bf16, in place over the chunks this thread copied
+  auto scale_q = [&](int buf) {
+    char* tile = reinterpret_cast<char*>(qg_sh[buf][0]);
+    for (int i = threadIdx.x; i < BQ * CH; i += MMA_THREADS) {
+      uint4* p = reinterpret_cast<uint4*>(tile + phd::chunk_off<CH>(i / CH, i % CH));
+      uint4 x = *p;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = phd::unpack_bf16(w[e]);
+        w[e] = phd::pack_bf16(f.x * scale_t, f.y * scale_t);
+      }
+      *p = x;
+    }
+  };
+
+  const int ntiles = (S + BQ - 1) / BQ;
+  load(0, 0);
+  uint32_t ka[D / 4], va[D / 4];
+  phd::load_a<D>(ka, k + b * k_sb + h * k_sh, k_ss, r_g, S, t);
+  phd::load_a<D>(va, v + b * v_sb + h * v_sh, v_ss, r_g, S, t);
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      load((it + 1) * BQ, buf ^ 1);
+      phd::cp_async_wait<1>();
+    } else {
+      phd::cp_async_wait<0>();
+    }
+    scale_q(buf);
+    __syncthreads();
+    const uint32_t qtile = phd::smem_u32(qg_sh[buf][0]);
+    const uint32_t gtile = phd::smem_u32(qg_sh[buf][1]);
+
+#pragma unroll
+    for (int j = 0; j < BQ / 32; ++j) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      phd::mma_abt32<D>(s, ka, qtile, 32 * j, lane);  // S^T: rows keys, columns q
+      phd::mma_abt32<D>(dp, va, gtile, 32 * j, lane);
+      float pt[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = 32 * j + 8 * n + 2 * t;
+        const float2 lc = *reinterpret_cast<const float2*>(&ld_sh[buf][0][col]);
+        const float2 dc = *reinterpret_cast<const float2*>(&ld_sh[buf][1][col]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          const float p = phd::ex2(fmaf(s[n][e], LOG2E, -(odd ? lc.y : lc.x)));
+          pt[n][e] = p;
+          s[n][e] = p * (dp[n][e] - (odd ? dc.y : dc.x));  // ds^T
+        }
+      }
+      uint32_t pa[2][4], da[2][4];
+      phd::to_a32(pa, pt);
+      phd::to_a32(da, s);
+      phd::mma_pb32<D>(dva, pa, gtile, 32 * j, lane);
+      phd::mma_pb32<D>(dka, da, qtile, 32 * j, lane);
+    }
+    __syncthreads();  // the tile is consumed before its buffer is refilled
+  }
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const long long c = off + 8 * n + 2 * t;
+    if (r_g < S) {
+      *reinterpret_cast<uint32_t*>(dk + c + r_g * rs) = phd::pack_bf16(dka[n][0], dka[n][1]);
+      *reinterpret_cast<uint32_t*>(dv + c + r_g * rs) = phd::pack_bf16(dva[n][0], dva[n][1]);
+    }
+    if (r_g + 8 < S) {
+      *reinterpret_cast<uint32_t*>(dk + c + (r_g + 8) * rs) =
+          phd::pack_bf16(dka[n][2], dka[n][3]);
+      *reinterpret_cast<uint32_t*>(dv + c + (r_g + 8) * rs) =
+          phd::pack_bf16(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+// ---- f32, CUDA cores ---------------------------------------------------------
 
 constexpr int BQ = 128;   // q rows per dq block, one per thread
 constexpr int BK = 64;    // keys per shared-memory tile in the dq kernel
 constexpr int BKV = 128;  // key rows per dk/dv block, one per thread
 constexpr int TQ = 64;    // q rows per shared-memory tile in the dk/dv kernel
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* f) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-// x rounded to the input dtype T.
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
 
 // sum_d a[d] * b[d], in order, b read from shared memory as float4.
 template <int D>
@@ -133,11 +352,11 @@ __device__ __forceinline__ float dot_shared_rev(const float* a_sh, const float* 
 }
 
 // o, g, dq: contiguous [B, S, H, D]; lse, delta: [B*H, S] f32.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ g,
-    const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ g,
+    const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
     int S, int H,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -154,23 +373,22 @@ __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
   const int row = blockIdx.x * BQ + threadIdx.x;
   const bool valid = row < S;
 
-  const float scale_t = round_as(scale, q);
   float qs[D], gf[D], acc[D];
   float lse2 = 0.f, dlt = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) qs[d] = gf[d] = acc[d] = 0.f;
   if (valid) {
-    const T* qp = q + b * q_sb + row * q_ss + h * q_sh;
+    const float* qp = q + b * q_sb + row * q_ss + h * q_sh;
     const long long off = ((b * S + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
       float f[8], fg[8], fo[8];
-      load8(qp + 8 * c, f);
-      load8(g + off + 8 * c, fg);
-      load8(o + off + 8 * c, fo);
+      phd::load8(qp + 8 * c, f);
+      phd::load8(g + off + 8 * c, fg);
+      phd::load8(o + off + 8 * c, fo);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        qs[8 * c + i] = round_as(f[i] * scale_t, q);
+        qs[8 * c + i] = f[i] * scale;
         gf[8 * c + i] = fg[i];
         dlt = fmaf(fg[i], fo[i], dlt);
       }
@@ -179,8 +397,8 @@ __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
     delta[static_cast<long long>(bh) * S + row] = dlt;
   }
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile has been consumed
@@ -189,14 +407,14 @@ __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
       const int key = k0 + r;
       float fk[8], fv[8];
       if (key < S) {
-        load8(kb + key * k_ss + c, fk);
-        load8(vb + key * v_ss + c, fv);
+        phd::load8(kb + key * k_ss + c, fk);
+        phd::load8(vb + key * v_ss + c, fv);
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) fk[j] = fv[j] = 0.f;
       }
-      store8(&ks[r][c], fk);
-      store8(&vs[r][c], fv);
+      phd::store8(&ks[r][c], fk);
+      phd::store8(&vs[r][c], fv);
     }
     __syncthreads();
 
@@ -205,8 +423,8 @@ __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
     for (int j = 0; j < kn; ++j) {
       const float s = dot_shared<D>(qs, ks[j]);
       const float dp = dot_shared<D>(gf, vs[j]);
-      const float p = ex2(s * LOG2E - lse2);
-      const float ds = round_as(p * (dp - dlt), q);
+      const float p = phd::ex2(s * LOG2E - lse2);
+      const float ds = p * (dp - dlt);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 kv = *reinterpret_cast<const float4*>(&ks[j][d]);
@@ -219,23 +437,23 @@ __global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
   }
 
   if (valid) {
-    T* dqp = dq + ((b * S + row) * H + h) * D;
+    float* dqp = dq + ((b * S + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
       float f[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) f[i] = acc[8 * c + i] * scale;
-      store8(dqp + 8 * c, f);
+      phd::store8(dqp + 8 * c, f);
     }
   }
 }
 
 // g, dk, dv: contiguous [B, S, H, D]; lse, delta: [B*H, S] f32.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     int S, int H,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -244,7 +462,7 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
   static_assert(D % 8 == 0 && D <= 64, "D must be a multiple of 8, at most 64");
   constexpr int VEC = D / 8;
 
-  __shared__ __align__(16) float qsh[TQ][D];  // q * scale, rounded to T
+  __shared__ __align__(16) float qsh[TQ][D];  // q * scale
   __shared__ __align__(16) float gsh[TQ][D];
   __shared__ float lsh[TQ];
   __shared__ float dsh[TQ];
@@ -254,21 +472,20 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
   const int key = blockIdx.x * BKV + threadIdx.x;
   const bool valid = key < S;
 
-  const float scale_t = round_as(scale, q);
   float kf[D], vf[D], dka[D], dva[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) kf[d] = vf[d] = dka[d] = dva[d] = 0.f;
   if (valid) {
-    const T* kp = k + b * k_sb + key * k_ss + h * k_sh;
-    const T* vp = v + b * v_sb + key * v_ss + h * v_sh;
+    const float* kp = k + b * k_sb + key * k_ss + h * k_sh;
+    const float* vp = v + b * v_sb + key * v_ss + h * v_sh;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
-      load8(kp + 8 * c, kf + 8 * c);
-      load8(vp + 8 * c, vf + 8 * c);
+      phd::load8(kp + 8 * c, kf + 8 * c);
+      phd::load8(vp + 8 * c, vf + 8 * c);
     }
   }
 
-  const T* qb = q + b * q_sb + h * q_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
   const float* lb = lse + static_cast<long long>(bh) * S;
   const float* db = delta + static_cast<long long>(bh) * S;
 
@@ -279,16 +496,16 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
       const int row = q0 + r;
       float fq[8], fg[8];
       if (row < S) {
-        load8(qb + row * q_ss + c, fq);
-        load8(g + ((b * S + row) * H + h) * D + c, fg);
+        phd::load8(qb + row * q_ss + c, fq);
+        phd::load8(g + ((b * S + row) * H + h) * D + c, fg);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) fq[j] = round_as(fq[j] * scale_t, q);
+        for (int j = 0; j < 8; ++j) fq[j] *= scale;
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) fq[j] = fg[j] = 0.f;
       }
-      store8(&qsh[r][c], fq);
-      store8(&gsh[r][c], fg);
+      phd::store8(&qsh[r][c], fq);
+      phd::store8(&gsh[r][c], fg);
     }
     if (threadIdx.x < TQ) {
       const int row = q0 + threadIdx.x;
@@ -302,9 +519,8 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
     for (int i = 0; i < qn; ++i) {
       const float s = dot_shared_rev<D>(qsh[i], kf);
       const float dp = dot_shared_rev<D>(gsh[i], vf);
-      const float p = ex2(s * LOG2E - lsh[i]);
-      const float ds = round_as(p * (dp - dsh[i]), q);
-      const float pr = round_as(p, q);
+      const float p = phd::ex2(s * LOG2E - lsh[i]);
+      const float ds = p * (dp - dsh[i]);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 qv = *reinterpret_cast<const float4*>(&qsh[i][d]);
@@ -313,10 +529,10 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
         dka[d + 1] = fmaf(ds, qv.y, dka[d + 1]);
         dka[d + 2] = fmaf(ds, qv.z, dka[d + 2]);
         dka[d + 3] = fmaf(ds, qv.w, dka[d + 3]);
-        dva[d] = fmaf(pr, gv.x, dva[d]);
-        dva[d + 1] = fmaf(pr, gv.y, dva[d + 1]);
-        dva[d + 2] = fmaf(pr, gv.z, dva[d + 2]);
-        dva[d + 3] = fmaf(pr, gv.w, dva[d + 3]);
+        dva[d] = fmaf(p, gv.x, dva[d]);
+        dva[d + 1] = fmaf(p, gv.y, dva[d + 1]);
+        dva[d + 2] = fmaf(p, gv.z, dva[d + 2]);
+        dva[d + 3] = fmaf(p, gv.w, dva[d + 3]);
       }
     }
   }
@@ -325,50 +541,9 @@ __global__ void __launch_bounds__(BKV) flash_bwd_dkdv_kernel(
     const long long off = ((b * S + key) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
-      store8(dk + off + 8 * c, dka + 8 * c);
-      store8(dv + off + 8 * c, dva + 8 * c);
+      phd::store8(dk + off + 8 * c, dka + 8 * c);
+      phd::store8(dv + off + 8 * c, dva + 8 * c);
     }
-  }
-}
-
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* o,
-             const void* g, const float* lse, void* dq, void* dk, void* dv,
-             float* delta, int B, int S, int H, long long q_sb, long long q_ss,
-             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-             long long v_sb, long long v_ss, long long v_sh, float scale,
-             cudaStream_t st) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(g);
-  flash_bwd_dq_kernel<T, D><<<dim3((S + BQ - 1) / BQ, B * H), BQ, 0, st>>>(
-      qp, kp, vp, static_cast<const T*>(o), gp, lse, static_cast<T*>(dq), delta,
-      S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T, D><<<dim3((S + BKV - 1) / BKV, B * H), BKV, 0, st>>>(
-      qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(int D, const void* q, const void* k, const void* v, const void* o,
-           const void* g, const float* lse, void* dq, void* dk, void* dv,
-           float* delta, int B, int S, int H, long long q_sb, long long q_ss,
-           long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-           long long v_sb, long long v_ss, long long v_sh, float scale,
-           cudaStream_t st) {
-  switch (D) {
-    case 8:
-      return launch_d<T, 8>(q, k, v, o, g, lse, dq, dk, dv, delta, B, S, H, q_sb, q_ss,
-                            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-    case 64:
-      return launch_d<T, 64>(q, k, v, o, g, lse, dq, dk, dv, delta, B, S, H, q_sb, q_ss,
-                             q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -380,8 +555,9 @@ int launch(int D, const void* q, const void* k, const void* v, const void* o,
 // 0 = f32, 1 = bf16).  lse: the forward's f32 [B, H, S] row log-sum-exp in
 // base-2 units; delta: f32 [B, H, S] scratch.  D is 8 or 64; every pointer
 // is 16-byte aligned and every stride a multiple of 8 (the caller checks).
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; returns the
-// first CUDA launch error (0 on success).
+// bf16 runs the tensor-core kernels, f32 the CUDA-core kernels.  Launches
+// the dq kernel, then the dk/dv kernel, on `stream`; returns the first CUDA
+// launch error (0 on success).
 extern "C" int phd_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* g,
     const float* lse, void* dq, void* dk, void* dv, float* delta, int dtype,
@@ -391,12 +567,44 @@ extern "C" int phd_flash_attn_bwd(
     long long v_sb, long long v_ss, long long v_sh,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(D, q, k, v, o, g, lse, dq, dk, dv, delta, B, S, H,
-                                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                 v_sh, scale, st);
-  if (dtype == 0)
-    return launch<float>(D, q, k, v, o, g, lse, dq, dk, dv, delta, B, S, H, q_sb,
-                         q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((D != 8 && D != 64) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PHD_STRIDES q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale
+#define PHD_DQ_ARGS(T)                                                                     \
+  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),            \
+      static_cast<const T*>(o), static_cast<const T*>(g), lse, static_cast<T*>(dq), delta, \
+      S, H, PHD_STRIDES
+#define PHD_DKDV_ARGS(T)                                                                  \
+  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),           \
+      static_cast<const T*>(g), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, \
+      H, PHD_STRIDES
+  if (dtype == 1) {
+    const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
+    if (D == 8)
+      flash_bwd_dq_mma_kernel<8><<<grid, MMA_THREADS, 0, st>>>(PHD_DQ_ARGS(bf16));
+    else
+      flash_bwd_dq_mma_kernel<64><<<grid, MMA_THREADS, 0, st>>>(PHD_DQ_ARGS(bf16));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (D == 8)
+      flash_bwd_dkdv_mma_kernel<8><<<grid, MMA_THREADS, 0, st>>>(PHD_DKDV_ARGS(bf16));
+    else
+      flash_bwd_dkdv_mma_kernel<64><<<grid, MMA_THREADS, 0, st>>>(PHD_DKDV_ARGS(bf16));
+  } else {
+    const dim3 grid_q((S + BQ - 1) / BQ, B * H), grid_k((S + BKV - 1) / BKV, B * H);
+    if (D == 8)
+      flash_bwd_dq_kernel<8><<<grid_q, BQ, 0, st>>>(PHD_DQ_ARGS(float));
+    else
+      flash_bwd_dq_kernel<64><<<grid_q, BQ, 0, st>>>(PHD_DQ_ARGS(float));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (D == 8)
+      flash_bwd_dkdv_kernel<8><<<grid_k, BKV, 0, st>>>(PHD_DKDV_ARGS(float));
+    else
+      flash_bwd_dkdv_kernel<64><<<grid_k, BKV, 0, st>>>(PHD_DKDV_ARGS(float));
+  }
+#undef PHD_DKDV_ARGS
+#undef PHD_DQ_ARGS
+#undef PHD_STRIDES
+  return static_cast<int>(cudaGetLastError());
 }

@@ -7,98 +7,195 @@
 // of size [S, S] written to device memory.  D is 8 (the main path) or 64
 // (the SD path); the caller zero-pads other head dims up.
 //
-// Design.  The TPU kernel held a whole [BQ, S] score row in VMEM and took
-// the softmax denominator from a ones-row appended to v.  A Hopper block
-// cannot hold that row, so this kernel streams k and v through shared
-// memory in tiles of BK keys and keeps an online softmax (running max m,
-// running sum l, rescaled f32 accumulator o) per q row:
-//   * one block per (b*h, BQ-row q tile), one thread per q row; the row's
-//     q (pre-scaled in the input dtype, as the plain version does) and o
-//     live in registers;
-//   * each k/v tile is loaded once per block with 16-byte loads, converted
-//     to f32 in shared memory, and read by every thread of the block as a
-//     broadcast (all threads read the same key at the same time);
-//   * the rescale is done once per CH keys, not per key;
-//   * scores are kept in base-2 units (q carries log2(e)) so each
-//     exponential is one ex2.approx instruction.
-// q, k and v are addressed through strides, so the three column slices of
-// the fused qkv projection are read in place without copies.
-//
 // Bound.  At the main-path shape (B=32, H=32, S=1024, D=8) one call does
 // B*H*S*S = 1.07e9 exponentials and 4*B*H*S*S*D = 3.4e10 flops over 67 MB of
 // q/k/v/o: the special-function unit (16 exp2 per clock per SM) bounds it,
-// not the tensor cores or the memory.  The arithmetic here is plain FMA on
-// the CUDA cores (D=8 is half of the 16-deep bf16 MMA); an mma/wgmma
-// version is later work.
+// not the tensor cores or the memory.
 //
-// For the backward (csrc/flash_attn_bwd.cu) the kernel can also write each
-// row's log-sum-exp, f32 [B, H, S] in base-2 units (m + log2(l)); the
-// caller passes a null pointer when no gradient is needed.
+// bf16: tensor cores (flash_fwd_mma_kernel).  The TPU kernel held a whole
+// [BQ, S] score row in VMEM; a Hopper block cannot, so k and v stream
+// through shared memory and each q row keeps an online softmax (running
+// max m, running sum l, rescaled f32 accumulator):
+//   * one block of 4 warps per (b*h, 64-row q tile); each warp owns 16 q
+//     rows, whose q * scale (rounded to bf16, as the plain version scales
+//     q) stays in registers as the A operand;
+//   * k and v tiles of 64 keys arrive by cp.async,
+//     double-buffered, as bf16, and reach the tensor cores through
+//     ldmatrix (v transposed);
+//   * S = Q K^T is mma.m16n8k8 at D = 8 (D is the whole depth, nothing is
+//     padded) and m16n8k16 over 4 depth steps at D = 64; P V is m16n8k16,
+//     its A operand the score accumulators rounded to bf16x2 in registers;
+//   * the softmax runs on the accumulator fragments: row max and row sum
+//     over a quad by two __shfl_xor, one rescale per tile, and each
+//     probability is one FFMA (s*log2e - m*log2e) and one ex2.approx.
+// p is rounded to bf16 unnormalised before P V, as the TPU kernel rounds
+// it (`_fwd_kernel`); the row sum l adds the f32 p, before rounding.  The
+// output is the f32 accumulator over l, rounded once.
 //
-// Numerics.  p stays f32 into the PV product (the TPU kernel rounded p to
-// the input dtype there, the plain version rounds the normalised p to it),
-// so in bf16 the kernel and the plain version differ at bf16 rounding of
-// the output; in f32 they differ at f32 rounding.
+// f32: CUDA cores (flash_fwd_kernel).  Tensor cores take f32 only as TF32,
+// which misses the f32 tolerances, so f32 keeps plain FMA: one thread per q
+// row, k/v tiles in shared memory read as broadcasts, the rescale once per
+// CH keys, scores in base-2 units for one ex2.approx per probability.
+//
+// Both write, when `lse` is non-null, each row's log-sum-exp in base-2
+// units (m + log2(l)), f32 [B, H, S], for the backward
+// (csrc/flash_attn_bwd.cu).  q, k and v are addressed through strides, so
+// the three column slices of the fused qkv projection are read in place.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_mma.cuh"
 
 namespace {
+
+using phd::LOG2E;
+using phd::MMA_ROWS;
+using phd::MMA_THREADS;
+using bf16 = __nv_bfloat16;
+
+// ---- bf16, tensor cores ----------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    float scale) {
+  constexpr int CH = D / 8;                // 16-byte chunks per row
+  constexpr int BK = 64;                   // keys per tile and per softmax step
+  constexpr int NT = D / 8;                // output tiles of 8 columns
+  __shared__ __align__(128) uint4 kv_sh[2][2][BK * CH];  // [buffer][k, v]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const long long b = bh / H, h = bh % H;
+  const int r_g = blockIdx.x * MMA_ROWS + warp * 16 + g;  // rows r_g, r_g + 8
+
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const int ntiles = (S + BK - 1) / BK;
+  phd::load_tile<D, BK>(phd::smem_u32(kv_sh[0][0]), kb, k_ss, 0, S);
+  phd::load_tile<D, BK>(phd::smem_u32(kv_sh[0][1]), vb, v_ss, 0, S);
+  phd::cp_async_commit();
+
+  uint32_t qa[D / 4];
+  phd::load_a<D>(qa, q + b * q_sb + h * q_sh, q_ss, r_g, S, t, phd::round_bf16(scale));
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: per-lane partial sums
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < ntiles) {
+      const int nb = (it + 1) & 1;
+      phd::load_tile<D, BK>(phd::smem_u32(kv_sh[nb][0]), kb, k_ss, k0 + BK, S);
+      phd::load_tile<D, BK>(phd::smem_u32(kv_sh[nb][1]), vb, v_ss, k0 + BK, S);
+      phd::cp_async_commit();
+      phd::cp_async_wait<1>();
+    } else {
+      phd::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ktile = phd::smem_u32(kv_sh[it & 1][0]);
+    const uint32_t vtile = phd::smem_u32(kv_sh[it & 1][1]);
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 32; ++j) phd::mma_abt32<D>(s + 4 * j, qa, ktile, 32 * j, lane);
+
+    const int kn = S - k0;  // keys of this tile that exist, if fewer than BK
+    if (kn < BK) {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * n + 2 * t + (e & 1) >= kn) s[n][e] = -INFINITY;
+    }
+
+    // the tile's first key exists, so both maxima are finite; on the first
+    // tile m = -inf gives alpha = ex2(-inf) = 0
+    static_assert(BK == 64, "the row max below is a tree over 8 tiles");
+    float r0[8], r1[8];  // a tree, not a chain of dependent maxima
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      r0[n] = fmaxf(s[n][0], s[n][1]);
+      r1[n] = fmaxf(s[n][2], s[n][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      r0[n] = fmaxf(r0[n], r0[n + 4]);
+      r1[n] = fmaxf(r1[n], r1[n + 4]);
+    }
+    r0[0] = fmaxf(fmaxf(r0[0], r0[2]), fmaxf(r0[1], r0[3]));
+    r1[0] = fmaxf(fmaxf(r1[0], r1[2]), fmaxf(r1[1], r1[3]));
+    const float mx0 = fmaxf(m0, phd::quad_max(r0[0]));
+    const float mx1 = fmaxf(m1, phd::quad_max(r1[0]));
+    const float alpha0 = phd::ex2((m0 - mx0) * LOG2E);
+    const float alpha1 = phd::ex2((m1 - mx1) * LOG2E);
+    m0 = mx0;
+    m1 = mx1;
+    const float nm0 = -mx0 * LOG2E, nm1 = -mx1 * LOG2E;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha0; acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1; acc[n][3] *= alpha1;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n][0] = phd::ex2(fmaf(s[n][0], LOG2E, nm0));
+      s[n][1] = phd::ex2(fmaf(s[n][1], LOG2E, nm0));
+      s[n][2] = phd::ex2(fmaf(s[n][2], LOG2E, nm1));
+      s[n][3] = phd::ex2(fmaf(s[n][3], LOG2E, nm1));
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 32; ++j) {
+      uint32_t pa[2][4];
+      phd::to_a32(pa, s + 4 * j);
+      phd::mma_pb32<D>(acc, pa, vtile, 32 * j, lane);
+    }
+    __syncthreads();  // the tile is consumed before its buffer is refilled
+  }
+
+  l0 = phd::quad_sum(l0);
+  l1 = phd::quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  bf16* ob = o + b * o_sb + h * o_sh + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (r_g < S)
+      *reinterpret_cast<uint32_t*>(ob + r_g * o_ss + 8 * n) =
+          phd::pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r_g + 8 < S)
+      *reinterpret_cast<uint32_t*>(ob + (r_g + 8) * o_ss + 8 * n) =
+          phd::pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  if (lse && t == 0) {
+    float* lb = lse + static_cast<long long>(bh) * S;
+    if (r_g < S) lb[r_g] = m0 * LOG2E + log2f(l0);
+    if (r_g + 8 < S) lb[r_g + 8] = m1 * LOG2E + log2f(l1);
+  }
+}
+
+// ---- f32, CUDA cores ---------------------------------------------------------
 
 constexpr int BQ = 128;  // q rows per block, one per thread
 constexpr int BK = 64;   // keys per shared-memory tile
 constexpr int CH = 16;   // keys per online-softmax rescale
-constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* f) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-// x rounded to the input dtype T.
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
     int S, int H,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -106,7 +203,7 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     long long o_sb, long long o_ss, long long o_sh,
     float scale) {
   static_assert(D % 8 == 0 && D <= 64, "D must be a multiple of 8, at most 64");
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
+  constexpr int VEC = D / 8;  // 8-float vectors per row
 
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -116,19 +213,16 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   const int row = blockIdx.x * BQ + threadIdx.x;
   const bool valid = row < S;
 
-  // q * scale rounded to T (the plain version scales q in the compute
-  // dtype), then carried in base-2 units.
-  const float scale_t = round_as(scale, q);
+  // q * scale carried in base-2 units
   float qf[D];
   if (valid) {
-    const T* qp = q + b * q_sb + row * q_ss + h * q_sh;
+    const float* qp = q + b * q_sb + row * q_ss + h * q_sh;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
       float f[8];
-      load8(qp + 8 * c, f);
+      phd::load8(qp + 8 * c, f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        qf[8 * c + i] = round_as(f[i] * scale_t, q) * LOG2E;
+      for (int i = 0; i < 8; ++i) qf[8 * c + i] = f[i] * scale * LOG2E;
     }
   } else {
 #pragma unroll
@@ -140,8 +234,8 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the previous tile has been consumed
@@ -150,16 +244,14 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
       const int key = k0 + r;
       float fk[8], fv[8];
       if (key < S) {
-        load8(kb + key * k_ss + c, fk);
-        load8(vb + key * v_ss + c, fv);
+        phd::load8(kb + key * k_ss + c, fk);
+        phd::load8(vb + key * v_ss + c, fv);
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) fk[j] = fv[j] = 0.f;
       }
-      *reinterpret_cast<float4*>(&ks[r][c]) = make_float4(fk[0], fk[1], fk[2], fk[3]);
-      *reinterpret_cast<float4*>(&ks[r][c + 4]) = make_float4(fk[4], fk[5], fk[6], fk[7]);
-      *reinterpret_cast<float4*>(&vs[r][c]) = make_float4(fv[0], fv[1], fv[2], fv[3]);
-      *reinterpret_cast<float4*>(&vs[r][c + 4]) = make_float4(fv[4], fv[5], fv[6], fv[7]);
+      phd::store8(&ks[r][c], fk);
+      phd::store8(&vs[r][c], fv);
     }
     __syncthreads();
 
@@ -184,13 +276,13 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
       // cmax is finite: key j0 < kn is valid.  m = -inf on the first chunk
       // gives alpha = ex2(-inf) = 0.
       const float m_new = fmaxf(m, cmax);
-      const float alpha = ex2(m - m_new);
+      const float alpha = phd::ex2(m - m_new);
       l *= alpha;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < CH; ++j) {
-        const float p = ex2(s[j] - m_new);
+        const float p = phd::ex2(s[j] - m_new);
         l += p;
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
@@ -207,40 +299,16 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 
   if (valid) {
     const float inv = 1.f / l;
-    T* op = o + b * o_sb + row * o_ss + h * o_sh;
+    float* op = o + b * o_sb + row * o_ss + h * o_sh;
 #pragma unroll
     for (int c = 0; c < VEC; ++c) {
       float f[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) f[i] = acc[8 * c + i] * inv;
-      store8(op + 8 * c, f);
+      phd::store8(op + 8 * c, f);
     }
     if (lse) lse[static_cast<long long>(bh) * S + row] = m + log2f(l);
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-           int S, int H, int D, long long q_sb, long long q_ss,
-           long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-           long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-           long long o_ss, long long o_sh, float scale, cudaStream_t st) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-#define PHD_LAUNCH(DD)                                                      \
-  flash_fwd_kernel<T, DD><<<grid, BQ, 0, st>>>(                             \
-      qp, kp, vp, op, lse, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
-      v_sh, o_sb, o_ss, o_sh, scale)
-  switch (D) {
-    case 8: PHD_LAUNCH(8); break;
-    case 64: PHD_LAUNCH(64); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PHD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -249,8 +317,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // addressed by (batch, seq, head) strides in elements; the D axis is
 // contiguous.  lse: null, or f32 [B, H, S] for each row's log-sum-exp in
 // base-2 units.  D is 8 or 64; every pointer is 16-byte aligned and every
-// stride a multiple of 8 (the caller checks).  Returns the CUDA error of the
-// launch (0 on success).
+// stride a multiple of 8 (the caller checks).  bf16 runs the tensor-core
+// kernel, f32 the CUDA-core kernel.  Returns the CUDA error of the launch
+// (0 on success).
 extern "C" int phd_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
     int B, int S, int H, int D,
@@ -260,12 +329,25 @@ extern "C" int phd_flash_attn_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss, q_sh,
-                                 k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
-                                 o_ss, o_sh, scale, st);
-  if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss,
-                         k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((D != 8 && D != 64) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PHD_ARGS(T)                                                                   \
+  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),       \
+      static_cast<T*>(o), lse, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
+      v_sh, o_sb, o_ss, o_sh, scale
+  if (dtype == 1) {
+    const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
+    if (D == 8)
+      flash_fwd_mma_kernel<8><<<grid, MMA_THREADS, 0, st>>>(PHD_ARGS(bf16));
+    else
+      flash_fwd_mma_kernel<64><<<grid, MMA_THREADS, 0, st>>>(PHD_ARGS(bf16));
+  } else {
+    const dim3 grid((S + BQ - 1) / BQ, B * H);
+    if (D == 8)
+      flash_fwd_kernel<8><<<grid, BQ, 0, st>>>(PHD_ARGS(float));
+    else
+      flash_fwd_kernel<64><<<grid, BQ, 0, st>>>(PHD_ARGS(float));
+  }
+#undef PHD_ARGS
+  return static_cast<int>(cudaGetLastError());
 }

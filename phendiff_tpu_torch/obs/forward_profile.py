@@ -24,10 +24,13 @@ import time
 
 import torch
 
-# Kernel-name fragments -> category, first match wins.
+# Kernel-name fragments -> category, first match wins.  The attention
+# kernels are the tensor-core ones (bf16, *_mma_kernel) and the CUDA-core
+# ones (f32).
 _CATEGORIES = (
-    ("flash_attn_fwd", ("flash_fwd_kernel",)),
-    ("flash_attn_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+    ("flash_attn_fwd", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),
+    ("flash_attn_bwd", ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+                        "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
     ("group_norm_silu", ("gn_stats", "gn_finalize", "gn_apply")),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "nhwc", "fprop", "dgrad", "wgrad",
               "winograd")),

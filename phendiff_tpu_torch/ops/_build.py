@@ -3,8 +3,9 @@
 Each ``phendiff_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 compiles on its own, with ``nvcc`` for ``sm_90a`` (Hopper), into a shared
 library under ``phendiff_tpu_torch/build/`` (git-ignored).  The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs when the
+file name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  Nothing here runs when the
 package is imported: the first kernel call builds, or a caller builds all
 kernels at once with ``build()`` (one ``nvcc`` process per source, all
 started together).
@@ -46,23 +47,31 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` is built: its name hashes the
+    source, every ``csrc/*.cuh`` and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel whose library is missing, all in parallel.
 
-    Returns each built kernel's compiler log (``ptxas -v``: registers, shared
-    memory and spills per kernel); raises with the log if one fails.
+    Returns each named kernel's compiler log (``ptxas -v``: registers, shared
+    memory and spills per kernel), kept beside its library, so a library
+    built earlier reports the log of its build; raises with the log if one
+    fails.
     """
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    procs, logs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log_path = out.with_suffix(".log")
+            logs[name] = log_path.read_text() if log_path.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -71,11 +80,12 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
                              text=True),
             tmp, out,
         )
-    logs, failed = {}, {}
+    failed = {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
         else:
             failed[name] = log
@@ -84,6 +94,23 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             "nvcc failed:\n" + "\n".join(f"--- {n}\n{log}" for n, log in failed.items())
         )
     return logs
+
+
+def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
+    """Per compiled function of a ``ptxas -v`` log (its mangled name): the
+    registers it uses and its spill bytes (stores + loads)."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ", 1)[1].strip()
+            out[fn] = {}
+        elif fn and "spill stores" in line:
+            nums = [int(x) for x in line.replace(",", " ").split() if x.isdigit()]
+            out[fn]["spill_bytes"] = nums[1] + nums[2]
+        elif fn and "Used " in line and " registers" in line:
+            out[fn]["registers"] = int(line.split("Used ", 1)[1].split()[0])
+    return out
 
 
 @functools.cache

@@ -4,12 +4,12 @@ and their plain PyTorch versions.
 Counterpart of ``phendiff_tpu/ops/flash_attention.py`` (TPU kernels
 ``_fwd_kernel``, launched by ``_flash_fwd_3d``, and ``_bwd_kernel``,
 launched by ``_flash_bwd_3d`` under the custom VJP).  The CUDA sources,
-``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``, stream tiles
-through shared memory with f32 softmax arithmetic; their headers give the
-designs and the bounds.  The TPU kernels' [BH, D, S] layout was a lane
-workaround and is not carried over: the kernels read [B, S, H, D] through
-strides, so the q/k/v column slices of the fused qkv projection need no
-copy.
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu`` (with the
+shared ``csrc/attn_mma.cuh``), stream tiles through shared memory with f32
+softmax arithmetic; their headers give the designs and the bounds.  The
+TPU kernels' [BH, D, S] layout was a lane workaround and is not carried
+over: the kernels read [B, S, H, D] through strides, so the q/k/v column
+slices of the fused qkv projection need no copy.
 
 ``flash_attention`` launches the kernels for CUDA tensors and uses
 ``attention_plain`` (differentiated by autograd) only for CPU tensors.
@@ -17,6 +17,11 @@ When a gradient is needed the forward also saves each row's log-sum-exp,
 and the backward (``flash_attention_bwd``) recomputes the probabilities
 from it.  ``flash_attention.launches`` and ``flash_attention_bwd.launches``
 count kernel launches.
+
+The kernel is chosen by the input dtype, inside the C entries: bf16 runs
+the tensor-core kernels (``mma.sync``), f32 the CUDA-core FMA kernels,
+because the tensor cores take f32 only as TF32, which would miss the f32
+tolerances.  Either way a CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations

@@ -53,16 +53,29 @@ def _qkv(b, s, h, d, seed=0):
 # -- attention ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [4, 8])
-def test_attention_plain_matches_xla_and_pallas_interpret(d):
-    q, k, v = _qkv(2, 64, 3, d, seed=d)
-    want_xla = np.asarray(attention_xla(*map(jnp.asarray, (q, k, v))))
-    want_pallas = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v))))
-    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+def _tol(dtype, want):
+    """f32: f32 rounding; bf16: one bf16 ulp of the largest value."""
+    if dtype == "float32":
+        return dict(atol=F32_ATOL)
+    return dict(rtol=BF16_RTOL, atol=BF16_RTOL * np.abs(want).max())
+
+
+# D = 8 is the main path's head width, 64 the SD path's, 4 pads up to 8.
+@pytest.mark.parametrize("d,dtype", [(4, "float32"), (8, "float32"), (64, "float32"),
+                                     (8, "bfloat16"), (64, "bfloat16")],
+                         ids=["4", "8", "64", "8-bfloat16", "64-bfloat16"])
+def test_attention_plain_matches_xla_and_pallas_interpret(d, dtype):
+    q, k, v = _qkv(2, 128, 3, d, seed=d)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq = [jnp.asarray(a, jd) for a in (q, k, v)]
+    want_xla = np.asarray(attention_xla(*jq).astype(jnp.float32))
+    want_pallas = np.asarray(jax_flash(*jq).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
     for got in (attention_plain(tq, tk, tv), flash_attention(tq, tk, tv),
                 multi_head_attention(tq, tk, tv)):
-        np.testing.assert_allclose(got.numpy(), want_xla, atol=F32_ATOL)
-        np.testing.assert_allclose(got.numpy(), want_pallas, atol=F32_ATOL)
+        assert got.dtype == td
+        np.testing.assert_allclose(got.float().numpy(), want_xla, **_tol(dtype, want_xla))
+        np.testing.assert_allclose(got.float().numpy(), want_pallas, **_tol(dtype, want_pallas))
 
 
 def test_attention_plain_bf16_and_cross_attention_match_xla():
@@ -129,9 +142,11 @@ def test_wrappers_reject_other_devices():
 # -- gradients ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_backward_matches_pallas_vjp(dtype):
-    q, k, v, g = _qkv(2, 128, 2, 8, seed=11) + _qkv(2, 128, 2, 8, seed=12)[:1]
+@pytest.mark.parametrize("dtype,d", [("float32", 8), ("bfloat16", 8),
+                                     ("float32", 64), ("bfloat16", 64)],
+                         ids=["float32", "bfloat16", "float32-d64", "bfloat16-d64"])
+def test_attention_backward_matches_pallas_vjp(dtype, d):
+    q, k, v, g = _qkv(2, 128, 2, d, seed=11) + _qkv(2, 128, 2, d, seed=12)[:1]
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     _, vjp = jax.vjp(jax_flash, *(jnp.asarray(a, jd) for a in (q, k, v)))
     want = [np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(g, jd))]
@@ -141,9 +156,51 @@ def test_attention_backward_matches_pallas_vjp(dtype):
     for got in (flash_attention_bwd_plain(tq, tk, tv, tg), [t.grad for t in leaves]):
         for a, w in zip(got, want):
             assert a.dtype == td
-            tol = dict(atol=F32_ATOL) if dtype == "float32" else dict(
-                rtol=BF16_RTOL, atol=BF16_RTOL * np.abs(w).max())
-            np.testing.assert_allclose(a.float().numpy(), w, **tol)
+            np.testing.assert_allclose(a.float().numpy(), w, **_tol(dtype, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
+    """S = 100, a multiple of no kernel tile: forward and backward of the
+    plain versions against ``attention_xla`` and its VJP."""
+    q, k, v = _qkv(2, 100, 2, 8, seed=70)
+    g = _qkv(2, 100, 2, 8, seed=71)[0]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    out, vjp = jax.vjp(attention_xla, *(jnp.asarray(a, jd) for a in (q, k, v)))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(td) for a in (q, k, v, g))
+    got = [attention_plain(tq, tk, tv), *flash_attention_bwd_plain(tq, tk, tv, tg)]
+    for a, w in zip(got, [out, *vjp(jnp.asarray(g, jd))]):
+        w = np.asarray(w.astype(jnp.float32))
+        assert a.dtype == td
+        np.testing.assert_allclose(a.float().numpy(), w, **_tol(dtype, w))
+
+
+@pytest.mark.parametrize("kernel,category", [
+    ("void (anonymous namespace)::flash_fwd_mma_kernel<8>(...)", "flash_attn_fwd"),
+    ("void (anonymous namespace)::flash_fwd_kernel<64>(...)", "flash_attn_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_mma_kernel<8>(...)", "flash_attn_bwd"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_mma_kernel<64>(...)", "flash_attn_bwd"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_kernel<8>(...)", "flash_attn_bwd"),
+])
+def test_forward_profile_attributes_the_attention_kernels(kernel, category):
+    from phendiff_tpu_torch.obs.forward_profile import categorize
+
+    assert categorize(kernel) == category
+
+
+def test_kernel_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
+    from phendiff_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    before = _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != before  # an edited header is rebuilt
+    log = ("ptxas info    : Function properties for _Z3fooILi64EEv\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 6 bytes spill loads\n"
+           "ptxas info    : Used 255 registers, used 1 barriers, 33792 bytes smem\n")
+    assert _build.ptxas_functions(log) == {"_Z3fooILi64EEv": {"spill_bytes": 10, "registers": 255}}
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
