@@ -9,12 +9,19 @@ failure exits non-zero before the final line:
 1. environment: the card (``nvidia-smi``), torch, CUDA and nvcc versions;
 2. build: every CUDA kernel library, from ``phendiff_tpu_torch/csrc``, one
    ``nvcc`` per source, all in parallel, with registers and spills per
-   compiled function (``ptxas -v``); a spill in any tensor-core (bf16)
-   attention kernel fails the run;
+   compiled function (``ptxas -v``; the GroupNorm kernels' also on their
+   own); a spill in any tensor-core (bf16) attention kernel fails the run;
 3. kernel checks at the main paths' shapes: each kernel against its plain
    PyTorch version on the same inputs, two calls bit-equal, with its time,
    the plain version's, one library call's (a yardstick the port never
-   calls) and the bound;
+   calls) and the bound; the GroupNorm forward and backward at each of the
+   main path's 12 (S, C) with and without SiLU, with their launch plans and
+   the clusters the card holds at once (their ``ms`` is device time, the
+   calls captured in a CUDA graph, since a call from Python takes longer
+   than the kernel at most of these shapes; ``call_ms`` is the call's),
+   the forward's [B, G] mean and rstd against the plain statistics, which
+   the backward's check also takes; a plain device copy of the largest
+   GroupNorm map, the rate the card reaches on those bytes;
 4. one full-width ``super_small`` 128 px forward at batch 4 in bf16,
    kernels against plain versions, and the same for every denoiser call
    of a 5-step DDIB at batch 2;
@@ -28,8 +35,10 @@ failure exits non-zero before the final line:
 7. the training path: ``make_train_step`` on ``super_small`` at 128 px,
    batch 32, bf16 compute with f32 master params, ``proba_uncond=0.1``, the
    default optimizer and scheduler (``bench.py``'s ``bench_train``): 10 timed
-   steps after warm-up, with launch counts of the attention forward and
-   backward and GroupNorm kernels, and a bit-equal checkpoint round trip;
+   steps after warm-up, with launch counts of the attention and GroupNorm
+   forward and backward kernels, a count of output gradients the
+   GroupNorm backward had to copy (0), and a bit-equal checkpoint round
+   trip;
 8. the trainer: ``Trainer.run`` for 3 steps over a small image folder this
    script writes, and the EMA pipeline it saves loaded back;
 9. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
@@ -41,7 +50,6 @@ and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
@@ -68,6 +76,14 @@ SFU_PER_CLOCK_PER_SM = 16
 # in f32, f32 rounding.
 ATTN_TOL = {"bfloat16": dict(rtol=2.0**-6, atol=2e-3), "float32": dict(rtol=1e-4, atol=1e-5)}
 GN_TOL = dict(rtol=2.0**-7, atol=1e-3)  # one bf16 ulp of the output
+# The forward's f32 mean and rstd against the plain version's: f32 sums of
+# up to 0.5 M terms in another order.
+GN_STATS_TOL = dict(rtol=1e-5, atol=1e-5)
+# GroupNorm backward kernel against the same closed form in plain f32,
+# relative L2: dx one bf16 rounding of each element; dscale and dbias f32
+# sums of up to 16 M terms in another order.
+GN_BWD_DX_REL_L2 = 5e-3
+GN_BWD_PARAM_REL_L2 = 1e-4
 FORWARD_REL_L2_TOL = 2e-2  # 41 GroupNorms + 6 attentions, bf16 throughout
 # Attention backward, relative L2 per gradient: in bf16 the kernel takes the
 # row term from the bf16 forward output and rounds ds and p at slightly
@@ -86,6 +102,15 @@ DESIGN = {
     "flash_attn_bwd": "bf16: two mma.sync kernels (dq per q tile; dk/dv per key tile from "
                       "S^T = K Q^T), p recomputed from the saved lse, no atomics; f32: "
                       "CUDA-core FMA",
+    "group_norm_silu": "one launch: a (sample, channel slice of whole groups) tile split over "
+                       "a thread-block cluster, each block's rows in shared memory by TMA "
+                       "boxes, f32 sums as the boxes land, combined in rank order through "
+                       "distributed shared memory, normalised from shared memory: one HBM "
+                       "read of x",
+    "group_norm_silu_bwd": "one launch, the forward's cluster tiling holding x and g: per-"
+                           "channel sums of dz and dz*x^ over the cluster, dx from shared "
+                           "memory; dscale/dbias summed over the batch in sample order by "
+                           "the last cluster of each channel slice (atomic ticket)",
 }
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
 
@@ -123,6 +148,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with no host time: ``iters`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -130,39 +182,6 @@ def max_abs(a, b) -> float:
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
-
-
-@contextlib.contextmanager
-def plain_kernels():
-    """Route the UNet's GroupNorm and attention through their plain versions
-    (the reference runs of phase 4); restores the kernels on exit."""
-    from phendiff_tpu_torch.ops import attention, gn_kernels, group_norm
-
-    saved = (group_norm.fused_group_norm, attention.flash_attention)
-    group_norm.fused_group_norm = lambda x, s, b, **kw: gn_kernels.group_norm_plain(x, s, b, **kw)
-    attention.flash_attention = lambda q, k, v, scale=None: attention.attention_plain(q, k, v, scale=scale)
-    try:
-        yield
-    finally:
-        group_norm.fused_group_norm, attention.flash_attention = saved
-
-
-@contextlib.contextmanager
-def record_gn_calls(calls: list):
-    """Record (S, C, G, act) of each GroupNorm call of the UNet."""
-    from phendiff_tpu_torch.ops import group_norm
-
-    inner = group_norm.fused_group_norm
-
-    def rec(x, s, b, **kw):
-        calls.append((x.shape[1], x.shape[2], kw["num_groups"], kw["act"]))
-        return inner(x, s, b, **kw)
-
-    group_norm.fused_group_norm = rec
-    try:
-        yield
-    finally:
-        group_norm.fused_group_norm = inner
 
 
 def phase_env(torch):
@@ -197,8 +216,11 @@ def phase_build():
     mma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
            for fn, props in ptxas[name].items() if "_mma_kernel" in fn}
     spills = sorted(fn for fn, props in mma.items() if props.get("spill_bytes", 1) != 0)
+    gn = {fn: props for fn, props in ptxas["group_norm_silu"].items() if "cluster" in fn}
     emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS),
-          "ptxas": ptxas, "mma_kernels_spilling": spills})
+          "ptxas": ptxas, "mma_kernels_spilling": spills, "group_norm_kernels": gn,
+          "group_norm_kernels_spilling": sorted(fn for fn, p in gn.items()
+                                                if p.get("spill_bytes", 0))})
     if len(mma) != 6 or spills:
         fail(f"tensor-core attention kernels: expected 6 without spills, got {mma}")
 
@@ -245,25 +267,44 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     return rec
 
 
+def gn_plan_record(torch, b, s, c, groups, act, backward=False):
+    from phendiff_tpu_torch.ops import gn_kernels
+
+    plan = gn_kernels.gn_plan(s, c, groups, 2, backward)
+    return {"plan": plan._asdict(), "max_active_clusters": gn_kernels.max_active_clusters(
+        b, s, c, groups, torch.bfloat16, act, backward)}
+
+
 def gn_check(torch, b, s, c, groups, act, iters=20):
     import torch.nn.functional as F
 
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, group_norm_plain
+    from phendiff_tpu_torch.ops.gn_kernels import (
+        _launch, fused_group_norm, group_norm_plain, group_stats_plain)
 
     g = torch.Generator(device="cuda").manual_seed(s + c)
     x = (torch.randn(b, s, c, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
     scale = torch.randn(c, generator=g, device="cuda")
     bias = torch.randn(c, generator=g, device="cuda")
     kw = dict(num_groups=groups, eps=1e-5, act=act, out_dtype=torch.bfloat16)
+    before = fused_group_norm.launches
     out = fused_group_norm(x, scale, bias, **kw)
     torch.cuda.synchronize()
     again = fused_group_norm(x, scale, bias, **kw)
     torch.cuda.synchronize()
+    one_launch = fused_group_norm.launches - before == 2
     ref = group_norm_plain(x, scale, bias, **kw)
+    # the [B, G] mean and rstd the forward writes for the backward
+    stats = _launch(x, scale, bias, groups, 1e-5, act, torch.bfloat16)[1:]
+    stats_ref = group_stats_plain(x, groups, 1e-5)
     torch.cuda.synchronize()
-    ok = torch.allclose(out.float(), ref.float(), **GN_TOL) and torch.equal(out, again)
+    stats_ok = all(torch.allclose(a, r, **GN_STATS_TOL) for a, r in zip(stats, stats_ref))
+    ok = (torch.allclose(out.float(), ref.float(), **GN_TOL) and torch.equal(out, again)
+          and one_launch and stats_ok)
     err = max_abs(out, ref)
-    ms = cuda_ms(lambda: fused_group_norm(x, scale, bias, **kw), iters=iters)
+    # device time (a CUDA graph of the calls) and the time of a call from
+    # Python, host included
+    ms = graph_ms(lambda: fused_group_norm(x, scale, bias, **kw), iters)
+    call_ms = cuda_ms(lambda: fused_group_norm(x, scale, bias, **kw), iters=iters)
     plain_ms = cuda_ms(lambda: group_norm_plain(x, scale, bias, **kw), iters=max(iters // 2, 3))
     sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
 
@@ -287,11 +328,93 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
         "phase": "kernel_check", "kernel": "group_norm_silu",
         "shape": {"B": b, "S": s, "C": c, "G": groups, "act": act}, "max_abs_err": err,
         "ok": bool(ok), "deterministic": bool(torch.equal(out, again)), "tol": GN_TOL,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "one_launch_per_call": one_launch, "stats_ok": stats_ok,
+        "stats_max_rel_err": max(float(((a - r).abs() / r.abs()).max())
+                                 for a, r in zip(stats, stats_ref)),
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_channels_last_ms": library_channels_last_ms, "bytes": n_bytes,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **gn_plan_record(torch, b, s, c, groups, act),
     }
+    emit(rec)
+    return rec
+
+
+def gn_bwd_check(torch, b, s, c, groups, act, sfu_rate, iters=20):
+    import torch.nn.functional as F
+
+    from phendiff_tpu_torch.ops import gn_kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(s + c + 1)
+    x = (torch.randn(b, s, c, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    gout = torch.randn(b, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(c, generator=gen, device="cuda")
+    bias = torch.randn(c, generator=gen, device="cuda")
+    # mean and rstd from the plain version, so the reference depends on
+    # nothing a kernel computed
+    mean, rstd = gn_kernels.group_stats_plain(x, groups, 1e-5)
+    kw = dict(num_groups=groups, act=act)
+
+    def kernel():
+        return gn_kernels.fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **kw)
+
+    before = gn_kernels.fused_group_norm_bwd.launches
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    one_launch = gn_kernels.fused_group_norm_bwd.launches - before == 2
+    ref = gn_kernels.group_norm_bwd_plain(x, gout, scale, bias, mean, rstd, **kw)
+    torch.cuda.synchronize()
+    errs = {n: rel_l2(a, r) for n, a, r in zip(("dx", "dscale", "dbias"), got, ref)}
+    deterministic = all(torch.equal(a, b2) for a, b2 in zip(got, again))
+    ok = (got[0].dtype == torch.bfloat16 and all(bool(torch.isfinite(a).all()) for a in got)
+          and errs["dx"] <= GN_BWD_DX_REL_L2 and errs["dscale"] <= GN_BWD_PARAM_REL_L2
+          and errs["dbias"] <= GN_BWD_PARAM_REL_L2 and deterministic and one_launch)
+    max_err = max_abs(got[0], ref[0])
+    del again, ref
+    ms, call_ms = graph_ms(kernel, iters), cuda_ms(kernel, iters=iters)
+    plain_ms = cuda_ms(lambda: gn_kernels.group_norm_bwd_plain(
+        x, gout, scale, bias, mean, rstd, **kw), iters=max(iters // 2, 3))
+    # The yardstick: autograd of F.group_norm (+ F.silu) on a contiguous
+    # [B, C, S] copy of x, bf16 weights, as the forward's yardstick.
+    xc = x.transpose(1, 2).contiguous().requires_grad_()
+    sb, bb = (t.to(torch.bfloat16).requires_grad_() for t in (scale, bias))
+    y = F.group_norm(xc, groups, sb, bb, 1e-5)
+    y = F.silu(y) if act == "silu" else y
+    gc = gout.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(y, (xc, sb, bb), gc, retain_graph=True),
+                         iters=iters)
+    el = b * s * c
+    n_bytes = el * (2 + 2 + 2) + 2 * c * 4 + 2 * c * 4 + 2 * b * groups * 4
+    flops = 20 * el  # x^, z, sigma, dz, the two sums, dx
+    exps = el if act == "silu" else 0
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(flops / F32_FLOPS, exps / sfu_rate)
+    rec = {
+        "phase": "kernel_check", "kernel": "group_norm_silu_bwd",
+        "shape": {"B": b, "S": s, "C": c, "G": groups, "act": act}, "max_abs_err": max_err,
+        "rel_l2": errs, "tol_rel_l2": {"dx": GN_BWD_DX_REL_L2, "dscale": GN_BWD_PARAM_REL_L2,
+                                       "dbias": GN_BWD_PARAM_REL_L2},
+        "ok": bool(ok), "deterministic": deterministic, "one_launch_per_call": one_launch,
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bytes": n_bytes,
+        "flops": flops, "exps": exps, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **gn_plan_record(torch, b, s, c, groups, act, backward=True),
+    }
+    emit(rec)
+    return rec
+
+
+def copy_check(torch, b, s, c, iters=20):
+    """The rate this card reaches on the largest GroupNorm map's bytes: a
+    plain device copy (``Tensor.copy_``, one read and one write) of it, in
+    device time."""
+    x = torch.empty(b, s, c, dtype=torch.bfloat16, device="cuda")
+    y = torch.empty_like(x)
+    ms = graph_ms(lambda: y.copy_(x), iters)
+    rec = {"phase": "copy_baseline", "shape": [b, s, c], "ms": ms, "bytes": 2 * x.nbytes,
+           "tb_per_s": 2 * x.nbytes / ms / 1e9,
+           "bound_ms": 1e3 * 2 * x.nbytes / HBM_BYTES_PER_S}
     emit(rec)
     return rec
 
@@ -370,6 +493,7 @@ def train_parts(torch, pipe, proba_uncond=0.1):
 
 
 def phase_grad_check(torch, pipe):
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
     from phendiff_tpu_torch.train.train_loop import (
         diffusion_loss, init_train_state, make_draws, make_optimizer, make_train_step)
 
@@ -426,7 +550,7 @@ def phase_grad_check(torch, pipe):
 
 def phase_train_path(torch, pipe, env):
     from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
     from phendiff_tpu_torch.train.checkpoints import CheckpointManager
     from phendiff_tpu_torch.train.train_loop import (
         init_train_state, make_draws, make_optimizer, make_train_step)
@@ -453,16 +577,20 @@ def phase_train_path(torch, pipe, env):
     run(TRAIN_WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = fused_group_norm.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
+    fused_group_norm_bwd.g_copies = 0
     t0 = time.perf_counter()
     losses = run(TRAIN_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"flash_attn_fwd": flash_attention.launches,
                 "flash_attn_bwd": flash_attention_bwd.launches,
-                "group_norm_silu": fused_group_norm.launches}
+                "group_norm_silu": fused_group_norm.launches,
+                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
     want = {"flash_attn_fwd": 6 * TRAIN_STEPS, "flash_attn_bwd": 6 * TRAIN_STEPS,
-            "group_norm_silu": 41 * TRAIN_STEPS}
+            "group_norm_silu": 41 * TRAIN_STEPS, "group_norm_silu_bwd": 41 * TRAIN_STEPS}
+    g_copies = fused_group_norm_bwd.g_copies
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     ckpt_dir = tempfile.mkdtemp(prefix="phd_ckpt_")
@@ -483,6 +611,7 @@ def phase_train_path(torch, pipe, env):
         "ms_per_step": 1e3 * dt / TRAIN_STEPS, "peak_mem_gib": peak,
         "launches": launches, "launches_expected": want,
         "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "group_norm_bwd_grad_copies": g_copies,
         "losses": [float(x) for x in losses], "loss_finite": bool(torch.isfinite(losses).all()),
         "checkpoint_round_trip_bit_equal": bool(bit_equal), "checkpoint_mib": ckpt_bytes / 2**20,
         "device": env["device"], "nvidia_smi": env["nvidia_smi"],
@@ -492,6 +621,8 @@ def phase_train_path(torch, pipe, env):
         fail("train path: non-finite loss or a checkpoint that does not round-trip")
     if launches != want:
         fail(f"train path launch counts {launches} != expected {want}")
+    if g_copies:
+        fail(f"the GroupNorm backward copied {g_copies} non-contiguous output gradients")
     return rec
 
 
@@ -502,7 +633,7 @@ def phase_trainer(torch, pipe):
     from PIL import Image
 
     from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train.train_loop import TrainConfig
     from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
@@ -522,14 +653,16 @@ def phase_trainer(torch, pipe):
     )
     paths = RunPaths.create(root, "exp", "run0")
     trainer = for_ddim_pipeline(pipe, cfg, paths)
-    flash_attention.launches = flash_attention_bwd.launches = fused_group_norm.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
     t0 = time.perf_counter()
     state = trainer.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"flash_attn_fwd": flash_attention.launches,
                 "flash_attn_bwd": flash_attention_bwd.launches,
-                "group_norm_silu": fused_group_norm.launches}
+                "group_norm_silu": fused_group_norm.launches,
+                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
     with open(os.path.join(paths.run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     loaded = ConditionalDDIMPipeline.from_pretrained(paths.full_pipeline_save, device="cuda")
@@ -542,7 +675,8 @@ def phase_trainer(torch, pipe):
     }
     emit(rec)
     # 3 steps; the end-of-epoch eval only saves the EMA pipeline
-    want = {"flash_attn_fwd": 18, "flash_attn_bwd": 18, "group_norm_silu": 123}
+    want = {"flash_attn_fwd": 18, "flash_attn_bwd": 18, "group_norm_silu": 123,
+            "group_norm_silu_bwd": 123}
     if (state.step != 3 or rec["logged_steps"] != [1, 2, 3] or not same
             or not all(math.isfinite(x) for x in rec["losses"]) or launches != want):
         fail(f"trainer run: {rec}")
@@ -580,8 +714,9 @@ def main() -> None:
 
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.config import super_small
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, plain_kernels
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.pipelines.transfer import ddib
 
@@ -611,18 +746,15 @@ def main() -> None:
     tgt = pipe.class_embeddings(torch.ones(BATCH, dtype=torch.long))
     denoise = pipe.denoiser_fn()
 
-    gn_calls: list = []
-    flash_attention.launches = 0
-    with record_gn_calls(gn_calls):
-        denoise(images, torch.full((BATCH,), 500, device="cuda"), src)
+    # the GroupNorm calls of one forward, by shape, and the launches of one
+    per_forward = group_norm_calls(RES)
+    flash_attention.launches = fused_group_norm.launches = 0
+    denoise(images, torch.full((BATCH,), 500, device="cuda"), src)
     torch.cuda.synchronize()
-    attn_per_forward = flash_attention.launches
-    per_forward = {}
-    for call in gn_calls:
-        per_forward[call] = per_forward.get(call, 0) + 1
-    if len(gn_calls) != 41 or attn_per_forward != 6:
-        fail(f"expected 41 GroupNorm and 6 attention calls per forward, "
-             f"got {len(gn_calls)} and {attn_per_forward}")
+    attn_per_forward, gn_per_forward = flash_attention.launches, fused_group_norm.launches
+    if sum(per_forward.values()) != 41 or gn_per_forward != 41 or attn_per_forward != 6:
+        fail(f"expected 41 GroupNorm and 6 attention calls per forward, got "
+             f"{sum(per_forward.values())} recorded, {gn_per_forward} and {attn_per_forward}")
 
     checks_ok = True
     attn = attention_check(torch, BATCH, 1024, 32, 8, sfu_rate)
@@ -630,12 +762,17 @@ def main() -> None:
     checks_ok &= attention_check(torch, 2, 4096, 10, 64, sfu_rate)["ok"]
     # float32 compute (a pipeline loaded without cast_params) runs the same kernel
     checks_ok &= attention_check(torch, BATCH, 1024, 32, 8, sfu_rate, "float32")["ok"]
-    gn_recs = {}
+    gn_recs, gn_bwd_recs = {}, {}
     for s, c, groups in sorted({(s, c, g) for s, c, g, _ in per_forward}):
         for act in (None, "silu"):
             rec = gn_check(torch, BATCH, s, c, groups, act)
             gn_recs[(s, c, groups, act)] = rec
             checks_ok &= rec["ok"]
+            rec = gn_bwd_check(torch, BATCH, s, c, groups, act, sfu_rate)
+            gn_bwd_recs[(s, c, groups, act)] = rec
+            checks_ok &= rec["ok"]
+    copy_check(torch, BATCH, *max(((s, c) for s, c, _, _ in per_forward),
+                                  key=lambda sc: sc[0] * sc[1]))
     bwd = attention_bwd_check(torch, BATCH, 1024, 32, 8, sfu_rate)
     checks_ok &= bwd["ok"]
     checks_ok &= attention_bwd_check(torch, BATCH, 1024, 32, 8, sfu_rate, "float32")["ok"]
@@ -643,8 +780,10 @@ def main() -> None:
     if not checks_ok:
         fail("a kernel disagrees with its plain version (see kernel_check lines)")
 
-    def per_forward_sum(key):
-        return sum(n * gn_recs[call][key] for call, n in per_forward.items())
+    def per_forward_sum(key, recs=gn_recs):
+        """Summed over the 41 calls of one forward (or, for the backward's
+        records, of one train step's backward)."""
+        return sum(n * recs[call][key] for call, n in per_forward.items())
 
     # -- 4. full-width forward and a short DDIB, kernels vs plain ----------
     xb = images[:4]
@@ -681,16 +820,19 @@ def main() -> None:
     ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    fused_group_norm.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
     t0 = time.perf_counter()
     out = ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"flash_attn_fwd": flash_attention.launches,
-                "group_norm_silu": fused_group_norm.launches}
+                "flash_attn_bwd": flash_attention_bwd.launches,
+                "group_norm_silu": fused_group_norm.launches,
+                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
     forwards = 2 * STEPS
-    want = {"flash_attn_fwd": 6 * forwards, "group_norm_silu": 41 * forwards}
+    want = {"flash_attn_fwd": 6 * forwards, "flash_attn_bwd": 0,
+            "group_norm_silu": 41 * forwards, "group_norm_silu_bwd": 0}
     main = {
         "phase": "main_path", "batch": BATCH, "res": RES, "steps": STEPS,
         "seconds": dt, "transfers_per_s": BATCH / dt,
@@ -716,11 +858,12 @@ def main() -> None:
     moments = phase_moments()
 
     # Forward times are per batch-32 UNet forward and backward times per
-    # batch-32 train step, each summed over the kernel's calls in it.
+    # batch-32 train step, each summed over the kernel's calls in it (the
+    # GroupNorm backward's 41 calls have the forward's shapes).
     by_path = {
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
                "trainer": trainer["launches"].get(name, 0)}
-        for name in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu")
+        for name in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
     }
     kernels = [
         {
@@ -752,7 +895,19 @@ def main() -> None:
             "bound_ms": per_forward_sum("bound_ms"), "bound_by": "bytes",
             "library_ms": per_forward_sum("library_ms"),
             "library_channels_last_ms": per_forward_sum("library_channels_last_ms"),
-            "launches_by_path": by_path["group_norm_silu"],
+            "call_ms": per_forward_sum("call_ms"),
+            "launches_by_path": by_path["group_norm_silu"], "design": DESIGN["group_norm_silu"],
+        },
+        {
+            "name": "group_norm_silu_bwd", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/group_norm_silu.cu",
+            "replaces": "phendiff_tpu/ops/gn_kernels.py:98",
+            "launches": train["launches"]["group_norm_silu_bwd"],
+            "max_abs_err": max(r["max_abs_err"] for r in gn_bwd_recs.values()),
+            **{k: per_forward_sum(k, gn_bwd_recs)
+               for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "launches_by_path": by_path["group_norm_silu_bwd"],
+            "design": DESIGN["group_norm_silu_bwd"],
         },
         {
             "name": "channel_moments", "route": "cuda",

@@ -1,44 +1,77 @@
-// Fused GroupNorm + affine + optional SiLU for NVIDIA Hopper (sm_90a).
+// Fused GroupNorm + affine + optional SiLU for NVIDIA Hopper (sm_90a):
+// forward and backward kernels on thread-block clusters.
 //
-// Replaces the TPU kernel `_gn_kernel` launched by `_pallas_gn` in
-// phendiff_tpu/ops/gn_kernels.py, with the semantics of the XLA path of
+// The forward replaces the TPU kernel `_gn_kernel` launched by `_pallas_gn`
+// in phendiff_tpu/ops/gn_kernels.py, with the semantics of the XLA path of
 // phendiff_tpu/ops/group_norm.py (the TPU default): f32 one-pass moments
 // E[x^2] - E[x]^2 per (sample, group), var clamped at 0 (the TPU kernel
 // lacks that clamp), ((x - mean) * rsqrt(var + eps)) * scale + bias in f32,
-// then SiLU, written in the input dtype.
+// then SiLU, written in the input dtype.  It also writes each (sample,
+// group)'s mean and rstd for the backward.
 //
-// Design.  The TPU kernel ran one program per sample with the whole
-// [S, C] slab in VMEM.  A 128 px level-0 sample is 128*128*192 = 3.1 M
-// elements, far beyond a Hopper block, so the reduction is split:
-//   1. gn_stats: grid (nsplit, B); each block sums x and x^2 per channel
-//      over a contiguous range of rows, f32, and writes one partial per
-//      channel (fixed-order sums, no atomics: deterministic);
-//   2. gn_finalize: one block per sample combines the nsplit * C/G partials
-//      of each group in a fixed order into mean and rstd;
-//   3. gn_apply: same grid as 1; reads x once more and writes the output.
-// Threads are laid out so that consecutive threads read consecutive
-// 16-byte vectors of a row (8 channels each): every load and store is
-// coalesced along C, and each thread keeps its 8 channels' coefficients in
-// registers.  Group widths C/G that are not a power of two (6, 12) only
-// change which group a channel maps to.
+// The backward is the closed form of the gradient of that function (the TPU
+// package recomputes its XLA reference under jax.vjp instead), with the
+// saved mean mu and rstd r: x^ = (x - mu) r, z = scale x^ + bias,
+// dz = g sigma(z) (1 + z (1 - sigma(z))) with SiLU (else g), per (sample,
+// channel) A = sum_s dz and B = sum_s dz x^, per (sample, group)
+// a = sum_c scale_c A_c / N and b = sum_c scale_c B_c / N with N = S C/G,
+// dx = r (scale dz - a - x^ b) in x's dtype, dbias = sum_b A and
+// dscale = sum_b B in f32.
 //
-// Bound.  The work is 2 reads and 1 write of x (the TPU kernel's single
-// read cannot carry over: a sample does not fit on chip), against the
-// bound of 1 read and 1 write: memory, not arithmetic.
+// Bound.  Both are memory-bound: the forward moves one read of x and one
+// write of the output, the backward one read of x and g and one write of
+// dx; their arithmetic (~10 and ~20 f32 operations an element) takes a
+// fraction of that time.  So each reads its inputs from HBM once, as the
+// TPU kernel's single read into VMEM did.
+//
+// Design.  A whole sample does not fit on chip, but a tile of one sample
+// and a slice of cb channels holding whole groups does: groups partition
+// the channels, so a tile's statistics need nothing from outside it.  The
+// tile's S rows are split over the k blocks of a thread-block cluster
+// (cluster dims (k, 1, 1), grid (k * C / cb, B)).  Thread 0 of each block
+// asks the TMA unit for all its rows x cb at once, in boxes of up to 256
+// rows, each completing on its own mbarrier; the threads sum x and x^2 per
+// channel in f32 box by box as the boxes land, and the k blocks combine
+// their partial sums through distributed shared memory in rank order, so
+// every block holds the same totals and two calls give the same bits.  Each
+// block then normalises its slice from shared memory and writes it out: one
+// read, one write.  The backward holds x and g the same way, reduces A and
+// B the same way, and writes dx; the B per-sample partials of dscale and
+// dbias go to a workspace, and the last cluster of each channel slice to
+// finish (an atomic ticket) sums them over the batch in sample order, so
+// the whole backward is one launch and deterministic.  Threads own 8
+// channels (a 16-byte bf16 vector) of a row: lane l of a warp takes vector
+// l % (cb/8) of rows stepping by the warp's row count, so its channels'
+// coefficients stay in registers and a warp's shuffles reduce the rows that
+// share them.  The per-element work is a few FMAs and, with SiLU, one fast
+// exp and one fast reciprocal.  The launch shape (cb, k, threads, shared
+// bytes) comes from the caller's plan (ops/gn_kernels.py::gn_plan) and is
+// checked here.  What still holds them back: a block's phases (load,
+// reduce across the cluster, write) run one after another, and the blocks
+// of a wave run them in step, so reads and writes overlap little (PERF.md).
 //
 // The same file holds the per-channel moments of the moments tool
 // (phd_channel_moments): the counterpart of `m_pallas` / `_pallas_kernel`
 // in tools/bench_gn_moments.py, f32 sum x and sum x^2 per (sample,
 // channel).  The TPU kernel carried f32 accumulators across a sequential
-// S-tile grid axis; here pass 1 above (gn_stats) writes per-split partial
-// sums from many blocks per sample, and moments_combine adds them in a
-// fixed order (deterministic, no atomics).  One read of x bounds it.
+// S-tile grid axis; here gn_stats writes per-split partial sums from many
+// blocks per sample, and moments_combine adds them in a fixed order
+// (deterministic, no atomics).  One read of x bounds it.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
+constexpr int kMaxCluster = 16;   // above 8 needs the non-portable attribute
+constexpr int kMaxTileChannels = 256;  // cb / 8 vectors of a row fit a warp
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -70,6 +103,572 @@ __device__ __forceinline__ void store8(float* p, const float* f) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
+
+// ---- cluster tiles --------------------------------------------------------
+
+constexpr int kBoxRows = 256;  // the most rows a TMA box may have
+constexpr int kMaxBoxes = 64;  // mbarriers a block keeps, one per box
+
+// A block's rows arrive in TMA boxes of up to 256 rows, and its tile has
+// room for whole boxes (rows past its own are loaded and not used).
+__host__ __device__ inline int box_rows(int rpb) { return rpb < kBoxRows ? rpb : kBoxRows; }
+
+__host__ __device__ inline int alloc_rows(int rpb) {
+  const int box = box_rows(rpb);
+  return (rpb + box - 1) / box * box;
+}
+
+// Bytes of one tile (x or g) of a block, 128-byte aligned for TMA.
+__host__ __device__ inline size_t tile_bytes(int rpb, int cb, int esize) {
+  return (static_cast<size_t>(alloc_rows(rpb)) * cb * esize + 127) / 128 * 128;
+}
+
+// Shared memory of one block: `arrays` tiles, then f32 scratch
+// red[2][nwarps][cb], part[2][cb], tot[2][cb], coef[2][cb], then a ticket
+// (16 bytes) and one mbarrier per box.  ops/gn_kernels.py::_smem_bytes
+// computes the same.
+__host__ __device__ inline size_t smem_bytes(int arrays, int rpb, int cb, int esize,
+                                             int threads) {
+  return arrays * tile_bytes(rpb, cb, esize) +
+         sizeof(float) * (2 * (threads / 32) * cb + 6 * cb) + 16 + 8 * kMaxBoxes;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// Start loading the block's tiles (xs, and gs unless null): rows row0 ..
+// of the [B*S, C] maps tx (and tg), channels c0 .. c0 + cb - 1, as TMA
+// boxes of box_rows(rpb) rows; box i completes on mbarrier bars[i].  Thread
+// 0 issues every box at once; the others return at once.  Every thread
+// calls it; a thread waits (mbar_wait) on the boxes of the rows it reads.
+template <typename T>
+__device__ void start_tiles(const CUtensorMap* tx, const CUtensorMap* tg, T* xs, T* gs,
+                            long long row0, int c0, int rpb, int cb, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    const int box = box_rows(rpb), nbox = alloc_rows(rpb) / box;
+    const unsigned box_bytes = box * cb * static_cast<unsigned>(sizeof(T));
+    for (int i = 0; i < nbox; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + i))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int i = 0; i < nbox; ++i) {
+      const unsigned bar = smem_u32(bars + i);
+      const int row = static_cast<int>(row0) + i * box;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"(box_bytes * (gs ? 2u : 1u))
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(xs) + i * box_bytes),
+          "l"(reinterpret_cast<uint64_t>(tx)), "r"(c0), "r"(row), "r"(bar)
+          : "memory");
+      if (gs)
+        asm volatile(
+            "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(gs) + i * box_bytes),
+            "l"(reinterpret_cast<uint64_t>(tg)), "r"(c0), "r"(row), "r"(bar)
+            : "memory");
+    }
+  }
+  __syncthreads();  // the barriers exist before anyone waits on them
+}
+
+// Before the block exits: every box has landed (a box no thread read may
+// still be in flight, and shared memory must outlive it).
+__device__ __forceinline__ void finish_tiles(int rpb, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    const int nbox = alloc_rows(rpb) / box_rows(rpb);
+    for (int i = 0; i < nbox; ++i) mbar_wait(smem_u32(bars + i), 0);
+  }
+}
+
+// Split cluster barrier: arrive once this block no longer reads the others'
+// shared memory, wait before it exits (a block's shared memory must outlive
+// every remote read of it).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Which vector of which rows a thread owns: lane l < V * P of each warp
+// takes vector v = l % V (channels 8v .. 8v+7 of the tile) of rows
+// row0, row0 + rstep, ...; V = cb / 8 vectors a row, P = 32 / V rows a warp.
+struct VecMap {
+  int V, P, j, v, row0, rstep;
+  bool active;
+};
+
+__device__ __forceinline__ VecMap vec_map(int cb) {
+  VecMap m;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m.V = cb / 8;
+  m.P = 32 / m.V;
+  m.j = lane / m.V;
+  m.v = lane - m.j * m.V;
+  m.active = lane < m.V * m.P;
+  m.row0 = warp * m.P + m.j;
+  m.rstep = (blockDim.x >> 5) * m.P;
+  return m;
+}
+
+// Sum over the P lanes of a warp that share vector v (lanes v + V * j), in
+// a fixed tree order; lane v (j = 0) ends with the sum.
+__device__ __forceinline__ float warp_rows_sum(float val, const VecMap& m) {
+  for (int d = 1; d < m.P; d <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, val, d * m.V);
+    if (m.j + d < m.P) val += o;
+  }
+  return val;
+}
+
+// Two per-thread 8-channel partials (a, q) summed over the block's rows,
+// then over the cluster's blocks in rank order.  Every block of the cluster
+// ends with the tile's totals in tot[0][cb] (a) and tot[1][cb] (q).  Arrives
+// at the split cluster barrier; the caller waits before it exits.
+__device__ void tile_sums(cg::cluster_group& cluster, const float (&a)[8],
+                          const float (&q)[8], const VecMap& m, int cb, float* red,
+                          float* part, float* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float ra[8], rq[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ra[i] = warp_rows_sum(m.active ? a[i] : 0.f, m);
+    rq[i] = warp_rows_sum(m.active ? q[i] : 0.f, m);
+  }
+  if (lane < m.V) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      red[warp * cb + 8 * lane + i] = ra[i];
+      red[(nwarps + warp) * cb + 8 * lane + i] = rq[i];
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 2 * cb; t += blockDim.x) {
+    const int which = t / cb, c = t - which * cb;
+    float s = 0.f;
+    for (int w = 0; w < nwarps; ++w) s += red[(which * nwarps + w) * cb + c];
+    part[t] = s;
+  }
+  cluster.sync();
+  const int k = static_cast<int>(cluster.num_blocks());
+  for (int t = threadIdx.x; t < 2 * cb; t += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < k; ++r) s += cluster.map_shared_rank(part, r)[t];
+    tot[t] = s;
+  }
+  cluster_arrive();
+  __syncthreads();
+}
+
+// SiLU with a fast exp and reciprocal: y / (1 + e^-y), 0 where e^-y
+// overflows.
+__device__ __forceinline__ float silu(float y) { return __fdividef(y, 1.f + __expf(-y)); }
+
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__ scale,
+               const float* __restrict__ bias, T* __restrict__ out,
+               float* __restrict__ mean_out, float* __restrict__ rstd_out, int S, int C,
+               int G, int cb, int rpb, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c0 = static_cast<int>(blockIdx.x) / k * cb;
+  const long long b = blockIdx.y;
+  const int r0 = rank * rpb;
+  const int rows = max(0, min(S - r0, rpb));
+  const int gw = C / G;
+  const int box = box_rows(rpb);
+  T* xs = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + tile_bytes(rpb, cb, sizeof(T)));
+  float* part = red + 2 * (blockDim.x >> 5) * cb;
+  float* tot = part + 2 * cb;
+  float* coef = tot + 2 * cb;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + 2 * cb) + 2;
+
+  start_tiles<T>(&tx, nullptr, xs, nullptr, b * S + r0, c0, rpb, cb, bars);
+
+  // sums of x and x^2 per channel, box by box as the boxes land
+  const VecMap m = vec_map(cb);
+  float s[8], q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = q[i] = 0.f;
+  if (m.active) {
+    int landed = -1;
+    for (int r = m.row0; r < rows; r += m.rstep) {
+      if (r / box != landed) {
+        landed = r / box;
+        mbar_wait(smem_u32(bars + landed), 0);
+      }
+      float f[8];
+      load8(xs + r * cb + 8 * m.v, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s[i] += f[i];
+        q[i] = fmaf(f[i], f[i], q[i]);
+      }
+    }
+  }
+  tile_sums(cluster, s, q, m, cb, red, part, tot);
+
+  // per channel: its group's mean and rstd, from the group's channels in
+  // order, folded with the affine into y = x * mul + add
+  const float count = static_cast<float>(S) * gw;
+  for (int c = threadIdx.x; c < cb; c += blockDim.x) {
+    const int first = c - c % gw;
+    float a = 0.f, qq = 0.f;
+    for (int i = 0; i < gw; ++i) {
+      a += tot[first + i];
+      qq += tot[cb + first + i];
+    }
+    const float mu = a / count;
+    const float var = fmaxf(qq / count - mu * mu, 0.f);
+    const float rs = rsqrtf(var + eps);
+    const float mul = rs * scale[c0 + c];
+    coef[c] = mul;
+    coef[cb + c] = fmaf(-mu, mul, bias[c0 + c]);
+    if (rank == 0 && c == first) {
+      const long long gi = b * G + (c0 + c) / gw;
+      mean_out[gi] = mu;
+      rstd_out[gi] = rs;
+    }
+  }
+  __syncthreads();
+
+  if (m.active) {
+    float mul[8], add[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mul[i] = coef[8 * m.v + i];
+      add[i] = coef[cb + 8 * m.v + i];
+    }
+    T* ob = out + (b * S + r0) * C + c0 + 8 * m.v;
+#pragma unroll 2
+    for (int r = m.row0; r < rows; r += m.rstep) {
+      float f[8];
+      load8(xs + r * cb + 8 * m.v, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float y = fmaf(f[i], mul[i], add[i]);
+        f[i] = SILU ? silu(y) : y;
+      }
+      store8(ob + static_cast<long long>(r) * C, f);
+    }
+  }
+  finish_tiles(rpb, bars);
+  cluster_wait();
+}
+
+// dL/dz of the affine output z = scale x^ + bias, from the output gradient.
+template <bool SILU>
+__device__ __forceinline__ float grad_z(float g, float xh, float sc, float bi) {
+  if (!SILU) return g;
+  const float z = fmaf(xh, sc, bi);
+  const float sg = __fdividef(1.f, 1.f + __expf(-z));
+  return g * sg * fmaf(z, 1.f - sg, 1.f);
+}
+
+// sums: f32 [2][B][C] workspace (per-sample A and B); counters: one zeroed
+// ticket per channel slice, left at zero again by the last cluster.
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_bwd_cluster(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
+               const float* __restrict__ scale, const float* __restrict__ bias,
+               const float* __restrict__ mean, const float* __restrict__ rstd,
+               T* __restrict__ dx, float* __restrict__ dscale, float* __restrict__ dbias,
+               float* __restrict__ sums, unsigned* __restrict__ counters, int B, int S,
+               int C, int G, int cb, int rpb) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slice = static_cast<int>(blockIdx.x) / k;
+  const int c0 = slice * cb;
+  const long long b = blockIdx.y;
+  const int r0 = rank * rpb;
+  const int rows = max(0, min(S - r0, rpb));
+  const int gw = C / G;
+  const int box = box_rows(rpb);
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = reinterpret_cast<T*>(smem + tile_bytes(rpb, cb, sizeof(T)));
+  float* red = reinterpret_cast<float*>(smem + 2 * tile_bytes(rpb, cb, sizeof(T)));
+  float* part = red + 2 * (blockDim.x >> 5) * cb;
+  float* tot = part + 2 * cb;
+  float* coef = tot + 2 * cb;
+  unsigned* ticket = reinterpret_cast<unsigned*>(coef + 2 * cb);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + 2 * cb) + 2;
+
+  start_tiles<T>(&tx, &tg, xs, gs, b * S + r0, c0, rpb, cb, bars);
+
+  // per channel of this thread: x^ = x * rs + nmr, z = x^ * sc + bi
+  const VecMap m = vec_map(cb);
+  float rs[8], nmr[8], sc[8], bi[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = c0 + 8 * m.v + i;
+    rs[i] = rstd[b * G + c / gw];
+    nmr[i] = -mean[b * G + c / gw] * rs[i];
+    sc[i] = scale[c];
+    bi[i] = bias[c];
+  }
+
+  float A[8], Bs[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) A[i] = Bs[i] = 0.f;
+  if (m.active) {
+    int landed = -1;
+    for (int r = m.row0; r < rows; r += m.rstep) {
+      if (r / box != landed) {
+        landed = r / box;
+        mbar_wait(smem_u32(bars + landed), 0);
+      }
+      float f[8], gv[8];
+      load8(xs + r * cb + 8 * m.v, f);
+      load8(gs + r * cb + 8 * m.v, gv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xh = fmaf(f[i], rs[i], nmr[i]);
+        const float dz = grad_z<SILU>(gv[i], xh, sc[i], bi[i]);
+        A[i] += dz;
+        Bs[i] = fmaf(dz, xh, Bs[i]);
+      }
+    }
+  }
+  tile_sums(cluster, A, Bs, m, cb, red, part, tot);
+
+  // per channel: its group's a and b, from the group's channels in order
+  const float count = static_cast<float>(S) * gw;
+  for (int c = threadIdx.x; c < cb; c += blockDim.x) {
+    const int first = c - c % gw;
+    float a = 0.f, bq = 0.f;
+    for (int i = 0; i < gw; ++i) {
+      const float s = scale[c0 + first + i];
+      a = fmaf(s, tot[first + i], a);
+      bq = fmaf(s, tot[cb + first + i], bq);
+    }
+    coef[c] = a / count;
+    coef[cb + c] = bq / count;
+  }
+
+  // dbias and dscale: rank 0 of each cluster posts its sample's sums; the
+  // last of the B clusters of this channel slice adds them in sample order.
+  if (rank == 0) {
+    for (int c = threadIdx.x; c < cb; c += blockDim.x) {
+      sums[b * C + c0 + c] = tot[c];
+      sums[(B + b) * C + c0 + c] = tot[cb + c];
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *ticket = atomicAdd(&counters[slice], 1u);
+    __syncthreads();
+    if (*ticket == static_cast<unsigned>(B - 1)) {
+      __threadfence();
+      for (int c = threadIdx.x; c < cb; c += blockDim.x) {
+        float da = 0.f, db = 0.f;
+        for (int bb = 0; bb < B; ++bb) {
+          da += __ldcg(&sums[static_cast<long long>(bb) * C + c0 + c]);
+          db += __ldcg(&sums[static_cast<long long>(B + bb) * C + c0 + c]);
+        }
+        dbias[c0 + c] = da;
+        dscale[c0 + c] = db;
+      }
+      if (threadIdx.x == 0) counters[slice] = 0u;
+    }
+  }
+  __syncthreads();
+
+  if (m.active) {
+    // dx = rs (sc dz - a - x^ b) = ka dz + kb x^ + kc
+    float ka[8], kb[8], kc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ka[i] = rs[i] * sc[i];
+      kb[i] = -rs[i] * coef[cb + 8 * m.v + i];
+      kc[i] = -rs[i] * coef[8 * m.v + i];
+    }
+    T* db = dx + (b * S + r0) * C + c0 + 8 * m.v;
+#pragma unroll 2
+    for (int r = m.row0; r < rows; r += m.rstep) {
+      float f[8], gv[8];
+      load8(xs + r * cb + 8 * m.v, f);
+      load8(gs + r * cb + 8 * m.v, gv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xh = fmaf(f[i], rs[i], nmr[i]);
+        const float dz = grad_z<SILU>(gv[i], xh, sc[i], bi[i]);
+        f[i] = fmaf(ka[i], dz, fmaf(kb[i], xh, kc[i]));
+      }
+      store8(db + static_cast<long long>(r) * C, f);
+    }
+  }
+  finish_tiles(rpb, bars);
+  cluster_wait();
+}
+
+template <typename T, bool SILU, bool BWD>
+auto kernel_of() {
+  if constexpr (BWD)
+    return gn_bwd_cluster<T, SILU>;
+  else
+    return gn_fwd_cluster<T, SILU>;
+}
+
+// Per kernel, once per device: allow the full shared memory, prefer it over
+// L1, and allow clusters above 8.
+template <typename T, bool SILU, bool BWD>
+cudaError_t prepare() {
+  static unsigned long long ready = 0;  // one bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready & bit) return cudaSuccess;
+  const auto kernel = kernel_of<T, SILU, BWD>();
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) ready |= bit;
+  return e;
+}
+
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+
+  ClusterLaunch(int B, int C, int cb, int k, int threads, int smem, cudaStream_t st) : cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(k * (C / cb), B);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Errors the entries return besides CUDA's own (positive) codes.
+constexpr int kErrPlan = -1;          // the launch plan breaks a constraint
+constexpr int kErrEncode = -1000;  // minus the CUresult of a refused TMA descriptor
+
+// The plan's constraints; 0 if the launch shape is valid.
+int check_plan(int arrays, int esize, int B, int S, int C, int G, int cb, int k, int threads,
+               int smem) {
+  const int rpb = k >= 1 ? (S + k - 1) / k : 0;
+  const bool ok =
+      B >= 1 && B <= 65535 && S >= 1 && static_cast<long long>(B) * S < (1ll << 31) &&
+      G >= 1 && C % G == 0 && cb >= 8 && cb % 8 == 0 && cb <= kMaxTileChannels &&
+      C % cb == 0 && cb % (C / G) == 0 && k >= 1 && k <= kMaxCluster && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 && smem <= kMaxSmem &&
+      alloc_rows(rpb) / box_rows(rpb) <= kMaxBoxes &&
+      static_cast<size_t>(smem) >= smem_bytes(arrays, rpb, cb, esize, threads);
+  return ok ? 0 : kErrPlan;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The TMA descriptor of a [rows, C] map (T elements) read in boxes of
+// box x cb, with L2 promotion to whole 128-byte lines (a tile row is a
+// 32- or 48-byte slice of one; the neighbouring slices' clusters find the
+// rest of the line in L2).  cuTensorMapEncodeTiled is looked up once.
+// Returns 0, a CUDA error, or kErrEncode - CUresult.
+template <typename T>
+int encode_rows(CUtensorMap* map, const void* base, long long rows, int C, int cb, int box) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                  cudaEnableDefault, &q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * sizeof(T)};
+  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(cb), static_cast<cuuint32_t>(box)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(base), dims, strides, boxd, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode - static_cast<int>(r);
+}
+
+template <typename T, bool SILU>
+int launch_fwd(const void* x, const float* scale, const float* bias, void* out, float* mean,
+               float* rstd, int B, int S, int C, int G, float eps, int cb, int k, int threads,
+               int smem, cudaStream_t st) {
+  cudaError_t e = prepare<T, SILU, false>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rpb = (S + k - 1) / k;
+  CUtensorMap tx;
+  const int err = encode_rows<T>(&tx, x, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
+  if (err != 0) return err;
+  ClusterLaunch l(B, C, cb, k, threads, smem, st);
+  e = cudaLaunchKernelEx(&l.cfg, gn_fwd_cluster<T, SILU>, tx, scale, bias,
+                         static_cast<T*>(out), mean, rstd, S, C, G, cb, rpb, eps);
+  return static_cast<int>(e);
+}
+
+template <typename T, bool SILU>
+int launch_bwd(const void* x, const void* g, const float* scale, const float* bias,
+               const float* mean, const float* rstd, void* dx, float* dscale, float* dbias,
+               float* sums, unsigned* counters, int B, int S, int C, int G, int cb, int k,
+               int threads, int smem, cudaStream_t st) {
+  cudaError_t e = prepare<T, SILU, true>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rpb = (S + k - 1) / k;
+  CUtensorMap tx, tg;
+  int err = encode_rows<T>(&tx, x, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
+  if (err == 0)
+    err = encode_rows<T>(&tg, g, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
+  if (err != 0) return err;
+  ClusterLaunch l(B, C, cb, k, threads, smem, st);
+  e = cudaLaunchKernelEx(&l.cfg, gn_bwd_cluster<T, SILU>, tx, tg, scale, bias, mean, rstd,
+                         static_cast<T*>(dx), dscale, dbias, sums, counters, B, S, C, G, cb,
+                         rpb);
+  return static_cast<int>(e);
+}
+
+template <typename T, bool SILU, bool BWD>
+int max_active_clusters(int B, int C, int cb, int k, int threads, int smem) {
+  cudaError_t e = prepare<T, SILU, BWD>();
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  ClusterLaunch l(B, C, cb, k, threads, smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel_of<T, SILU, BWD>(), &l.cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// ---- moments tool ---------------------------------------------------------
 
 // blockDim.x = (C/8) * R: thread t owns channels 8*(t % (C/8)) .. +7 and
 // rows r0 + t / (C/8), stepping by R.
@@ -119,39 +718,6 @@ __global__ void gn_stats(const T* __restrict__ x, float* __restrict__ psum,
   }
 }
 
-// grid B, blockDim a multiple of 32: warp w reduces groups w, w + nwarps, ...
-__global__ void gn_finalize(const float* __restrict__ psum,
-                            const float* __restrict__ psq,
-                            float* __restrict__ mean, float* __restrict__ rstd,
-                            int nsplit, int S, int C, int G, float eps) {
-  const long long b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  const int cg = C / G;
-  const int n = nsplit * cg;
-  const float count = static_cast<float>(S) * cg;
-  for (int g = warp; g < G; g += nwarps) {
-    float a = 0.f, q = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const int sp = i / cg, c = g * cg + i % cg;
-      const long long idx = (b * nsplit + sp) * C + c;
-      a += psum[idx];
-      q += psq[idx];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      q += __shfl_xor_sync(0xffffffffu, q, off);
-    }
-    if (lane == 0) {
-      const float mu = a / count;
-      const float var = fmaxf(q / count - mu * mu, 0.f);
-      mean[b * G + g] = mu;
-      rstd[b * G + g] = rsqrtf(var + eps);
-    }
-  }
-}
-
 // grid B: out[b, c] = sum over splits, in split order, of the partials.
 __global__ void moments_combine(const float* __restrict__ psum,
                                 const float* __restrict__ psq,
@@ -170,134 +736,92 @@ __global__ void moments_combine(const float* __restrict__ psum,
   }
 }
 
-template <typename T, bool SILU>
-__global__ void gn_apply(const T* __restrict__ x,
-                         const float* __restrict__ mean,
-                         const float* __restrict__ rstd,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias, T* __restrict__ out,
-                         int S, int C, int G, int rows_per_split) {
-  const int cvn = C / 8;
-  const int R = blockDim.x / cvn;
-  const int cv = threadIdx.x % cvn, r = threadIdx.x / cvn;
-  const long long b = blockIdx.y;
-  const int s0 = blockIdx.x * rows_per_split;
-  const int s1 = min(S, s0 + rows_per_split);
-  const int cg = C / G;
-
-  float mu[8], rs[8], sc[8], bi[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = 8 * cv + i;
-    const int g = c / cg;
-    mu[i] = mean[b * G + g];
-    rs[i] = rstd[b * G + g];
-    sc[i] = scale[c];
-    bi[i] = bias[c];
-  }
-  const long long base = b * S * C + 8 * cv;
-  for (int s = s0 + r; s < s1; s += R) {
-    const long long off = base + static_cast<long long>(s) * C;
-    float f[8];
-    load8(x + off, f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float y = (f[i] - mu[i]) * rs[i];
-      y = y * sc[i] + bi[i];
-      if (SILU) y = y / (1.f + __expf(-y));
-      f[i] = y;
-    }
-    store8(out + off, f);
-  }
-}
-
-template <typename T>
-void launch_apply(bool silu, dim3 grid, int threads, cudaStream_t st,
-                  const void* x, const float* mean, const float* rstd,
-                  const float* scale, const float* bias, void* out, int S,
-                  int C, int G, int rows_per_split) {
-  if (silu)
-    gn_apply<T, true><<<grid, threads, 0, st>>>(
-        static_cast<const T*>(x), mean, rstd, scale, bias,
-        static_cast<T*>(out), S, C, G, rows_per_split);
-  else
-    gn_apply<T, false><<<grid, threads, 0, st>>>(
-        static_cast<const T*>(x), mean, rstd, scale, bias,
-        static_cast<T*>(out), S, C, G, rows_per_split);
-}
-
-// The statistics pass's launch shape: blockDim = (C/8) * R threads, R rows
-// of 8-channel vectors in flight, and its shared memory.
-struct StatsShape {
-  int threads, rows_per_split;
-  size_t smem;
-};
-
-StatsShape stats_shape(int S, int C, int nsplit) {
-  const int cvn = C / 8;
-  const int R = cvn >= 256 ? 1 : 256 / cvn;
-  return {cvn * R, (S + nsplit - 1) / nsplit, 2 * sizeof(float) * static_cast<size_t>(R) * C};
-}
-
-int launch_stats(const void* x, int dtype, float* psum, float* psq, int B,
-                 int S, int C, int nsplit, cudaStream_t st) {
-  const StatsShape sh = stats_shape(S, C, nsplit);
-  const dim3 grid(nsplit, B);
-  if (dtype == 1)
-    gn_stats<__nv_bfloat16><<<grid, sh.threads, sh.smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), psum, psq, S, C, sh.rows_per_split);
-  else
-    gn_stats<float><<<grid, sh.threads, sh.smem, st>>>(
-        static_cast<const float*>(x), psum, psq, S, C, sh.rows_per_split);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; out: [B, S, C]
-// contiguous in the same dtype; scale, bias: f32 [C].  workspace:
-// f32, 2 * B * nsplit * C + 2 * B * G elements.  C is a multiple of 8 and
-// of G, C / 8 <= 1024, pointers are 16-byte aligned (the caller checks).
-// Returns the first CUDA launch error (0 on success).
-extern "C" int phd_group_norm_silu(const void* x, int dtype,
-                                   const float* scale, const float* bias,
-                                   void* out, float* workspace,
-                                   int B, int S, int C, int G, float eps,
-                                   int silu, int nsplit, void* stream) {
+// Forward.  x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; out:
+// [B, S, C] contiguous in the same dtype; scale, bias: f32 [C]; mean, rstd:
+// f32 [B, G] (written).  (cb, k, threads, smem) is the launch plan; pointers
+// are 16-byte aligned (the caller checks).  Returns 0 on success, else a
+// CUDA error code, kErrPlan (-1) for a plan that breaks a constraint, or
+// kErrEncode - CUresult for a TMA descriptor that could not be encoded.
+extern "C" int phd_gn_fwd(const void* x, int dtype, const float* scale, const float* bias,
+                          void* out, float* mean, float* rstd, int B, int S, int C, int G,
+                          float eps, int silu, int cb, int k, int threads, int smem,
+                          void* stream) {
+  const int esize = dtype == 1 ? 2 : 4;
+  const int err = check_plan(1, esize, B, S, C, G, cb, k, threads, smem);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StatsShape sh = stats_shape(S, C, nsplit);
-  float* psum = workspace;
-  float* psq = psum + static_cast<long long>(B) * nsplit * C;
-  float* mean = psq + static_cast<long long>(B) * nsplit * C;
-  float* rstd = mean + static_cast<long long>(B) * G;
-  const dim3 grid(nsplit, B);
-
-  int err = launch_stats(x, dtype, psum, psq, B, S, C, nsplit, st);
-  if (err != 0) return err;
-
-  gn_finalize<<<B, 256, 0, st>>>(psum, psq, mean, rstd, nsplit, S, C, G, eps);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-
-  const bool s = silu != 0;
+  using bf16 = __nv_bfloat16;
   if (dtype == 1)
-    launch_apply<__nv_bfloat16>(s, grid, sh.threads, st, x, mean, rstd, scale, bias, out, S, C, G, sh.rows_per_split);
-  else
-    launch_apply<float>(s, grid, sh.threads, st, x, mean, rstd, scale, bias, out, S, C, G, sh.rows_per_split);
-  return static_cast<int>(cudaGetLastError());
+    return silu ? launch_fwd<bf16, true>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+                : launch_fwd<bf16, false>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+  return silu ? launch_fwd<float, true>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+              : launch_fwd<float, false>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+}
+
+// Backward.  x, g: [B, S, C] contiguous in one dtype (code as above); mean,
+// rstd: the forward's [B, G]; dx: [B, S, C] in x's dtype; dscale, dbias:
+// f32 [C]; sums: f32 workspace of 2 * B * C; counters: C / cb zeroed
+// unsigned tickets, left zeroed.  Same plan and return convention.
+extern "C" int phd_gn_bwd(const void* x, const void* g, int dtype, const float* scale,
+                          const float* bias, const float* mean, const float* rstd, void* dx,
+                          float* dscale, float* dbias, float* sums, unsigned* counters, int B,
+                          int S, int C, int G, int silu, int cb, int k, int threads, int smem,
+                          void* stream) {
+  const int esize = dtype == 1 ? 2 : 4;
+  const int err = check_plan(2, esize, B, S, C, G, cb, k, threads, smem);
+  if (err != 0) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return silu ? launch_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st)
+                : launch_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st);
+  return silu ? launch_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st)
+              : launch_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st);
+}
+
+// How many clusters of a plan the card holds at once
+// (cudaOccupancyMaxActiveClusters); negative: minus the CUDA error.
+extern "C" int phd_gn_max_active_clusters(int backward, int dtype, int silu, int B, int C,
+                                          int cb, int k, int threads, int smem) {
+  using bf16 = __nv_bfloat16;
+  if (backward) {
+    if (dtype == 1)
+      return silu ? max_active_clusters<bf16, true, true>(B, C, cb, k, threads, smem)
+                  : max_active_clusters<bf16, false, true>(B, C, cb, k, threads, smem);
+    return silu ? max_active_clusters<float, true, true>(B, C, cb, k, threads, smem)
+                : max_active_clusters<float, false, true>(B, C, cb, k, threads, smem);
+  }
+  if (dtype == 1)
+    return silu ? max_active_clusters<bf16, true, false>(B, C, cb, k, threads, smem)
+                : max_active_clusters<bf16, false, false>(B, C, cb, k, threads, smem);
+  return silu ? max_active_clusters<float, true, false>(B, C, cb, k, threads, smem)
+              : max_active_clusters<float, false, false>(B, C, cb, k, threads, smem);
 }
 
 // Per-channel moments: x as above; out_sum, out_sq: f32 [B, C]; workspace:
-// f32, 2 * B * nsplit * C elements.  Same constraints on C and alignment.
-// Returns the first CUDA launch error (0 on success).
+// f32, 2 * B * nsplit * C elements.  C is a multiple of 8, C / 8 <= 1024,
+// x 16-byte aligned.  Returns the first CUDA launch error (0 on success).
 extern "C" int phd_channel_moments(const void* x, int dtype, float* workspace,
                                    float* out_sum, float* out_sq, int B, int S,
                                    int C, int nsplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* psum = workspace;
   float* psq = psum + static_cast<long long>(B) * nsplit * C;
-  const int err = launch_stats(x, dtype, psum, psq, B, S, C, nsplit, st);
-  if (err != 0) return err;
+  const int cvn = C / 8;
+  const int R = cvn >= 256 ? 1 : 256 / cvn;
+  const size_t sh = 2 * sizeof(float) * static_cast<size_t>(R) * C;
+  const int rows_per_split = (S + nsplit - 1) / nsplit;
+  const dim3 grid(nsplit, B);
+  if (dtype == 1)
+    gn_stats<__nv_bfloat16><<<grid, cvn * R, sh, st>>>(
+        static_cast<const __nv_bfloat16*>(x), psum, psq, S, C, rows_per_split);
+  else
+    gn_stats<float><<<grid, cvn * R, sh, st>>>(
+        static_cast<const float*>(x), psum, psq, S, C, rows_per_split);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   moments_combine<<<B, 256, 0, st>>>(psum, psq, out_sum, out_sq, nsplit, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,11 +14,17 @@ elementwise and copy kernels), the top kernels by device time, the wall
 time per call and the device's idle share of it.  A train step also gets
 its backward's device time by autograd node (convolution, GroupNorm,
 attention, ...).  Needs a CUDA device.
+
+``group_norm_calls`` lists the GroupNorm calls of one forward by shape,
+from the model run on the meta device (no card needed), and
+``plain_kernels`` routes the UNet through its plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import time
 
@@ -26,12 +32,15 @@ import torch
 
 # Kernel-name fragments -> category, first match wins.  The attention
 # kernels are the tensor-core ones (bf16, *_mma_kernel) and the CUDA-core
-# ones (f32).
+# ones (f32); the GroupNorm kernels are the cluster forward and backward;
+# the moments tool's are the split statistics pass and its combine.
 _CATEGORIES = (
     ("flash_attn_fwd", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),
     ("flash_attn_bwd", ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel",
                         "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
-    ("group_norm_silu", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("group_norm_silu", ("gn_fwd_cluster",)),
+    ("group_norm_silu_bwd", ("gn_bwd_cluster",)),
+    ("channel_moments", ("gn_stats", "moments_combine")),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "nhwc", "fprop", "dgrad", "wgrad",
               "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_")),
@@ -47,6 +56,45 @@ def categorize(name: str) -> str:
         if any(f in low for f in frags):
             return cat
     return "other"
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the UNet's GroupNorm and attention through their plain
+    versions; restores the kernels on exit."""
+    from phendiff_tpu_torch.ops import attention, gn_kernels, group_norm
+
+    saved = group_norm.fused_group_norm, attention.flash_attention
+    group_norm.fused_group_norm = lambda x, s, b, **kw: gn_kernels.group_norm_plain(x, s, b, **kw)
+    attention.flash_attention = lambda q, k, v, scale=None: attention.attention_plain(
+        q, k, v, scale=scale)
+    try:
+        yield
+    finally:
+        group_norm.fused_group_norm, attention.flash_attention = saved
+
+
+def group_norm_calls(res: int = 128) -> dict:
+    """{(S, C, G, act): calls} of one ``super_small`` forward at ``res`` px,
+    recorded from the model run on the meta device (no data, no kernels)."""
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+    from phendiff_tpu_torch.ops import group_norm
+
+    calls = collections.Counter()
+    with plain_kernels():
+        plain = group_norm.fused_group_norm
+
+        def record(x, scale, bias, **kw):
+            calls[(x.shape[1], x.shape[2], kw["num_groups"], kw["act"])] += 1
+            return plain(x, scale, bias, **kw)
+
+        group_norm.fused_group_norm = record
+        with torch.device("meta"):
+            model = CondUNet2D(super_small(), dtype=torch.bfloat16)
+            model(torch.zeros(1, res, res, 3), torch.zeros(1, dtype=torch.long),
+                  class_labels=torch.zeros(1, dtype=torch.long))
+    return dict(calls)
 
 
 def _pipeline(scheduler_config):

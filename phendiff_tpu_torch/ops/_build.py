@@ -121,7 +121,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error (a refused launch never runs
-    and no later synchronize reports it)."""
+    """Raise if a C entry returned an error: a positive CUDA error code (a
+    refused launch never runs and no later synchronize reports it), or an
+    entry's own negative code (a launch plan it refused, -1; a TMA
+    descriptor that could not be encoded, -1000 - its CUresult)."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise RuntimeError(f"{what}: error {err}")

@@ -1,32 +1,37 @@
-"""Fused GroupNorm + affine + optional SiLU: a hand-written Hopper kernel
-and its plain PyTorch version.
+"""Fused GroupNorm + affine + optional SiLU: hand-written Hopper kernels
+for the forward and the backward, and their plain PyTorch versions.
 
 Counterpart of ``phendiff_tpu/ops/gn_kernels.py`` (TPU kernel
 ``_gn_kernel``, launched by ``_pallas_gn``), with the semantics of the JAX
 package's XLA GroupNorm path, the TPU default: f32 one-pass moments, the
 ``max(var, 0)`` clamp, f32 affine and SiLU, output in ``out_dtype``.  The
-CUDA source, ``csrc/group_norm_silu.cu``, splits the reduction over many
-blocks per sample; its header gives the design and the bound.
+CUDA source, ``csrc/group_norm_silu.cu``, holds each (sample, channel
+slice) tile in the shared memory of a thread-block cluster, so x is read
+from HBM once; its header gives the design and the bound.  ``gn_plan``
+picks the launch shape.
 
-``fused_group_norm`` launches the kernel for CUDA tensors (which writes
-its output in the input's dtype, as every UNet call asks) and uses
+``fused_group_norm`` launches the forward kernel for CUDA tensors (which
+writes its output in the input's dtype, as every UNet call asks) and uses
 ``group_norm_plain`` only for CPU tensors.  On the card it is a
-``torch.autograd.Function`` whose backward recomputes ``group_norm_plain``
-under autograd, as the JAX package's ``_fused_gn_bwd`` recomputes its XLA
-reference (there is no TPU backward kernel to port).
-``fused_group_norm.launches`` counts kernel launches (one per call: the
-stats, combine and apply passes of one call count once).
+``torch.autograd.Function``: the forward also writes each (sample, group)'s
+mean and rstd, and the backward is the backward kernel
+(``fused_group_norm_bwd``), the closed form that ``group_norm_bwd_plain``
+states in plain PyTorch.  The TPU package has no backward kernel (its
+``_fused_gn_bwd`` recomputes the XLA reference under ``jax.vjp``).
+``fused_group_norm.launches`` and ``fused_group_norm_bwd.launches`` count
+kernel launches.
 
 ``channel_moments`` is the counterpart of ``m_pallas`` in
 ``tools/bench_gn_moments.py``: per-channel f32 sum x and sum x^2 of a
-[B, S, C] map, through the statistics pass of the same CUDA source.
+[B, S, C] map, through the split statistics pass of the same CUDA source.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,10 +40,96 @@ from phendiff_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Blocks per sample are chosen so a call has about this many blocks in all
-# (a few waves over the H100's 132 SMs).
+# Moments tool: blocks per sample are chosen so a call has about this many
+# blocks in all (a few waves over the H100's 132 SMs).
 _TARGET_BLOCKS = 1024
 _MAX_CHANNELS = 2048
+
+# Launch plan of the cluster kernels (limits as in csrc/group_norm_silu.cu).
+SMEM_LIMIT = 232448  # 227 KB of shared memory a Hopper block can use
+MAX_CLUSTER = 16  # blocks a cluster; above 8 is non-portable (H100 allows 16)
+MAX_TILE_CHANNELS = 256
+
+
+# Threads a block of either cluster kernel.
+THREADS = 256
+
+
+class GnPlan(NamedTuple):
+    """Launch shape of the cluster kernels for one (S, C, G, dtype)."""
+
+    cb: int  # channels a tile: whole groups, a multiple of 8 dividing C
+    k: int  # blocks a cluster; the tile's S rows split k ways
+    rows: int  # rows a block holds (the last block may hold fewer)
+    threads: int
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def _smem_bytes(arrays: int, rows: int, cb: int, itemsize: int, threads: int) -> int:
+    """Shared memory of one block, as the kernels lay it out: ``arrays``
+    tiles with room for whole TMA boxes of up to 256 rows x cb, each
+    128-byte aligned, then the f32 reduction scratch, a ticket and 64
+    mbarriers."""
+    box = min(rows, 256)
+    tile = -(-(-(-rows // box) * box * cb * itemsize) // 128) * 128
+    return arrays * tile + 4 * (2 * (threads // 32) * cb + 6 * cb) + 16 + 8 * 64
+
+
+@functools.lru_cache(maxsize=256)
+def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) -> GnPlan:
+    """The forward's (or, with ``backward``, the backward's) launch shape.
+
+    A tile is one sample x ``cb`` channels: the fewest whole groups that
+    make a multiple of 8 channels and a row of 64 bytes or more in the
+    forward, 32 in the backward (or fewer channels, down to a multiple of
+    8, where such a tile does not fit).  Its S rows (x, and g in the
+    backward) are split over ``k`` blocks of a cluster, a power of two,
+    until a block holds about 64 KB in the forward, 96 KB in the backward,
+    so a few blocks share an SM; ``k`` stops at 16, where a block's share
+    may exceed that.  Wider rows suit the forward, larger blocks the
+    backward (PERF.md, section 6).  Raises ValueError where no plan fits (a
+    tile wider than 256 channels, or rows that do not fit 16 blocks' shared
+    memory).
+    """
+    if c % groups or c % 8:
+        raise ValueError(
+            f"group_norm kernels need C % 8 == 0 and C % G == 0; got C={c}, G={groups}")
+    unit = math.lcm(8, c // groups)
+    widths = [m for m in range(unit, min(c, MAX_TILE_CHANNELS) + 1, unit) if c % m == 0]
+    if not widths:
+        raise ValueError(f"group_norm kernels hold at most {MAX_TILE_CHANNELS} channels a tile; "
+                         f"C={c}, G={groups} needs {unit}")
+    block_bytes, row_bytes = (96 * 1024, 32) if backward else (64 * 1024, 64)
+    first = next((i for i, m in enumerate(widths) if m * itemsize >= row_bytes),
+                 len(widths) - 1)
+    arrays = 2 if backward else 1
+    for cb in widths[first::-1]:  # the preferred width, then narrower ones
+        tile = arrays * cb * s * itemsize
+        k = 1
+        while k < MAX_CLUSTER and 2 * k <= s and k * block_bytes < tile:
+            k *= 2
+        rows = -(-s // k)
+        k = -(-s // rows)  # no empty block
+        smem = _smem_bytes(arrays, rows, cb, itemsize, THREADS)
+        if smem <= SMEM_LIMIT:
+            return GnPlan(cb, k, rows, THREADS, smem)
+    raise ValueError(f"group_norm kernels: S={s} rows of {widths[0]} channels do not fit "
+                     f"{MAX_CLUSTER} blocks' shared memory ({smem} > {SMEM_LIMIT} bytes)")
+
+
+def _grouped_stats(xf: torch.Tensor, eps: float):
+    """Mean and rstd [B, G] of an f32 [B, S, G, C/G] map: the one-pass
+    moments with the ``max(var, 0)`` clamp."""
+    mean = xf.mean(dim=(1, 3))
+    var = (xf.square().mean(dim=(1, 3)) - mean.square()).clamp_min(0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_stats_plain(x: torch.Tensor, num_groups: int, eps: float):
+    """Per (sample, group) f32 mean and rstd of [B, S, C], each [B, G], as
+    ``group_norm_plain`` computes them."""
+    b, s, c = x.shape
+    return _grouped_stats(x.float().reshape(b, s, num_groups, c // num_groups), eps)
 
 
 def group_norm_plain(
@@ -54,10 +145,8 @@ def group_norm_plain(
     """GroupNorm over [B, S, C] with the JAX package's XLA-path semantics."""
     b, s, c = x.shape
     xf = x.float().reshape(b, s, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    meansq = xf.square().mean(dim=(1, 3), keepdim=True)
-    var = (meansq - mean.square()).clamp_min(0.0)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, s, c)
+    mean, rstd = _grouped_stats(xf, eps)
+    xf = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(b, s, c)
     if scale is not None:
         xf = xf * scale.float()
     if bias is not None:
@@ -69,23 +158,75 @@ def group_norm_plain(
     return xf.to(out_dtype or torch.float32)
 
 
-def _num_splits(b: int, s: int, c: int) -> int:
-    cvn = c // 8
-    rows_per_block_pass = 1 if cvn >= 256 else 256 // cvn
-    max_splits = -(-s // rows_per_block_pass)
-    return max(1, min(max_splits, -(-_TARGET_BLOCKS // b)))
+def group_norm_bwd_plain(
+    x: torch.Tensor,  # [B, S, C]
+    g: torch.Tensor,  # [B, S, C], the output gradient
+    scale: torch.Tensor,  # [C]
+    bias: torch.Tensor,  # [C]
+    mean: torch.Tensor,  # [B, G], the forward's
+    rstd: torch.Tensor,  # [B, G]
+    *,
+    num_groups: int,
+    act: Optional[str] = None,
+):
+    """(dx in x's dtype, dscale, dbias in f32) of ``group_norm_plain`` with
+    scale and bias, in closed form from the forward's mean and rstd, f32:
+
+    x^ = (x - mean) rstd, z = scale x^ + bias, dz = g (SiLU: times
+    sigma(z) (1 + z (1 - sigma(z)))), A = sum_s dz and B = sum_s dz x^ per
+    (sample, channel), a = sum_c scale A / N and b = sum_c scale B / N per
+    (sample, group) with N = S C/G, dx = rstd (scale dz - a - x^ b),
+    dbias = sum_b A, dscale = sum_b B.
+    """
+    bsz, s, c = x.shape
+    cg = c // num_groups
+    grouped = (bsz, s, num_groups, cg)
+    mu, rs = mean.float()[:, None, :, None], rstd.float()[:, None, :, None]
+    sc = scale.float().reshape(num_groups, cg)
+    xh = (x.float().reshape(grouped) - mu) * rs
+    dz = g.float().reshape(grouped)
+    if act == "silu":
+        z = xh * sc + bias.float().reshape(num_groups, cg)
+        sg = torch.sigmoid(z)
+        dz = dz * sg * (1 + z * (1 - sg))
+    elif act is not None:
+        raise ValueError(f"unknown activation: {act}")
+    a_c, b_c = dz.sum(dim=1), (dz * xh).sum(dim=1)  # [B, G, cg]
+    n = s * cg
+    a = (sc * a_c).sum(dim=-1)[:, None, :, None] / n
+    b = (sc * b_c).sum(dim=-1)[:, None, :, None] / n
+    dx = rs * (sc * dz - a - xh * b)
+    return (dx.reshape(bsz, s, c).to(x.dtype), b_c.sum(dim=0).reshape(c),
+            a_c.sum(dim=0).reshape(c))
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("group_norm_silu").phd_group_norm_silu
+def _fwd_entry():
+    fn = _build.load("group_norm_silu").phd_gn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("group_norm_silu").phd_gn_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+@functools.cache
+def _occupancy_entry():
+    fn = _build.load("group_norm_silu").phd_gn_max_active_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 9
     return fn
 
 
@@ -98,6 +239,13 @@ def _moments_entry():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
+
+
+@functools.cache
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The backward's per-channel-slice tickets: zeroed once, and left
+    zeroed by every launch."""
+    return torch.zeros(_MAX_CHANNELS // 8, dtype=torch.int32, device=device)
 
 
 def _check_input(x: torch.Tensor, num_groups: int = 1) -> torch.Tensor:
@@ -116,7 +264,23 @@ def _check_input(x: torch.Tensor, num_groups: int = 1) -> torch.Tensor:
     return x
 
 
-def _launch(x, scale, bias, num_groups, eps, act, out_dtype) -> torch.Tensor:
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def max_active_clusters(b, s, c, num_groups, dtype, act=None, backward=False) -> int:
+    """How many clusters of the plan for this call the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    plan = gn_plan(s, c, num_groups, dtype.itemsize, backward)
+    n = _occupancy_entry()(int(backward), _DTYPE_CODES[dtype], int(act == "silu"), b, c,
+                           plan.cb, plan.k, plan.threads, plan.smem)
+    if n < 0:
+        _build.check(-n, "group_norm occupancy query")
+    return n
+
+
+def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
+    """Forward kernel: (out, mean, rstd), mean and rstd f32 [B, G]."""
     b, s, c = x.shape
     if out_dtype != x.dtype:
         raise TypeError(
@@ -127,42 +291,72 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype) -> torch.Tensor:
     if act not in (None, "silu"):
         raise ValueError(f"unknown activation: {act}")
     x = _check_input(x, num_groups)
+    plan = gn_plan(s, c, num_groups, x.element_size())
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    nsplit = _num_splits(b, s, c)
     out = torch.empty((b, s, c), dtype=out_dtype, device=x.device)
-    work = torch.empty(2 * b * nsplit * c + 2 * b * num_groups,
-                       dtype=torch.float32, device=x.device)
-    err = _entry()(
+    stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
+    err = _fwd_entry()(
         x.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), work.data_ptr(),
-        b, s, c, num_groups, float(eps), int(act == "silu"), nsplit,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        b, s, c, num_groups, float(eps), int(act == "silu"),
+        plan.cb, plan.k, plan.threads, plan.smem, _stream(x),
     )
     _build.check(err, "group_norm_silu launch")
     fused_group_norm.launches += 1
-    return out
+    return out, stats[0], stats[1]
+
+
+def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None):
+    """(dx in x's dtype, dscale, dbias in f32) from the backward kernel, for
+    CUDA inputs: x as the forward took it, the output gradient ``g``, and
+    the forward's mean and rstd ([B, G], ``_launch``).  Deterministic."""
+    b, s, c = x.shape
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown activation: {act}")
+    x = _check_input(x, num_groups)
+    if not g.is_contiguous():
+        fused_group_norm_bwd.g_copies += 1
+    g = _check_input(g.to(x.dtype), num_groups)
+    if g.shape != x.shape:
+        raise ValueError(f"output gradient {tuple(g.shape)} != input {tuple(x.shape)}")
+    mean, rstd = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (mean, rstd))
+    if mean.shape != (b, num_groups) or rstd.shape != (b, num_groups):
+        raise ValueError(f"mean and rstd must be [B, G] = [{b}, {num_groups}]")
+    plan = gn_plan(s, c, num_groups, x.element_size(), backward=True)
+    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    err = _bwd_entry()(
+        x.data_ptr(), g.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dparams[0].data_ptr(),
+        dparams[1].data_ptr(), sums.data_ptr(), _tickets(x.device).data_ptr(),
+        b, s, c, num_groups, int(act == "silu"), plan.cb, plan.k, plan.threads, plan.smem,
+        _stream(x),
+    )
+    _build.check(err, "group_norm_silu_bwd launch")
+    fused_group_norm_bwd.launches += 1
+    return dx, dparams[0], dparams[1]
 
 
 class _FusedGroupNorm(torch.autograd.Function):
-    """The kernel forward; the backward recomputes ``group_norm_plain`` (f32,
-    the one-pass moments with the ``max(var, 0)`` clamp) under autograd and
-    returns dx in x's dtype and f32 dscale, dbias."""
+    """The forward kernel, saving each (sample, group)'s mean and rstd, and
+    the backward kernel: dx in x's dtype, f32 dscale and dbias."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, act, out_dtype):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.kw = dict(num_groups=num_groups, eps=eps, act=act)
-        return _launch(x, scale, bias, num_groups, eps, act, out_dtype)
+        out, mean, rstd = _launch(x, scale, bias, num_groups, eps, act, out_dtype)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.kw = dict(num_groups=num_groups, act=act)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            xs, ss, bs = (t.detach().requires_grad_() for t in (x, scale, bias))
-            out = group_norm_plain(xs, ss, bs, out_dtype=torch.float32, **ctx.kw)
-            dx, dscale, dbias = torch.autograd.grad(out, (xs, ss, bs), g.float())
-        return dx.to(x.dtype), dscale.float(), dbias.float(), None, None, None, None
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = fused_group_norm_bwd(x, g, scale, bias, mean, rstd, **ctx.kw)
+        return dx, dscale, dbias, None, None, None, None
 
 
 def fused_group_norm(
@@ -177,7 +371,7 @@ def fused_group_norm(
 ) -> torch.Tensor:
     """GroupNorm (+ affine + SiLU) over [B, S, C], differentiable.
 
-    A CUDA tensor goes through the kernel (``out_dtype`` equal to x's) or
+    A CUDA tensor goes through the kernels (``out_dtype`` equal to x's) or
     raises; a CPU tensor goes through ``group_norm_plain``.
     """
     out_dtype = out_dtype or torch.float32
@@ -190,7 +384,14 @@ def fused_group_norm(
         t is not None and t.requires_grad for t in (x, scale, bias)
     ):
         return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps, act, out_dtype)
-    return _launch(x, scale, bias, num_groups, eps, act, out_dtype)
+    return _launch(x, scale, bias, num_groups, eps, act, out_dtype)[0]
+
+
+def _num_splits(b: int, s: int, c: int) -> int:
+    cvn = c // 8
+    rows_per_block_pass = 1 if cvn >= 256 else 256 // cvn
+    max_splits = -(-s // rows_per_block_pass)
+    return max(1, min(max_splits, -(-_TARGET_BLOCKS // b)))
 
 
 def channel_moments_plain(x: torch.Tensor, tile: int = 512):
@@ -209,8 +410,8 @@ def channel_moments_plain(x: torch.Tensor, tile: int = 512):
 def channel_moments(x: torch.Tensor):
     """Per-channel f32 (sum x, sum x^2), each [B, C], of a [B, S, C] map.
 
-    A CUDA tensor (bf16 or f32, C % 8 == 0) goes through the kernel (the
-    GroupNorm statistics pass plus a fixed-order combine, deterministic) or
+    A CUDA tensor (bf16 or f32, C % 8 == 0) goes through the kernel (a
+    split statistics pass plus a fixed-order combine, deterministic) or
     raises; a CPU tensor goes through ``channel_moments_plain``.
     """
     if x.device.type == "cpu":
@@ -224,7 +425,7 @@ def channel_moments(x: torch.Tensor):
     out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     err = _moments_entry()(
         x.data_ptr(), _DTYPE_CODES[x.dtype], work.data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), b, s, c, nsplit, torch.cuda.current_stream(x.device).cuda_stream,
+        out[1].data_ptr(), b, s, c, nsplit, _stream(x),
     )
     _build.check(err, "channel_moments launch")
     channel_moments.launches += 1
@@ -232,4 +433,6 @@ def channel_moments(x: torch.Tensor):
 
 
 fused_group_norm.launches = 0
+fused_group_norm_bwd.launches = 0
+fused_group_norm_bwd.g_copies = 0  # output gradients the backward had to make contiguous
 channel_moments.launches = 0

@@ -9,6 +9,12 @@ bfloat16 outputs agree to one bf16 ulp (rtol 2**-7).  Gradients: the
 attention backward against ``jax.vjp`` of the Pallas kernel (interpret
 mode), the GroupNorm backward against ``jax.vjp`` of the XLA GroupNorm, at
 the same tolerances (bf16 gradients to one bf16 ulp of the largest one).
+The closed-form GroupNorm backward (``group_norm_bwd_plain``, the backward
+kernel's plain version) agrees with ``jax.vjp`` and with autograd through
+``group_norm_plain`` to 1e-4 of the largest gradient in f32: f32 rounding
+of the group mean, which x - mean amplifies by |mean| / std (50 in the
+near-constant group; both packages and the float64 answer differ there by
+1e-5 to 3e-5); and to one bf16 ulp of the largest gradient where dx is bf16.
 """
 
 import os
@@ -35,7 +41,10 @@ from phendiff_tpu_torch.ops.flash_attention import (  # noqa: E402
 from phendiff_tpu_torch.ops.gn_kernels import (  # noqa: E402
     channel_moments,
     fused_group_norm,
+    gn_plan,
+    group_norm_bwd_plain,
     group_norm_plain,
+    group_stats_plain,
 )
 from phendiff_tpu_torch.ops.group_norm import group_norm  # noqa: E402
 
@@ -181,6 +190,13 @@ def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
     ("void (anonymous namespace)::flash_bwd_dq_mma_kernel<8>(...)", "flash_attn_bwd"),
     ("void (anonymous namespace)::flash_bwd_dkdv_mma_kernel<64>(...)", "flash_attn_bwd"),
     ("void (anonymous namespace)::flash_bwd_dkdv_kernel<8>(...)", "flash_attn_bwd"),
+    ("void (anonymous namespace)::gn_fwd_cluster<__nv_bfloat16, true>(...)", "group_norm_silu"),
+    ("void (anonymous namespace)::gn_fwd_cluster<float, false>(...)", "group_norm_silu"),
+    ("void (anonymous namespace)::gn_bwd_cluster<__nv_bfloat16, true>(...)",
+     "group_norm_silu_bwd"),
+    ("void (anonymous namespace)::gn_bwd_cluster<float, false>(...)", "group_norm_silu_bwd"),
+    ("void (anonymous namespace)::gn_stats<__nv_bfloat16>(...)", "channel_moments"),
+    ("void (anonymous namespace)::moments_combine(...)", "channel_moments"),
 ])
 def test_forward_profile_attributes_the_attention_kernels(kernel, category):
     from phendiff_tpu_torch.obs.forward_profile import categorize
@@ -222,14 +238,19 @@ def test_group_norm_backward_matches_jax(act):
 def test_autograd_functions_route_gradients(monkeypatch):
     """The card's autograd Functions, with their launches swapped for the
     plain versions, give the plain path's gradients (their backward
-    plumbing: argument order, dtypes, the recompute under enable_grad)."""
+    plumbing: argument order, dtypes, the saved statistics)."""
     rng = np.random.default_rng(31)
     x = torch.from_numpy((rng.standard_normal((2, 16, 8)) + 1).astype(np.float32))
     scale, bias = (torch.from_numpy(rng.standard_normal(8).astype(np.float32)) for _ in "ab")
     g = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32)).to(torch.bfloat16)
     kw = dict(num_groups=2, eps=1e-5, act="silu")
-    monkeypatch.setattr(gn_kernels, "_launch", lambda xx, s, b, n, e, a, od: group_norm_plain(
-        xx, s, b, num_groups=n, eps=e, act=a, out_dtype=od))
+
+    def launch(xx, s, b, n, e, a, od):
+        return (group_norm_plain(xx, s, b, num_groups=n, eps=e, act=a, out_dtype=od),
+                *group_stats_plain(xx, n, e))
+
+    monkeypatch.setattr(gn_kernels, "_launch", launch)
+    monkeypatch.setattr(gn_kernels, "fused_group_norm_bwd", group_norm_bwd_plain)
     grads = []
     for fn in (lambda *t: gn_kernels._FusedGroupNorm.apply(*t, 2, 1e-5, "silu", torch.bfloat16),
                lambda *t: group_norm_plain(*t, out_dtype=torch.bfloat16, **kw)):
@@ -253,6 +274,87 @@ def test_autograd_functions_route_gradients(monkeypatch):
     got = torch.autograd.grad(out, leaves, go)
     for a, b in zip(got, flash_attention_bwd_plain(q, k, v, go, 0.3)):
         torch.testing.assert_close(a, b)
+
+
+def _gn_inputs(c, groups, seed, near_constant=False):
+    """x [2, 4, 4, C] (NHWC), scale, bias, output gradient; optionally the
+    first group of sample 0 near-constant (var ~1e-6, well under eps)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2, 4, 4, c)) * 2 + 0.5).astype(np.float32)
+    if near_constant:
+        cg = c // groups
+        x[0, ..., :cg] = 0.05 + 1e-3 * rng.standard_normal((4, 4, cg))
+    scale, bias = (rng.standard_normal(c).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    return x, scale, bias, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("c,groups,near_constant", [(8, 4, False), (24, 4, True), (48, 4, False)],
+                         ids=["width2", "width6-near-constant", "width12"])
+def test_group_norm_bwd_plain_matches_jax_vjp_and_autograd(c, groups, near_constant, act,
+                                                           dtype):
+    x, scale, bias, g = _gn_inputs(c, groups, 50 + c, near_constant)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    kw = dict(num_groups=groups, eps=1e-5, act=act)
+    _, vjp = jax.vjp(lambda a, s, b: jax_group_norm(a, scale=s, bias=b, **kw),
+                     jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias))
+    want_jax = [np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(g))]
+
+    xt = torch.from_numpy(x).to(td).reshape(2, 16, c)
+    st, bt, gt = torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(g)
+    leaves = [t.clone().requires_grad_() for t in (xt, st, bt)]
+    group_norm_plain(*leaves, out_dtype=torch.float32, **kw).backward(gt.reshape(2, 16, c))
+    mean, rstd = group_stats_plain(xt, groups, 1e-5)
+    got = group_norm_bwd_plain(xt, gt.reshape(2, 16, c), st, bt, mean, rstd, num_groups=groups,
+                               act=act)
+    assert [t.dtype for t in got] == [td, torch.float32, torch.float32]
+    for a, w_jax, leaf in zip(got, want_jax, leaves):
+        w_jax = w_jax.reshape(a.shape)
+        top = np.abs(w_jax).max()
+        tol = (dict(rtol=1e-4, atol=1e-4 * top) if a.dtype == torch.float32
+               else dict(rtol=BF16_RTOL, atol=BF16_RTOL * top))
+        np.testing.assert_allclose(a.float().numpy(), w_jax, **tol)
+        np.testing.assert_allclose(a.float().numpy(), leaf.grad.float().numpy(), **tol)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_gn_plan_fits_every_main_path_call(itemsize, backward):
+    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls
+    from phendiff_tpu_torch.ops.gn_kernels import MAX_CLUSTER, SMEM_LIMIT, _smem_bytes
+
+    calls = group_norm_calls()
+    assert sum(calls.values()) == 41 and len({(s, c) for s, c, _, _ in calls}) == 12
+    for s, c, groups, _ in calls:
+        p = gn_plan(s, c, groups, itemsize, backward)
+        assert p.cb % 8 == 0 and p.cb % (c // groups) == 0 and c % p.cb == 0  # whole groups
+        assert p.cb * itemsize >= 32  # a row is at least one sector
+        assert 1 <= p.k <= MAX_CLUSTER and (p.k - 1) * p.rows < s <= p.k * p.rows  # covers S
+        assert p.threads % 32 == 0 and p.threads <= 512
+        assert _smem_bytes(2 if backward else 1, p.rows, p.cb, itemsize, p.threads) == p.smem
+        assert p.smem <= SMEM_LIMIT
+    with pytest.raises(ValueError):  # rows beyond 16 blocks' shared memory
+        gn_plan(1 << 20, 192, 32, itemsize, backward)
+    with pytest.raises(ValueError):  # a tile wider than 256 channels
+        gn_plan(64, 1024, 2, itemsize, backward)
+
+
+def test_plain_kernels_route_the_unet_through_plain_versions_and_restore():
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops import attention, group_norm
+
+    saved = group_norm.fused_group_norm, attention.flash_attention
+    x = torch.randn(1, 4, 8, device="meta")  # the kernels' wrappers refuse meta tensors
+    with pytest.raises(ValueError):
+        group_norm.fused_group_norm(x, None, None, num_groups=2, eps=1e-5)
+    with pytest.raises(KeyError), plain_kernels():
+        assert group_norm.fused_group_norm(x, None, None, num_groups=2, eps=1e-5).shape == x.shape
+        q = torch.randn(1, 4, 2, 8, device="meta")
+        assert attention.flash_attention(q, q, q).shape == q.shape
+        raise KeyError  # restored on the way out of an error too
+    assert (group_norm.fused_group_norm, attention.flash_attention) == saved
 
 
 def test_channel_moments_plain_matches_float64():
