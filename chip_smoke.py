@@ -41,8 +41,24 @@ failure exits non-zero before the final line:
    trip;
 8. the trainer: ``Trainer.run`` for 3 steps over a small image folder this
    script writes, and the EMA pipeline it saves loaded back;
-9. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
-   kernel against its plain version at [32, 8192, 128] bf16.
+9. guided_check: one step of the reconstruction-guided transfer at batch 4
+   from a fixed latent, weights frozen: its model output and its input
+   gradient (through both backward kernels) against the plain path, one
+   launch of each backward kernel per attention and GroupNorm, and sample
+   0's gradient alone against in the batch;
+10. guided_path: ``guided_inverted_start`` at batch 32, 50 steps (50
+    inversion forwards, 50 guided steps), with its launch counts, peak
+    memory and the inverted latent's moments (``check_gaussianity``);
+11. cfg_path: ``cfg_forward_start`` at batch 32, 50 steps, frac 0.5,
+    guidance 2.5 (25 cond+uncond forwards at batch 64);
+12. inception: ``InceptionExtractor`` (random init) on 32 images of 128 px
+    resized to 299, and the card against the CPU on 4 of them;
+13. comparison: ``ComparisonExperiment`` over a 2 x 32 image folder this
+    script writes, all four methods, 10 steps, batch 32, FID/ISC/KID;
+14. evaluator: ``Trainer.run`` with ``compute_metrics=True``, one step and
+    one eval (one batch of 32 per class, 10 steps), best model saved;
+15. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
+    kernel against its plain version at [32, 8192, 128] bf16.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -113,6 +129,21 @@ DESIGN = {
                            "the last cluster of each channel slice (atomic ticket)",
 }
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
+# The guided step's model output and input gradient, kernels against plain
+# versions, use FORWARD_REL_L2_TOL and GRAD_REL_L2_TOL (bf16 through the same
+# 41 GroupNorms and 6 attentions, forward and backward).  Sample 0's input
+# gradient alone against in a batch of 4, relative L2: cuDNN may pick other
+# convolution algorithms by batch, so bf16 roundings differ as they do
+# between the kernel and plain paths.
+GUIDED_BATCH_REL_L2_TOL = 2e-2
+# The same in float32 (f32 kernels, TF32 off), where only summation order
+# differs: a kernel that mixed samples would show here.
+GUIDED_BATCH_F32_REL_L2_TOL = 1e-4
+# InceptionV3 on the card against the CPU, f32 with TF32 off, relative L2 of
+# features and logits: f32 convolutions summed in other orders.
+INCEPTION_REL_L2_TOL = 1e-3
+CMP_PER_CLASS, CMP_STEPS = 32, 10
+KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
 
 
 def emit(obj) -> None:
@@ -468,6 +499,42 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     return rec
 
 
+def reset_launches() -> None:
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
+
+
+def read_launches() -> dict:
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+
+    return dict(zip(KERNEL_NAMES, (flash_attention.launches, flash_attention_bwd.launches,
+                                   fused_group_norm.launches, fused_group_norm_bwd.launches)))
+
+
+def launches_for(forwards: int, backwards: int) -> dict:
+    """The four kernels' launches for UNet forwards and input/parameter
+    backwards of the ``super_small`` model."""
+    return dict(zip(KERNEL_NAMES, (6 * forwards, 6 * backwards, 41 * forwards, 41 * backwards)))
+
+
+def write_image_folder(root: str, per_class: int) -> str:
+    """Two class folders of random 128 px PNGs drawn from ``SEED``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    for cls in ("DMSO", "drug"):
+        os.makedirs(os.path.join(root, cls))
+        for i in range(per_class):
+            Image.fromarray(rng.integers(0, 255, (RES, RES, 3), dtype=np.uint8)).save(
+                os.path.join(root, cls, f"{i:03d}.png"))
+    return root
+
+
 def train_parts(torch, pipe, proba_uncond=0.1):
     """What ``bench.py``'s ``bench_train`` builds, in the port: the model
     apply (bf16 compute) and embedding functions over an f32 copy of the
@@ -549,8 +616,7 @@ def phase_grad_check(torch, pipe):
 
 
 def phase_train_path(torch, pipe, env):
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm_bwd
     from phendiff_tpu_torch.train.checkpoints import CheckpointManager
     from phendiff_tpu_torch.train.train_loop import (
         init_train_state, make_draws, make_optimizer, make_train_step)
@@ -577,19 +643,14 @@ def phase_train_path(torch, pipe, env):
     run(TRAIN_WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
+    reset_launches()
     fused_group_norm_bwd.g_copies = 0
     t0 = time.perf_counter()
     losses = run(TRAIN_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches,
-                "flash_attn_bwd": flash_attention_bwd.launches,
-                "group_norm_silu": fused_group_norm.launches,
-                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
-    want = {"flash_attn_fwd": 6 * TRAIN_STEPS, "flash_attn_bwd": 6 * TRAIN_STEPS,
-            "group_norm_silu": 41 * TRAIN_STEPS, "group_norm_silu_bwd": 41 * TRAIN_STEPS}
+    launches = read_launches()
+    want = launches_for(TRAIN_STEPS, TRAIN_STEPS)
     g_copies = fused_group_norm_bwd.g_copies
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -629,22 +690,12 @@ def phase_train_path(torch, pipe, env):
 def phase_trainer(torch, pipe):
     """``Trainer.run`` over a folder of 2 x 48 random 128 px PNGs: 3 steps
     at batch 32 and one eval that saves the EMA pipeline."""
-    import numpy as np
-    from PIL import Image
-
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train.train_loop import TrainConfig
     from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
 
     root = tempfile.mkdtemp(prefix="phd_trainer_")
-    rng = np.random.default_rng(SEED)
-    for cls in ("DMSO", "drug"):
-        os.makedirs(os.path.join(root, "data", cls))
-        for i in range(48):
-            Image.fromarray(rng.integers(0, 255, (RES, RES, 3), dtype=np.uint8)).save(
-                os.path.join(root, "data", cls, f"{i:03d}.png"))
+    write_image_folder(os.path.join(root, "data"), 48)
     cfg = TrainerConfig(
         train_data_dir=os.path.join(root, "data"), definition=(RES, RES),
         train_batch_size=TRAIN_BATCH, num_epochs=1, eval_every_epochs=1,
@@ -653,16 +704,12 @@ def phase_trainer(torch, pipe):
     )
     paths = RunPaths.create(root, "exp", "run0")
     trainer = for_ddim_pipeline(pipe, cfg, paths)
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     state = trainer.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches,
-                "flash_attn_bwd": flash_attention_bwd.launches,
-                "group_norm_silu": fused_group_norm.launches,
-                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
+    launches = read_launches()
     with open(os.path.join(paths.run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     loaded = ConditionalDDIMPipeline.from_pretrained(paths.full_pipeline_save, device="cuda")
@@ -675,11 +722,264 @@ def phase_trainer(torch, pipe):
     }
     emit(rec)
     # 3 steps; the end-of-epoch eval only saves the EMA pipeline
-    want = {"flash_attn_fwd": 18, "flash_attn_bwd": 18, "group_norm_silu": 123,
-            "group_norm_silu_bwd": 123}
+    want = launches_for(3, 3)
     if (state.step != 3 or rec["logged_steps"] != [1, 2, 3] or not same
             or not all(math.isfinite(x) for x in rec["losses"]) or launches != want):
         fail(f"trainer run: {rec}")
+    return rec
+
+
+def phase_guided_check(torch, pipe):
+    """One guided step at batch 4 from a fixed latent, weights frozen; the
+    batch-independence check also in float32."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.pipelines.transfer import guided_gradient
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    x = torch.randn(4, RES, RES, 3, generator=gen, device="cuda")
+    target = torch.randn(4, RES, RES, 3, generator=gen, device="cuda")
+    emb = pipe.class_embeddings(torch.tensor([1, 0, 1, 0]))
+    t = int(S.timestep_pairs(pipe.scheduler_config, STEPS)[0][1])  # the 2nd generation step
+    den = pipe.denoiser_fn()
+    with pipe.frozen():
+        reset_launches()
+        out_k, grad_k = guided_gradient(den, pipe.schedule, x, t, target, emb)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with plain_kernels():
+            out_p, grad_p = guided_gradient(den, pipe.schedule, x, t, target, emb)
+        _, grad_1 = guided_gradient(den, pipe.schedule, x[:1], t, target[:1], emb[:1])
+        torch.cuda.synchronize()
+    pipe32 = ConditionalDDIMPipeline.init_random(pipe.unet_config, pipe.scheduler_config,
+                                                 seed=SEED, device="cuda")
+    with pipe32.frozen():
+        den32 = pipe32.denoiser_fn()
+        _, g4 = guided_gradient(den32, pipe32.schedule, x, t, target, emb)
+        _, g1 = guided_gradient(den32, pipe32.schedule, x[:1], t, target[:1], emb[:1])
+    rec = {
+        "phase": "guided_check", "batch": 4, "t": t, "launches_per_step": launches,
+        "model_out_rel_l2": rel_l2(out_k, out_p), "grad_rel_l2": rel_l2(grad_k, grad_p),
+        "grad_max_abs_err": max_abs(grad_k, grad_p), "grad_abs_max": float(grad_p.abs().max()),
+        "tol_rel_l2": {"model_out": FORWARD_REL_L2_TOL, "grad": GRAD_REL_L2_TOL,
+                       "batch_independence": GUIDED_BATCH_REL_L2_TOL,
+                       "batch_independence_f32": GUIDED_BATCH_F32_REL_L2_TOL},
+        "sample0_alone_vs_batch_rel_l2": rel_l2(grad_1[0], grad_k[0]),
+        "sample0_alone_vs_batch_rel_l2_f32": rel_l2(g1[0], g4[0]),
+        "finite": bool(torch.isfinite(out_k).all() and torch.isfinite(grad_k).all()),
+        "param_grads_left": sum(p.grad is not None for p in pipe.model.parameters()),
+        "params_require_grad_after": all(p.requires_grad for p in pipe.model.parameters()),
+    }
+    emit(rec)
+    if (not rec["finite"] or rec["model_out_rel_l2"] > FORWARD_REL_L2_TOL
+            or rec["grad_rel_l2"] > GRAD_REL_L2_TOL
+            or rec["sample0_alone_vs_batch_rel_l2"] > GUIDED_BATCH_REL_L2_TOL
+            or rec["sample0_alone_vs_batch_rel_l2_f32"] > GUIDED_BATCH_F32_REL_L2_TOL
+            or rec["param_grads_left"] or float(grad_k.abs().max()) == 0.0):
+        fail(f"guided_check: {rec}")
+    if launches != launches_for(1, 1):
+        fail(f"guided step launch counts {launches} != expected {launches_for(1, 1)}")
+    return rec
+
+
+def phase_guided_path(torch, pipe, images, src, tgt, env):
+    """``guided_inverted_start`` at batch 32, 50 steps, weights frozen."""
+    from phendiff_tpu_torch.pipelines.conditional_ddim import ddim_invert
+    from phendiff_tpu_torch.pipelines.transfer import check_gaussianity, guided_inverted_start
+
+    den = pipe.denoiser_fn()
+    with pipe.frozen():
+        guided_inverted_start(den, pipe.schedule, images, src, tgt, num_inference_steps=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = guided_inverted_start(den, pipe.schedule, images, src, tgt,
+                                    num_inference_steps=STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        latents = ddim_invert(den, pipe.schedule, images, src, num_inference_steps=STEPS)
+        torch.cuda.synchronize()
+        t_invert = time.perf_counter() - t0
+    gauss = {k: float(v) for k, v in check_gaussianity(latents).items()}
+    want = launches_for(2 * STEPS, STEPS)
+    rec = {
+        "phase": "guided_path", "batch": BATCH, "res": RES, "steps": STEPS, "seconds": dt,
+        "transfers_per_s": BATCH / dt, "inversion_seconds": t_invert,
+        "ms_per_guided_step": 1e3 * (dt - t_invert) / STEPS, "peak_mem_gib": peak,
+        "launches": launches, "launches_expected": want, "gaussianity": gauss,
+        "finite": bool(torch.isfinite(out).all()), "shape": list(out.shape),
+        "out_mean": float(out.mean()), "out_std": float(out.std()),
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if not rec["finite"] or tuple(out.shape) != (BATCH, RES, RES, 3):
+        fail("guided path: output not finite or of the wrong shape")
+    if not all(math.isfinite(v) for v in gauss.values()):
+        fail(f"guided path: non-finite latent moments {gauss}")
+    if launches != want:
+        fail(f"guided path launch counts {launches} != expected {want}")
+    return rec
+
+
+def phase_cfg_path(torch, pipe, images, tgt, env):
+    """``cfg_forward_start`` at batch 32, 50 steps, frac 0.5, guidance 2.5."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.pipelines.transfer import cfg_forward_start
+
+    den = pipe.denoiser_fn()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    cfg_forward_start(den, pipe.schedule, images, tgt, gen, num_inference_steps=4)
+    torch.cuda.synchronize()
+    forwards = len(S.timestep_pairs(pipe.scheduler_config, STEPS, 0.5)[0])
+    reset_launches()
+    t0 = time.perf_counter()
+    out = cfg_forward_start(den, pipe.schedule, images, tgt, gen, guidance_scale=2.5,
+                            frac_diffusion_skipped=0.5, num_inference_steps=STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    want = launches_for(forwards, 0)
+    rec = {
+        "phase": "cfg_path", "batch": BATCH, "res": RES, "steps": STEPS,
+        "forwards_at_batch_64": forwards, "seconds": dt, "transfers_per_s": BATCH / dt,
+        "ms_per_forward_b64": 1e3 * dt / forwards, "launches": launches,
+        "launches_expected": want, "finite": bool(torch.isfinite(out).all()),
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if forwards != STEPS // 2 or launches != want or not rec["finite"]:
+        fail(f"cfg path: {rec}")
+    return rec
+
+
+def phase_inception(torch):
+    """The random-init extractor on 32 images of 128 px (resized to 299),
+    and the card against the CPU on 4 of them."""
+    from phendiff_tpu_torch.metrics.inception import InceptionExtractor
+
+    ext = InceptionExtractor(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    imgs = torch.rand(BATCH, RES, RES, 3, generator=gen, device="cuda")
+    ms = cuda_ms(lambda: ext(imgs), iters=5, warmup=2)
+    f_card, l_card = ext(imgs[:4])
+    f_cpu, l_cpu = InceptionExtractor(device="cpu")(imgs[:4].cpu())
+    rec = {
+        "phase": "inception", "batch": BATCH, "res_in": RES, "res": ext.resolution(),
+        "pretrained": ext.pretrained, "ms_per_batch": ms,
+        "features_rel_l2_card_vs_cpu": rel_l2(f_card.cpu(), f_cpu),
+        "logits_rel_l2_card_vs_cpu": rel_l2(l_card.cpu(), l_cpu),
+        "tol_rel_l2": INCEPTION_REL_L2_TOL, "shapes": [list(f_card.shape), list(l_card.shape)],
+    }
+    emit(rec)
+    if (max(rec["features_rel_l2_card_vs_cpu"], rec["logits_rel_l2_card_vs_cpu"])
+            > INCEPTION_REL_L2_TOL or rec["shapes"] != [[4, 2048], [4, 1008]]):
+        fail(f"inception: {rec}")
+    return rec
+
+
+def phase_comparison(torch, pipe, env):
+    """``ComparisonExperiment`` in a temporary directory: the random
+    pipeline saved, a 2 x 32 folder of 128 px PNGs, all four methods at 10
+    steps and batch 32, FID/ISC/KID (KID over subsets of 16)."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.experiments.comparison import (
+        METHODS, ComparisonConfig, ComparisonExperiment)
+
+    root = tempfile.mkdtemp(prefix="phd_cmp_")
+    pipe.save_pretrained(os.path.join(root, "pipe"))
+    data = write_image_folder(os.path.join(root, "data"), CMP_PER_CLASS)
+    cfg = ComparisonConfig.from_dict({
+        "output_dir": os.path.join(root, "out"), "pipelines": {"ddim": os.path.join(root, "pipe")},
+        "dataset_train": data, "definition": [RES, RES], "methods": list(METHODS),
+        "method_params": {m: {"batch_size": BATCH} for m in METHODS},
+        "num_inference_steps": CMP_STEPS,
+        "metrics": {"fid": True, "isc": True, "kid": True, "kid_subset_size": 16},
+    })
+    exp = ComparisonExperiment(cfg, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    exp.run_transfers()
+    torch.cuda.synchronize()
+    t_transfers = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    metrics = exp.compute_metrics()
+    t_metrics = time.perf_counter() - t0
+    batches = 2 * CMP_PER_CLASS // BATCH
+    cfg_fwd = len(S.timestep_pairs(pipe.scheduler_config, CMP_STEPS, 0.5)[0])
+    forwards = batches * (2 * CMP_STEPS * 3 + cfg_fwd)  # ddib, regeneration, guided; cfg
+    want = launches_for(forwards, batches * CMP_STEPS)
+    pngs = {m: len([f for _, _, fs in os.walk(os.path.join(cfg.output_dir, m)) for f in fs
+                    if "_to_" in f]) for m in METHODS}
+    with open(os.path.join(cfg.output_dir, "timings.json")) as f:
+        timings = json.load(f)
+    keys = [f"{m}/ddim/train/{k}" for m in METHODS for k in (
+        "frechet_inception_distance", "inception_score_mean", "kernel_inception_distance_mean",
+        "DMSO/frechet_inception_distance", "drug/kernel_inception_distance_mean")]
+    rec = {
+        "phase": "comparison", "batch": BATCH, "res": RES, "steps": CMP_STEPS,
+        "images_per_method": 2 * CMP_PER_CLASS, "pngs_per_method": pngs,
+        "transfer_seconds": t_transfers, "metrics_seconds": t_metrics,
+        "images_per_s": {k: v["images_per_sec"] for k, v in timings.items()},
+        "launches": launches, "launches_expected": want,
+        "metrics": {k: metrics[k] for k in keys if k in metrics},
+        "n_metrics": len(metrics), "missing_keys": [k for k in keys if k not in metrics],
+        "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if (any(n != 2 * CMP_PER_CLASS for n in pngs.values()) or rec["missing_keys"]
+            or not rec["metrics_finite"] or launches != want):
+        fail(f"comparison: {rec}")
+    return rec, data
+
+
+def phase_evaluator(torch, pipe, data):
+    """``Trainer.run`` with ``compute_metrics=True``: one step, then one
+    eval of one batch of 32 per class at 10 steps, best model saved."""
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.train.eval_loop import EvalConfig
+    from phendiff_tpu_torch.train.train_loop import TrainConfig
+    from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
+
+    cfg = TrainerConfig(
+        train_data_dir=data, definition=(RES, RES), train_batch_size=TRAIN_BATCH,
+        num_epochs=1, max_train_steps=1, eval_every_epochs=1, mixed_precision="bf16",
+        compute_metrics=True, train=TrainConfig(proba_uncond=0.1),
+        eval=EvalConfig(nb_generated_images=BATCH, eval_batch_size=BATCH,
+                        num_inference_steps=CMP_STEPS),
+    )
+    paths = RunPaths.create(tempfile.mkdtemp(prefix="phd_eval_"), "exp", "run0")
+    trainer = for_ddim_pipeline(pipe, cfg, paths)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    want = launches_for(1 + 2 * CMP_STEPS, 1)  # a train step; 10 steps a class
+    with open(os.path.join(paths.run_dir, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "main_metric_mean" in r]
+    loaded = ConditionalDDIMPipeline.from_pretrained(paths.full_pipeline_save, device="cuda")
+    saved = all(torch.equal(p, state.ema_params[n]) for n, p in loaded.model.named_parameters())
+    ev = evals[0] if evals else {}
+    rec = {
+        "phase": "evaluator", "seconds": dt, "evals": len(evals),
+        "metrics": {k: v for k, v in ev.items() if k not in ("ts",)},
+        "best_metric": trainer.best_metric, "best_model_saved": saved,
+        "launches": launches, "launches_expected": want,
+    }
+    emit(rec)
+    fids = [ev.get(f"{c}/frechet_inception_distance", float("nan")) for c in ("DMSO", "drug")]
+    if (len(evals) != 1 or not all(math.isfinite(v) for v in fids)
+            or not math.isfinite(ev["main_metric_mean"]) or not saved
+            or trainer.best_metric != ev["main_metric_mean"] or launches != want):
+        fail(f"evaluator: {rec}")
     return rec
 
 
@@ -715,8 +1015,8 @@ def main() -> None:
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.config import super_small
     from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, plain_kernels
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.pipelines.transfer import ddib
 
@@ -820,19 +1120,14 @@ def main() -> None:
     ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches,
-                "flash_attn_bwd": flash_attention_bwd.launches,
-                "group_norm_silu": fused_group_norm.launches,
-                "group_norm_silu_bwd": fused_group_norm_bwd.launches}
+    launches = read_launches()
     forwards = 2 * STEPS
-    want = {"flash_attn_fwd": 6 * forwards, "flash_attn_bwd": 0,
-            "group_norm_silu": 41 * forwards, "group_norm_silu_bwd": 0}
+    want = launches_for(forwards, 0)
     main = {
         "phase": "main_path", "batch": BATCH, "res": RES, "steps": STEPS,
         "seconds": dt, "transfers_per_s": BATCH / dt,
@@ -849,12 +1144,21 @@ def main() -> None:
     if launches != want:
         fail(f"launch counts {launches} != expected {want}")
 
-    # -- 6-9. training: gradients, train path, trainer, moments tool --------
+    # -- 6-8. training: gradients, train path, trainer ----------------------
     train_pipe = ConditionalDDIMPipeline.init_random(
         ucfg, SchedulerConfig(), seed=SEED, dtype=torch.bfloat16, device="cuda")
     phase_grad_check(torch, train_pipe)
     train = phase_train_path(torch, train_pipe, env)
     trainer = phase_trainer(torch, train_pipe)
+
+    # -- 9-15. the comparison experiment (guided and cfg transfers, Inception,
+    # the engine, the trainer's Evaluator), then the moments tool -------------
+    phase_guided_check(torch, pipe)
+    guided = phase_guided_path(torch, pipe, images, src, tgt, env)
+    cfg_path = phase_cfg_path(torch, pipe, images, tgt, env)
+    phase_inception(torch)
+    comparison, cmp_data = phase_comparison(torch, pipe, env)
+    evaluator = phase_evaluator(torch, train_pipe, cmp_data)
     moments = phase_moments()
 
     # Forward times are per batch-32 UNet forward and backward times per
@@ -862,8 +1166,10 @@ def main() -> None:
     # GroupNorm backward's 41 calls have the forward's shapes).
     by_path = {
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
-               "trainer": trainer["launches"].get(name, 0)}
-        for name in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
+               "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
+               "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
+               "evaluator": evaluator["launches"][name]}
+        for name in KERNEL_NAMES
     }
     kernels = [
         {

@@ -11,7 +11,10 @@ semantics:
   dedicated seed;
 * an epoch order fixed by ``(seed, epoch)``, so a resumed run skips the
   batches it already consumed exactly, and a background thread that
-  prefetches batches as numpy NHWC arrays.
+  prefetches batches as numpy NHWC arrays;
+* a "raw" view (resize only, uint8, ``normalize=False``) read in file
+  order by ``all_images``: the metrics' reference set and the comparison
+  engine's inputs.
 
 PIL is imported inside the decode function only, so the package imports
 without it.
@@ -54,6 +57,9 @@ class DatasetIndex:
             labels=tuple(self.labels[i] for i in indices),
             classes=self.classes,
         )
+
+    def for_class(self, label: int) -> "DatasetIndex":
+        return self.subset([i for i, lab in enumerate(self.labels) if lab == label])
 
 
 def scan_imagefolder(root) -> DatasetIndex:
@@ -103,10 +109,22 @@ def decode_image(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
+def load_image(path: str, definition: Tuple[int, int], normalize: bool = True) -> np.ndarray:
+    """Decode and resize one image (the native library's bilinear resize):
+    float32 in [-1, 1], or with ``normalize=False`` the raw uint8 pixels."""
+    from phendiff_tpu_torch.data import native
+
+    raw = decode_image(path)
+    if not normalize:
+        return native.resize_u8(raw, definition)
+    return native.batch_resize_normalize([raw], definition)[0]
+
+
 @dataclasses.dataclass
 class LoaderConfig:
     batch_size: int = 16
     definition: Tuple[int, int] = (128, 128)
+    normalize: bool = True  # False: the raw uint8 view
     # "f32": normalised [-1, 1] float32 batches; "uint8": the resized pixels
     # quantised back to uint8 (the train step normalises on the device)
     transport: str = "f32"
@@ -136,6 +154,9 @@ class ImageFolderLoader:
 
         cfg = self.config
         labels = np.array([self.index.labels[i] for i in idxs], dtype=np.int32)
+        if not cfg.normalize:
+            return np.stack([load_image(self.index.paths[i], cfg.definition, False)
+                             for i in idxs]), labels
         raws = [decode_image(self.index.paths[i]) for i in idxs]
         flips = None
         if cfg.random_flip:
@@ -167,3 +188,11 @@ class ImageFolderLoader:
             if item is None:
                 return
             yield item
+
+    def all_images(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """One pass over the whole index in file order, the last batch
+        possibly short."""
+        rng = np.random.default_rng(0)
+        n, bs = len(self.index), self.config.batch_size
+        for start in range(0, n, bs):
+            yield self._make_batch(np.arange(start, min(start + bs, n)), rng)

@@ -75,6 +75,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ]
+        lib.resize_image_u8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
         _lib = lib
         return _lib
 
@@ -125,6 +129,21 @@ def batch_resize_normalize(
         int(normalize), flips_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
         int(antialias),
     )
+    return out
+
+
+def resize_u8(img: np.ndarray, definition: Tuple[int, int], antialias: bool = True) -> np.ndarray:
+    """One HWC uint8 image -> [dh, dw, C] uint8, the resize rounded to the
+    nearest level."""
+    lib = get_lib()
+    dh, dw = definition
+    if lib is None:
+        f = _fallback_resize(img, definition, False, False, False)
+        return np.clip(f + 0.5, 0, 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    sh, sw, ch = img.shape
+    out = np.empty((dh, dw, ch), dtype=np.uint8)
+    lib.resize_image_u8(_as_u8_ptr(img), sh, sw, ch, _as_u8_ptr(out), dh, dw, int(antialias))
     return out
 
 

@@ -1,7 +1,9 @@
-"""Device-time breakdown of the main paths: the UNet forward, or a train step.
+"""Device-time breakdown of the main paths: the UNet forward, a train step,
+or a guided-transfer step.
 
     python -m phendiff_tpu_torch.obs.forward_profile [--batch 32] [--forwards 5]
     python -m phendiff_tpu_torch.obs.forward_profile --train [--batch 32] [--steps 3]
+    python -m phendiff_tpu_torch.obs.forward_profile --guided [--batch 32] [--steps 3]
 
 Builds the ``super_small`` 128 px pipeline (random weights, seed 0, bf16
 compute), warms up, then traces ``--forwards`` denoiser calls (or, with
@@ -13,7 +15,10 @@ convolutions, matrix products, the optimizer's multi-tensor kernels,
 elementwise and copy kernels), the top kernels by device time, the wall
 time per call and the device's idle share of it.  A train step also gets
 its backward's device time by autograd node (convolution, GroupNorm,
-attention, ...).  Needs a CUDA device.
+attention, ...).  A guided step (``--guided``: the reconstruction-guided
+transfer's forward with an input gradient and its backward, bf16 weights
+frozen) is traced whole and as its forward alone, which splits its device
+time into forward and backward.  Needs a CUDA device.
 
 ``group_norm_calls`` lists the GroupNorm calls of one forward by shape,
 from the model run on the meta device (no card needed), and
@@ -209,15 +214,53 @@ def profile_train(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
     return {"path": "train_step", "batch": batch, "res": res, **_trace(one, steps)}
 
 
+def profile_guided(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
+    """The guided transfer's step (``transfer.guided_gradient``), as
+    ``chip_smoke.py`` drives it: the whole step, then its forward alone."""
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.pipelines.transfer import guided_gradient
+
+    pipe = _pipeline(SchedulerConfig(num_train_timesteps=1000, timestep_spacing="trailing",
+                                      clip_sample=False)).cast_params(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(batch, res, res, 3, generator=gen, device="cuda")
+    target = torch.randn(batch, res, res, 3, generator=gen, device="cuda")
+    emb = pipe.class_embeddings(torch.ones(batch, dtype=torch.long))
+    t = torch.full((batch,), 500, device="cuda")
+    denoise = pipe.denoiser_fn()
+
+    def step():
+        guided_gradient(denoise, pipe.schedule, x, 500, target, emb)
+
+    def forward():
+        with torch.enable_grad():
+            denoise(x.detach().requires_grad_(), t, emb)
+
+    with pipe.frozen():
+        for _ in range(3):
+            step()
+            forward()
+        torch.cuda.synchronize()
+        whole, fwd = _trace(step, steps), _trace(forward, steps)
+    return {"path": "guided_step", "batch": batch, "res": res, **whole,
+            "forward_device_ms_per_call": fwd["device_ms_per_call"],
+            "backward_device_ms_per_call": whole["device_ms_per_call"]
+            - fwd["device_ms_per_call"],
+            "forward_ms_per_call_by_category": fwd["ms_per_call_by_category"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile train steps instead")
+    ap.add_argument("--guided", action="store_true", help="profile guided-transfer steps")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     if args.train:
         print(json.dumps(profile_train(args.batch, args.steps)))
+    elif args.guided:
+        print(json.dumps(profile_guided(args.batch, args.steps)))
     else:
         print(json.dumps(profile(args.batch, args.forwards)))
 

@@ -3,8 +3,9 @@
 Counterpart of ``phendiff_tpu/obs/trackers.py``: a small ``Tracker``
 interface with a ``JSONLTracker`` (metrics to ``metrics.jsonl``, alerts
 with a 6 h cooldown per title to ``alerts.log``, the run id kept in
-``run_id.txt`` for resume) and a ``NullTracker``.  The wandb backend and
-image panels (the Evaluator's) are not ported yet.
+``run_id.txt`` for resume, image panels as PNG files under
+``images/step_<step>/``) and a ``NullTracker``.  The wandb backend is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -14,11 +15,17 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
+
 
 class Tracker:
     run_id: str = ""
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
+        raise NotImplementedError
+
+    def log_images(self, name: str, images01, step: int) -> None:
+        """A batch of [B, H, W, C] images in [0, 1]."""
         raise NotImplementedError
 
     def alert(self, title: str, text: str) -> None:
@@ -30,6 +37,9 @@ class Tracker:
 
 class NullTracker(Tracker):
     def log(self, metrics, step):
+        pass
+
+    def log_images(self, name, images01, step):
         pass
 
     def alert(self, title, text):
@@ -64,6 +74,17 @@ class JSONLTracker(Tracker):
                 rec[k] = str(v)
         self._metrics_f.write(json.dumps(rec) + "\n")
         self._metrics_f.flush()
+
+    def log_images(self, name, images01, step):
+        from PIL import Image
+
+        name = name.replace(os.sep, "_")  # names like "samples/DMSO"
+        out_dir = os.path.join(self.run_dir, "images", f"step_{step:08d}")
+        os.makedirs(out_dir, exist_ok=True)
+        arr = (np.clip(np.asarray(images01), 0, 1) * 255).astype(np.uint8)
+        for i, img in enumerate(arr):
+            Image.fromarray(img[..., 0] if img.shape[-1] == 1 else img).save(
+                os.path.join(out_dir, f"{name}_{i:03d}.png"))
 
     def alert(self, title, text):
         now = time.time()

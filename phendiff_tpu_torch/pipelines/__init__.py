@@ -6,4 +6,13 @@ from phendiff_tpu_torch.pipelines.conditional_ddim import (  # noqa: F401
     to_images,
 )
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline  # noqa: F401
-from phendiff_tpu_torch.pipelines.transfer import ddib, inverted_regeneration  # noqa: F401
+from phendiff_tpu_torch.pipelines.transfer import (  # noqa: F401
+    TRANSFER_METHODS,
+    cfg_forward_start,
+    check_gaussianity,
+    custom_guided_generation,
+    ddib,
+    guided_inverted_start,
+    inverted_regeneration,
+    lp_loss,
+)

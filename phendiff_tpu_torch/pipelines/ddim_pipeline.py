@@ -11,6 +11,7 @@ an ``nn.Module`` on one device; sampling runs the host loops of
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -109,13 +110,28 @@ class ConditionalDDIMPipeline:
         return table[torch.as_tensor(class_labels, device=table.device)]
 
     def denoiser_fn(self) -> sampler.DenoiserFn:
+        """The model as a denoiser.  It records no autograd graph unless
+        its input requires a gradient (the guided transfer's step)."""
         model = self.model
 
         def fn(x, t, class_emb):
-            with torch.no_grad():
+            with torch.set_grad_enabled(torch.is_grad_enabled() and x.requires_grad):
                 return model(x, t, class_emb=class_emb)
 
         return fn
+
+    @contextlib.contextmanager
+    def frozen(self):
+        """The model's parameters frozen inside the block and restored
+        after, so autograd through the denoiser forms input gradients only."""
+        flags = [(p, p.requires_grad) for p in self.model.parameters()]
+        for p, _ in flags:
+            p.requires_grad_(False)
+        try:
+            yield self
+        finally:
+            for p, flag in flags:
+                p.requires_grad_(flag)
 
     def cast_params(self, dtype: torch.dtype = torch.bfloat16) -> "ConditionalDDIMPipeline":
         """A pipeline whose conv and linear weights are stored in ``dtype``,

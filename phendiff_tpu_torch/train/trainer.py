@@ -11,12 +11,13 @@ image-folder route:
   "latest" (or a step) with an exact skip of the batches already consumed;
 * metrics read back in one host fetch every ``metrics_flush_every`` steps,
   with a NaN alert on non-finite loss or gradient norm;
-* lr x sqrt(data-parallel size), which is 1 on one device.
+* lr x sqrt(data-parallel size), which is 1 on one device;
+* with ``compute_metrics=True`` an eval pass runs the ``Evaluator``
+  (per-class FID/ISC/KID of EMA samples) and saves the EMA pipeline when
+  its ``main_metric_mean`` is the best so far; without it, an eval pass
+  saves the pipeline only while the save folder is still empty.
 
-The Evaluator (FID and friends) is a later slice: ``compute_metrics=True``
-raises, and an eval pass only saves the EMA pipeline when the save folder
-is still empty, as the JAX trainer does without an evaluator.  The
-eval-cadence options the port does not run yet (``eval_every_opti_steps``,
+The eval-cadence options the port does not run yet (``eval_every_opti_steps``,
 ``precise_first_n_epochs``) come with the CLI route.
 ``for_ddim_pipeline`` builds a ``Trainer`` for a ``ConditionalDDIMPipeline``.
 """
@@ -45,7 +46,14 @@ from phendiff_tpu_torch.data.imagefolder import (
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
 from phendiff_tpu_torch.obs.profiling import StepTimer
 from phendiff_tpu_torch.obs.trackers import make_tracker
+from phendiff_tpu_torch.pipelines.conditional_ddim import GuidanceConfig, ddim_sample
 from phendiff_tpu_torch.train.checkpoints import CheckpointManager
+from phendiff_tpu_torch.train.eval_loop import (
+    EvalConfig,
+    Evaluator,
+    get_initial_best_metric,
+    is_it_best_model,
+)
 from phendiff_tpu_torch.train.train_loop import (
     Params,
     TrainConfig,
@@ -97,11 +105,12 @@ class TrainerConfig:
     checkpoints_total_limit: Optional[int] = None
     resume_from_checkpoint: Optional[str] = None  # "latest" or a step number
     mixed_precision: str = "bf16"
-    compute_metrics: bool = False  # the Evaluator is not ported yet
+    compute_metrics: bool = False  # run the Evaluator at each eval pass
     save_final_checkpoint: bool = True
     metrics_flush_every: int = 1  # read metrics back every N steps, one fetch
     upload_uint8: bool = False  # ship uint8 batches, normalise on the device
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     tracker: str = "jsonl"
 
 
@@ -133,13 +142,12 @@ class Trainer:
         trainable_params: Params,
         schedule,
         save_pipeline_fn: Callable,  # (state, dirpath) -> None
+        make_generate_fn: Optional[Callable] = None,  # (state) -> Evaluator's generate_fn
         trainable_mask=None,
         device: DeviceLike = None,
     ):
-        if config.compute_metrics:
-            raise NotImplementedError(
-                "compute_metrics=True needs the Evaluator, which is not ported yet"
-            )
+        if config.compute_metrics and make_generate_fn is None:
+            raise ValueError("compute_metrics=True needs a make_generate_fn")
         self.config = config
         self.paths = paths
         self.device = resolve_device(device)
@@ -154,7 +162,13 @@ class Trainer:
         self.ckpt = CheckpointManager(paths.checkpoints, config.checkpoints_total_limit)
         self.tracker = make_tracker(config.tracker, paths.run_dir)
         self.save_pipeline_fn = save_pipeline_fn
-        self.index, self.loader, _ = build_data(config)
+        self.make_generate_fn = make_generate_fn
+        self.best_metric = get_initial_best_metric()
+        self.index, self.loader, eval_index = build_data(config)
+        self.evaluator = None
+        if config.compute_metrics:
+            self.evaluator = Evaluator(config.eval, eval_index, config.definition,
+                                       cache_root=paths.fidelity_cache, device=self.device)
 
     # -- resume ------------------------------------------------------------
     def maybe_resume(self) -> Tuple[int, int]:
@@ -167,11 +181,21 @@ class Trainer:
         steps_per_epoch = len(self.loader)
         return self.state.step // steps_per_epoch, self.state.step % steps_per_epoch
 
-    # -- eval --------------------------------------------------------------
-    def _run_eval(self) -> None:
-        """Without an evaluator: save the EMA pipeline if the folder is empty."""
+    # -- eval + best model --------------------------------------------------
+    def _run_eval(self, global_step: int) -> None:
+        """Evaluate and save the EMA pipeline when it is the best so far;
+        without a main metric, save it while the folder is still empty."""
+        mean_main = None
+        if self.evaluator is not None:
+            metrics = self.evaluator.evaluate(self.make_generate_fn(self.state), global_step,
+                                              tracker=self.tracker)
+            mean_main = metrics.get("main_metric_mean")
         save_dir = self.paths.full_pipeline_save
-        if not (os.path.isdir(save_dir) and os.listdir(save_dir)):
+        if mean_main is None:
+            if not (os.path.isdir(save_dir) and os.listdir(save_dir)):
+                self.save_pipeline_fn(self.state, save_dir)
+        elif is_it_best_model(mean_main, self.best_metric):
+            self.best_metric = mean_main
             self.save_pipeline_fn(self.state, save_dir)
 
     # -- main loop -----------------------------------------------------------
@@ -241,7 +265,7 @@ class Trainer:
                 t_iter = time.perf_counter()
             self._flush_metrics(pending, timer)
             if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
-                self._run_eval()
+                self._run_eval(global_step)
             if done:
                 break
         if cfg.save_final_checkpoint:
@@ -288,6 +312,27 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
         m.load_state_dict({n: t.detach().cpu() for n, t in state.ema_params.items()})
         dataclasses.replace(pipe, model=m.to(pipe.device)).save_pretrained(dirpath)
 
+    ev = config.eval
+    cfg = pipe.unet_config
+
+    def make_generate_fn(state: TrainState):
+        """EMA-weight sampling in the compute dtype, as ``pipe.generate``."""
+        ema = state.ema_params
+
+        def generate(labels, generator, num_inference_steps):
+            if ev.unconditional:
+                class_emb = torch.zeros((len(labels), cfg.time_embed_dim), device=labels.device)
+            else:
+                class_emb = embed_fn(ema, labels)
+            return ddim_sample(
+                lambda x, t, emb: model_apply(ema, x, t, emb), pipe.schedule, class_emb,
+                shape=(len(labels), cfg.sample_size, cfg.sample_size, cfg.in_channels),
+                generator=generator, num_inference_steps=num_inference_steps,
+                guidance=GuidanceConfig(ev.guidance_factor),
+            )
+
+        return generate
+
     return Trainer(
         config, paths,
         model_apply=model_apply,
@@ -295,6 +340,7 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
         trainable_params=params,
         schedule=pipe.schedule,
         save_pipeline_fn=save_pipeline_fn,
+        make_generate_fn=make_generate_fn,
         trainable_mask=attention_param_mask if attention_fine_tuning else None,
         device=pipe.device,
         **kw,

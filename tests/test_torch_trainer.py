@@ -170,9 +170,29 @@ def test_attention_param_mask_matches_jax():
     assert 0 < sum(want.values()) < len(want)
 
 
-def test_compute_metrics_is_a_later_slice(tiny_image_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="Evaluator"):
-        make_trainer(tiny_image_root, tmp_path, compute_metrics=True)
+def test_compute_metrics_is_a_later_slice(tiny_image_root, tmp_path, monkeypatch):
+    """The slice has come: ``compute_metrics=True`` runs the Evaluator at
+    the end of an epoch and saves the EMA pipeline as the best model."""
+    from phendiff_tpu_torch.metrics.fidelity import MetricsConfig
+    from phendiff_tpu_torch.train.eval_loop import EvalConfig
+
+    monkeypatch.setenv("PHENDIFF_INCEPTION_RESIZE", "75")
+    ev = EvalConfig(nb_generated_images=2, eval_batch_size=2, num_inference_steps=2,
+                    main_metric="kernel_inception_distance_mean",
+                    metrics=MetricsConfig(fid=False, isc=True, kid=True, kid_subset_size=2,
+                                          kid_subsets=3))
+    trainer, paths = make_trainer(tiny_image_root, tmp_path, compute_metrics=True, eval=ev,
+                                  num_epochs=1, eval_every_epochs=1, max_train_steps=1)
+    assert trainer.evaluator is not None and trainer.evaluator.device.type == "cpu"
+    trainer.run()
+    rec = [r for r in _records(paths) if "main_metric_mean" in r]
+    assert len(rec) == 1 and rec[0]["step"] == 1 and rec[0]["inception_pretrained"] == 0.0
+    assert np.isfinite(rec[0]["DMSO/kernel_inception_distance_mean"])
+    assert trainer.best_metric == rec[0]["main_metric_mean"]
+    loaded = ConditionalDDIMPipeline.from_pretrained(paths.full_pipeline_save, device="cpu")
+    assert all(torch.equal(p, trainer.state.ema_params[n])
+               for n, p in loaded.model.named_parameters())
+    assert os.listdir(os.path.join(paths.run_dir, "images", "step_00000001"))
 
 
 def test_checkpoint_rotation_and_restore(tmp_path):
