@@ -58,7 +58,33 @@ failure exits non-zero before the final line:
 14. evaluator: ``Trainer.run`` with ``compute_metrics=True``, one step and
     one eval (one batch of 32 per class, 10 steps), best model saved;
 15. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
-    kernel against its plain version at [32, 8192, 128] bf16.
+    kernel against its plain version at [32, 8192, 128] bf16;
+16. sd_kernel_check: full-width SD-2.1's self-attention shapes (heads of
+    64) at 128 px, batch 64 and 512 px, batch 8, both attention kernels
+    against their plain versions and SDPA; the cluster GroupNorm kernels at
+    the SD UNet's and the VAE's shapes at the same batches; the streaming
+    GroupNorm variant,
+    forward and backward, against the plain versions at every (S, C, act)
+    of the CPU fault test's list (calls no cluster plan fits: the SD VAE's
+    512 px maps among them);
+17. sd_forward_check: one full-width SD UNet forward (latent 16, batch 2)
+    and VAE encode + decode at 128 px (batch 2) and 512 px (batch 1),
+    kernels against plain versions in float32, and in bf16 against the
+    float32 plain output no further than the bf16 plain path;
+18. sd_path and sd_path_512: ``SDImg2ImgPipeline.init_random`` (full-width
+    SD-2.1, seed 0, bf16) and a 50-step DDIB class transfer from images
+    through the VAE at 128 px, batch 64 and 512 px, batch 8
+    (``bench.py::bench_sd(16, 64)`` and ``bench_sd(64, 8)``'s shapes), with
+    exact launches per kernel, streaming variant and plain-attention route
+    against what the recorded calls predict, and no call of a kernel's plain
+    version on the card;
+19. sd_guided_check: one guided step at latent 16, batch 4 in bf16, and at
+    latent 64, batch 1 in float32 (its one streaming backward), model output
+    and input gradient against the plain path;
+20. sd_comparison: the SD pipeline saved with ``save_pretrained`` and run
+    by ``ComparisonExperiment`` over 2 x 32 random 128 px PNGs, all four
+    methods, 10 steps, batch 32; ISC and KID (FID off: its host ``sqrtm``
+    already takes most of the DDIM comparison phase).
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -91,6 +117,16 @@ SFU_PER_CLOCK_PER_SM = 16
 # plain version rounds the normalised p (about one bf16 ulp of the output);
 # in f32, f32 rounding.
 ATTN_TOL = {"bfloat16": dict(rtol=2.0**-6, atol=2e-3), "float32": dict(rtol=1e-4, atol=1e-5)}
+# Below S = 256 keys (SD-2.1's inner levels: S = 64, 16, 4) the plain
+# version's rounding of the normalised p to bf16 is no longer small (p up to
+# ~1): its own error against float64 reaches 1.5e-2 per element, beyond
+# ATTN_TOL, while the kernel's stays smaller (measured on the card: rel L2
+# against float64 1.9e-3-2.1e-3 for the kernel, 2.3e-3 for the plain
+# version).  There a bf16 kernel is held by relative L2 against the plain
+# version (ATTN_SMALL_S_REL_L2, as the backward) and must be no further from
+# float64 than the plain version is.
+ATTN_SMALL_S = 256
+ATTN_SMALL_S_REL_L2 = 5e-3
 GN_TOL = dict(rtol=2.0**-7, atol=1e-3)  # one bf16 ulp of the output
 # The forward's f32 mean and rstd against the plain version's: f32 sums of
 # up to 0.5 M terms in another order.
@@ -127,6 +163,14 @@ DESIGN = {
                            "channel sums of dz and dz*x^ over the cluster, dx from shared "
                            "memory; dscale/dbias summed over the batch in sample order by "
                            "the last cluster of each channel slice (atomic ticket)",
+    "group_norm_silu_stream": "three launches for maps no cluster plan fits: split f32 "
+                              "sums of x and x^2 per channel (gn_stats), a fixed-order "
+                              "combine per group, a second read of x that normalises: 2 "
+                              "reads + 1 write against the bound's 1 + 1",
+    "group_norm_silu_stream_bwd": "five launches: split sums of dz and dz*x^ per channel, "
+                                  "their fixed-order reduction over the splits, each group's "
+                                  "coefficients, dscale/dbias over samples in order, a "
+                                  "second read of x and g for dx",
 }
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
 # The guided step's model output and input gradient, kernels against plain
@@ -144,6 +188,23 @@ GUIDED_BATCH_F32_REL_L2_TOL = 1e-4
 INCEPTION_REL_L2_TOL = 1e-3
 CMP_PER_CLASS, CMP_STEPS = 32, 10
 KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
+# The SD paths' launch counts: the kernels, the streaming GroupNorm variant,
+# the counted attention_plain route (cross-attention) and the VAE's
+# single-head attention.
+SD_KEYS = KERNEL_NAMES + ("group_norm_silu_stream", "group_norm_silu_stream_bwd",
+                          "attention_plain_route", "single_head_attention")
+# (batch, image px): bench.py::bench_sd(16, 64) and bench_sd(64, 8)'s shapes
+SD_RUNS = {"sd_path": (64, 128), "sd_path_512": (8, 512)}
+SD_CMP_BATCH = 32
+# Full-width SD forward and guided step, kernels against plain versions,
+# relative L2: bf16 through 61 GroupNorms, 16 self-attentions and their
+# backward (as FORWARD_REL_L2_TOL and GRAD_REL_L2_TOL); in f32, f32 rounding
+# through the same layers (as the card tests' UNet gradients, 1e-3).
+SD_F32_REL_L2_TOL = 1e-3
+# bf16 forward: the kernel path's distance to the f32 plain output at most
+# this multiple of the bf16 plain path's (each rounds differently, neither
+# is the reference).
+SD_BF16_VS_PLAIN = 1.25
 
 
 def emit(obj) -> None:
@@ -273,8 +334,19 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     ref = attention_plain(q, k, v)
     torch.cuda.synchronize()
     deterministic = bool(torch.equal(out, again))
-    ok = (out.dtype == dtype and torch.allclose(out.float(), ref.float(), **tol)
-          and deterministic)
+    small_s = {}
+    if dtype == torch.bfloat16 and s < ATTN_SMALL_S:
+        exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(torch.einsum(
+            "bqhd,bkhd->bhqk", q.double() * d**-0.5, k.double()), -1), v.double())
+        small_s = {"rel_l2": rel_l2(out, ref), "tol_rel_l2": ATTN_SMALL_S_REL_L2,
+                   "kernel_vs_f64_rel_l2": rel_l2(out.double(), exact),
+                   "plain_vs_f64_rel_l2": rel_l2(ref.double(), exact)}
+        close = (small_s["rel_l2"] <= ATTN_SMALL_S_REL_L2
+                 and small_s["kernel_vs_f64_rel_l2"] <= small_s["plain_vs_f64_rel_l2"])
+        del exact
+    else:
+        close = torch.allclose(out.float(), ref.float(), **tol)
+    ok = out.dtype == dtype and close and deterministic
     err = max_abs(out, ref)
     ms = cuda_ms(lambda: flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v), iters=5, warmup=1)
@@ -289,7 +361,7 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
         "phase": "kernel_check", "kernel": "flash_attn_fwd", "dtype": dtype_name,
         "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": err, "ok": bool(ok),
         "deterministic": deterministic, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "library_ms": library_ms, **({"small_s": small_s} if small_s else {}),
         "bytes": n_bytes, "flops": flops, "exps": exps,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -700,6 +772,7 @@ def phase_trainer(torch, pipe):
         train_data_dir=os.path.join(root, "data"), definition=(RES, RES),
         train_batch_size=TRAIN_BATCH, num_epochs=1, eval_every_epochs=1,
         checkpointing_steps=1000, mixed_precision="bf16", metrics_flush_every=3,
+        compute_metrics=False,  # the evaluator phase runs the Evaluator
         train=TrainConfig(proba_uncond=0.1),
     )
     paths = RunPaths.create(root, "exp", "run0")
@@ -1000,6 +1073,455 @@ def phase_moments():
     return rec
 
 
+def reset_sd_launches() -> None:
+    from phendiff_tpu_torch.ops import attention
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+
+    reset_launches()
+    fused_group_norm.stream_launches = fused_group_norm_bwd.stream_launches = 0
+    attention.multi_head_attention.xla_route_calls = 0
+    attention.single_head_attention.calls = 0
+
+
+def read_sd_launches() -> dict:
+    from phendiff_tpu_torch.ops import attention
+    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+
+    return {**read_launches(), "group_norm_silu_stream": fused_group_norm.stream_launches,
+            "group_norm_silu_stream_bwd": fused_group_norm_bwd.stream_launches,
+            "attention_plain_route": attention.multi_head_attention.xla_route_calls,
+            "single_head_attention": attention.single_head_attention.calls}
+
+
+def predicted_launches(calls: dict, forward: bool = True, backward: bool = False) -> dict:
+    """The launches one recorded forward (``obs.forward_profile.record_calls``)
+    makes on the card, by ``gn_route`` and ``attention.takes_kernel``, and
+    those of its input backward."""
+    from phendiff_tpu_torch.ops.attention import takes_kernel
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+
+    out = dict.fromkeys(SD_KEYS, 0)
+    for (s, c, g, _, isz), n in calls["group_norm"].items():
+        if forward:
+            stream = gn_route(s, c, g, isz) == "stream"
+            out["group_norm_silu_stream" if stream else "group_norm_silu"] += n
+        if backward:
+            stream = gn_route(s, c, g, isz, backward=True) == "stream"
+            out["group_norm_silu_stream_bwd" if stream else "group_norm_silu_bwd"] += n
+    for (s_q, s_kv, _, d, _), n in calls["attention"].items():
+        if takes_kernel(s_q, s_kv, d):
+            out["flash_attn_fwd"] += n * forward
+            out["flash_attn_bwd"] += n * backward
+        else:
+            out["attention_plain_route"] += n * forward
+    out["single_head_attention"] += calls["single_head_attention"] * forward
+    return out
+
+
+def add_launches(*terms) -> dict:
+    """Sum of (count, launches) terms."""
+    return {k: sum(n * d[k] for n, d in terms) for k in SD_KEYS}
+
+
+def counting_plain_calls():
+    """A context counting the calls of the kernels' plain versions on CUDA
+    tensors (the kernel wrappers' CPU fallbacks; the card's paths make none)."""
+    import collections
+    import contextlib
+
+    import torch
+
+    from phendiff_tpu_torch.ops import flash_attention as fa
+    from phendiff_tpu_torch.ops import gn_kernels as gk
+
+    @contextlib.contextmanager
+    def ctx():
+        counts = collections.Counter()
+        names = ((fa, "attention_plain"), (fa, "flash_attention_bwd_plain"),
+                 (gk, "group_norm_plain"), (gk, "group_norm_bwd_plain"))
+        saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+        for mod, name, fn in saved:
+            def counted(*a, _fn=fn, _name=name, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    counts[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        try:
+            yield counts
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return ctx()
+
+
+def gn_stream_check(torch, b, s, c, groups, act, dtype_name, sfu_rate, iters=10):
+    """The streaming GroupNorm variant, forward and backward, against the
+    plain versions at one shape: errors, determinism, device times (CUDA
+    graphs), plain and library times and the bounds.  The forward moves 2
+    reads + 1 write against the bound's 1 + 1, the backward 4 reads + 1
+    write against 2 + 1."""
+    import torch.nn.functional as F
+
+    from phendiff_tpu_torch.ops import gn_kernels as gk
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(s + c + 2)
+    x = (torch.randn(b, s, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gout = torch.randn(b, s, c, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(c, generator=gen, device="cuda")
+    bias = torch.randn(c, generator=gen, device="cuda")
+    kw = dict(num_groups=groups, eps=1e-6, act=act, out_dtype=dtype)
+    tol = GN_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+
+    def fwd():
+        return gk._launch(x, scale, bias, groups, 1e-6, act, dtype)
+
+    mean_r, rstd_r = gk.group_stats_plain(x, groups, 1e-6)
+
+    def bwd():
+        return gk.fused_group_norm_bwd(x, gout, scale, bias, mean_r, rstd_r, num_groups=groups,
+                                       act=act)
+
+    # both directions through the streaming variant, also where one of them
+    # has a cluster plan at this shape
+    route, gk.gn_route = gk.gn_route, lambda *a, **kw: "stream"
+
+    before = (gk.fused_group_norm.stream_launches, gk.fused_group_norm_bwd.stream_launches)
+    (out, mean, rstd), again = fwd(), fwd()[0]
+    got, got2 = bwd(), bwd()
+    torch.cuda.synchronize()
+    counted = (gk.fused_group_norm.stream_launches - before[0],
+               gk.fused_group_norm_bwd.stream_launches - before[1]) == (2, 2)
+    ref = gk.group_norm_plain(x, scale, bias, **kw)
+    ref_b = gk.group_norm_bwd_plain(x, gout, scale, bias, mean_r, rstd_r, num_groups=groups,
+                                    act=act)
+    torch.cuda.synchronize()
+    stats_ok = all(torch.allclose(a, r, **GN_STATS_TOL) for a, r in zip((mean, rstd),
+                                                                        (mean_r, rstd_r)))
+    errs = {n: rel_l2(a, r) for n, a, r in zip(("dx", "dscale", "dbias"), got, ref_b)}
+    dx_tol = GN_BWD_DX_REL_L2 if dtype == torch.bfloat16 else 1e-5
+    deterministic = torch.equal(out, again) and all(torch.equal(a, b2)
+                                                    for a, b2 in zip(got, got2))
+    ok = (torch.allclose(out.float(), ref.float(), **tol) and stats_ok and deterministic
+          and counted and errs["dx"] <= dx_tol and errs["dscale"] <= GN_BWD_PARAM_REL_L2
+          and errs["dbias"] <= GN_BWD_PARAM_REL_L2)
+    max_err, max_err_b = max_abs(out, ref), max_abs(got[0], ref_b[0])
+    del again, got2, ref, ref_b
+    ms, bwd_ms = graph_ms(lambda: fwd(), iters), graph_ms(lambda: bwd(), iters)
+    gk.gn_route = route
+    plain_ms = cuda_ms(lambda: gk.group_norm_plain(x, scale, bias, **kw), iters=3, warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: gk.group_norm_bwd_plain(
+        x, gout, scale, bias, mean_r, rstd_r, num_groups=groups, act=act), iters=3, warmup=1)
+    xc = x.transpose(1, 2).contiguous()
+    sb, bb = scale.to(dtype), bias.to(dtype)
+
+    def library(xin):
+        y = F.group_norm(xin, groups, sb, bb, 1e-6)
+        return F.silu(y) if act == "silu" else y
+
+    library_ms = cuda_ms(lambda: library(xc), iters=iters)
+    xg = xc.requires_grad_()
+    sg, bg = sb.clone().requires_grad_(), bb.clone().requires_grad_()
+    y = F.group_norm(xg, groups, sg, bg, 1e-6)
+    y = F.silu(y) if act == "silu" else y
+    gc = gout.transpose(1, 2).contiguous()
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (xg, sg, bg), gc, retain_graph=True),
+                             iters=iters)
+    el, isz = b * s * c, x.element_size()
+    n_bytes, n_bytes_b = 2 * el * isz + 2 * c * 4, 3 * el * isz + 4 * c * 4 + 2 * b * groups * 4
+    t_ops = 10 * el / F32_FLOPS
+    t_ops_b = max(20 * el / F32_FLOPS, (el if act == "silu" else 0) / sfu_rate)
+    rec = {
+        "phase": "kernel_check", "kernel": "group_norm_silu_stream", "dtype": dtype_name,
+        "shape": {"B": b, "S": s, "C": c, "G": groups, "act": act},
+        "max_abs_err": max_err, "bwd_max_abs_err": max_err_b, "bwd_rel_l2": errs,
+        "tol": tol, "tol_bwd_rel_l2": {"dx": dx_tol, "dscale": GN_BWD_PARAM_REL_L2,
+                                       "dbias": GN_BWD_PARAM_REL_L2},
+        "ok": bool(ok), "stats_ok": stats_ok, "deterministic": deterministic,
+        "one_count_per_call": counted,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": 1e3 * max(n_bytes / HBM_BYTES_PER_S, t_ops), "bytes": n_bytes,
+        "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms, "bwd_library_ms": library_bwd_ms,
+        "bwd_bound_ms": 1e3 * max(n_bytes_b / HBM_BYTES_PER_S, t_ops_b), "bwd_bytes": n_bytes_b,
+        "bytes_moved_over_bound": {"forward": "2 reads + 1 write vs 1 + 1",
+                                   "backward": "4 reads + 1 write vs 2 + 1"},
+    }
+    emit(rec)
+    return rec
+
+
+def sd_streamed_calls() -> set:
+    """(S, C, G, act, itemsize) of every GroupNorm call without a cluster plan,
+    in either direction, in the configs of the CPU fault test (the four
+    denoiser presets, full-width SD-2.1 at latent 16 and 64, the VAE at 128
+    and 512 px, bf16 and f32)."""
+    import glob
+
+    import torch
+
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.config import UNet2DConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls, vae_calls
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+
+    out = {}  # key -> the VAE's image px where the call is the VAE's, else 0
+    for dtype in (torch.bfloat16, torch.float32):
+        recs = [(unet_calls(cfg, cfg.sample_size, dtype), 0) for cfg in map(
+            UNet2DConfig.from_json, sorted(glob.glob("configs/denoiser/*.json")))]
+        recs += [(sd_unet_calls(SDUNetConfig(), lat, dtype), 0) for lat in (16, 64)]
+        recs += [(vae_calls(AutoencoderKLConfig(), res, dtype), res) for res in (128, 512)]
+        for rec, res in recs:
+            for key in rec["group_norm"]:
+                if any(gn_route(*key[:3], key[4], bwd) == "stream" for bwd in (False, True)):
+                    out[key] = max(out.get(key, 0), res)
+    return out
+
+
+def phase_sd_kernel_check(torch, sfu_rate, unet_calls_by_latent, vae_calls_by_res):
+    """Both attention kernels at SD-2.1's self-attention shapes, the cluster
+    GroupNorm kernels at the SD UNet's and the VAE's shapes (the backward at
+    the UNet's, the one the guided method differentiates), each at its
+    path's batch, and the streaming GroupNorm variant at every streamed
+    shape."""
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+
+    attn, gn = {}, {}
+    for name, (b, res) in SD_RUNS.items():
+        lat = res // 8
+        for (s_q, s_kv, h, d, _), n in unet_calls_by_latent[lat]["attention"].items():
+            if s_q == s_kv and d <= 64:
+                f = attention_check(torch, b, s_q, h, d, sfu_rate)
+                bw = attention_bwd_check(torch, b, s_q, h, d, sfu_rate)
+                attn[(name, s_q, h)] = (n, f, bw)
+        for model, calls in (("unet", unet_calls_by_latent[lat]), ("vae", vae_calls_by_res[res])):
+            for (s, c, g, act, isz), n in calls["group_norm"].items():
+                pair = gn.setdefault((name, s, c, g, act), [None, None])
+                if pair[0] is None and gn_route(s, c, g, isz) == "cluster":
+                    pair[0] = gn_check(torch, b, s, c, g, act, iters=10)
+                if model == "unet" and pair[1] is None and gn_route(s, c, g, isz, True) == "cluster":
+                    pair[1] = gn_bwd_check(torch, b, s, c, g, act, sfu_rate, iters=10)
+    stream = {}
+    for (s, c, g, act, isz), res in sorted(sd_streamed_calls().items(),
+                                           key=lambda kv: (kv[0][4], kv[0][0], kv[0][1])):
+        b = SD_RUNS["sd_path_512"][0] if res == 512 else 1
+        stream[(s, c, g, act, isz)] = gn_stream_check(
+            torch, b, s, c, g, act, "bfloat16" if isz == 2 else "float32", sfu_rate)
+    ok = (all(f["ok"] and bw["ok"] for _, f, bw in attn.values())
+          and all(r["ok"] for pair in gn.values() for r in pair if r)
+          and all(r["ok"] for r in stream.values()))
+    if not ok:
+        fail("an SD-shape kernel disagrees with its plain version (see kernel_check lines)")
+    return attn, gn, stream
+
+
+def phase_sd_forward_check(torch, pipe, pipe32):
+    """The full-width SD UNet (latent 16, batch 2) and the VAE's encode +
+    decode (128 px, batch 2; 512 px, batch 1, its streaming GroupNorms), the
+    kernels against the plain path: in float32, to SD_F32_REL_L2_TOL; in
+    bf16, the kernel path no further from the float32 plain output than the
+    bf16 plain path is (within SD_BF16_VS_PLAIN), since both round through
+    the same ~60 layers."""
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn(2, 16, 16, 4, generator=gen, device="cuda")
+    t = torch.full((2,), 500, device="cuda")
+    seq = pipe.encode_class(torch.tensor([0, 1]))
+    inputs = {"unet": None}
+    for b, res in ((2, 128), (1, 512)):
+        inputs[f"vae_{res}px"] = torch.rand(b, res, res, 3, generator=gen, device="cuda") * 2 - 1
+
+    def run(p, name):
+        if name == "unet":
+            return p.denoiser_fn()(x, t, seq)
+        lat = p.encode_images(inputs[name])
+        return torch.cat([lat.flatten(), p.decode_latents(lat).flatten()])
+
+    rec = {"phase": "sd_forward_check", "unet": {"batch": 2, "latent": 16},
+           "tol": {"f32_rel_l2": SD_F32_REL_L2_TOL, "bf16_vs_plain": SD_BF16_VS_PLAIN}}
+    ok = True
+    for name in inputs:
+        out32 = run(pipe32, name)
+        out16 = run(pipe, name)
+        with plain_kernels():
+            ref32 = run(pipe32, name)
+            ref16 = run(pipe, name)
+        r = {"f32_rel_l2": rel_l2(out32, ref32), "f32_max_abs_err": max_abs(out32, ref32),
+             "bf16_rel_l2": rel_l2(out16, ref16), "bf16_max_abs_err": max_abs(out16, ref16),
+             "bf16_kernel_vs_f32_plain": rel_l2(out16, ref32),
+             "bf16_plain_vs_f32_plain": rel_l2(ref16, ref32),
+             "finite": bool(torch.isfinite(out16).all() and torch.isfinite(out32).all())}
+        rec.setdefault(name, {}).update(r)
+        ok &= (r["finite"] and r["f32_rel_l2"] <= SD_F32_REL_L2_TOL
+               and r["bf16_kernel_vs_f32_plain"] <= SD_BF16_VS_PLAIN * r["bf16_plain_vs_f32_plain"])
+    emit(rec)
+    if not ok:
+        fail(f"sd_forward_check: {rec}")
+    return rec
+
+
+def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res):
+    """50-step DDIB from images through the VAE: encode, transfer, decode."""
+    from phendiff_tpu_torch.pipelines.transfer import ddib
+
+    b, res = SD_RUNS[name]
+    lat_res = res // 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    images = torch.rand(b, res, res, 3, generator=gen, device="cuda") * 2 - 1
+    src = pipe.encode_class(torch.zeros(b, dtype=torch.long))
+    tgt = pipe.encode_class(torch.ones(b, dtype=torch.long))
+    den = pipe.denoiser_fn()
+    warm = pipe.encode_images(images)
+    pipe.decode_latents(ddib(den, pipe.schedule, warm, src, tgt, num_inference_steps=2))
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_sd_launches()
+    with counting_plain_calls() as plain:
+        t0 = time.perf_counter()
+        lat = pipe.encode_images(images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ddib(den, pipe.schedule, lat, src, tgt, num_inference_steps=STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        img = pipe.decode_latents(out)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    launches = read_sd_launches()
+    want = add_launches((2 * STEPS, predicted_launches(unet_calls_by_latent[lat_res])),
+                        (1, predicted_launches(vae_calls_by_res[res])))
+    rec = {
+        "phase": name, "batch": b, "res": res, "latent": lat_res, "steps": STEPS,
+        "seconds": t3 - t0, "transfers_per_s": b / (t3 - t0),
+        "ms_per_unet_forward": 1e3 * (t2 - t1) / (2 * STEPS),
+        "vae_encode_ms": 1e3 * (t1 - t0), "vae_decode_ms": 1e3 * (t3 - t2),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+        "finite": bool(torch.isfinite(img).all()), "shape": list(img.shape),
+        "out_mean": float(img.float().mean()), "out_std": float(img.float().std()),
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if not rec["finite"] or tuple(img.shape) != (b, res, res, 3):
+        fail(f"{name}: output not finite or of the wrong shape")
+    if launches != want or plain:
+        fail(f"{name}: launches {launches} != expected {want}, or plain calls {dict(plain)}")
+    return rec
+
+
+def phase_sd_guided_check(torch, pipe, pipe32, unet_calls_by_latent, unet32_calls_latent64):
+    """One guided step in bf16 (latent 16, batch 4) and in f32 (latent 64,
+    batch 1), weights frozen, kernels against the plain path."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.pipelines.transfer import guided_gradient
+
+    t = int(S.timestep_pairs(pipe.scheduler_config, STEPS)[0][1])
+    rec = {"phase": "sd_guided_check", "t": t,
+           "tol_rel_l2": {"bf16": [FORWARD_REL_L2_TOL, GRAD_REL_L2_TOL], "f32": SD_F32_REL_L2_TOL}}
+    ok = True
+    for tag, p, b, lat, calls, tol in (
+            ("bf16", pipe, 4, 16, unet_calls_by_latent[16], (FORWARD_REL_L2_TOL, GRAD_REL_L2_TOL)),
+            ("f32", pipe32, 1, 64, unet32_calls_latent64, (SD_F32_REL_L2_TOL,) * 2)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+        x = torch.randn(b, lat, lat, 4, generator=gen, device="cuda")
+        target = torch.randn(b, lat, lat, 4, generator=gen, device="cuda")
+        seq = p.encode_class(torch.tensor([1, 0, 1, 0][:b]))
+        den = p.denoiser_fn()
+        with p.frozen():
+            reset_sd_launches()
+            with counting_plain_calls() as plain:
+                out_k, grad_k = guided_gradient(den, p.schedule, x, t, target, seq)
+                torch.cuda.synchronize()
+            launches = read_sd_launches()
+            with plain_kernels():
+                out_p, grad_p = guided_gradient(den, p.schedule, x, t, target, seq)
+        want = predicted_launches(calls, backward=True)
+        r = {"batch": b, "latent": lat, "model_out_rel_l2": rel_l2(out_k, out_p),
+             "grad_rel_l2": rel_l2(grad_k, grad_p), "grad_max_abs_err": max_abs(grad_k, grad_p),
+             "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+             "finite": bool(torch.isfinite(out_k).all() and torch.isfinite(grad_k).all()),
+             "param_grads_left": sum(q.grad is not None for q in p.unet.parameters())}
+        rec[tag] = r
+        ok &= (r["finite"] and r["model_out_rel_l2"] <= tol[0] and r["grad_rel_l2"] <= tol[1]
+               and launches == want and not plain and not r["param_grads_left"]
+               and float(grad_k.abs().max()) > 0)
+    emit(rec)
+    if not ok:
+        fail(f"sd_guided_check: {rec}")
+    return rec
+
+
+def phase_sd_comparison(torch, pipe32, env, unet_calls_by_latent, vae_calls_by_res):
+    """The engine over a saved full-width SD pipeline folder: all four
+    methods, 10 steps, batch 32, 2 x 32 random 128 px PNGs; ISC and KID."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.experiments.comparison import (
+        METHODS, ComparisonConfig, ComparisonExperiment)
+
+    root = tempfile.mkdtemp(prefix="phd_sdcmp_")
+    t0 = time.perf_counter()
+    pipe32.save_pretrained(os.path.join(root, "pipe"))
+    t_save = time.perf_counter() - t0
+    data = write_image_folder(os.path.join(root, "data"), CMP_PER_CLASS)
+    cfg = ComparisonConfig.from_dict({
+        "output_dir": os.path.join(root, "out"), "pipelines": {"sd": os.path.join(root, "pipe")},
+        "dataset_train": data, "definition": [RES, RES], "methods": list(METHODS),
+        "method_params": {m: {"batch_size": SD_CMP_BATCH} for m in METHODS},
+        "num_inference_steps": CMP_STEPS,
+        "metrics": {"fid": False, "isc": True, "kid": True, "kid_subset_size": 16},
+    })
+    t0 = time.perf_counter()
+    exp = ComparisonExperiment(cfg, device="cuda")
+    t_load = time.perf_counter() - t0
+    reset_sd_launches()
+    with counting_plain_calls() as plain:
+        t0 = time.perf_counter()
+        exp.run_transfers()
+        torch.cuda.synchronize()
+        t_transfers = time.perf_counter() - t0
+    launches = read_sd_launches()
+    t0 = time.perf_counter()
+    metrics = exp.compute_metrics()
+    t_metrics = time.perf_counter() - t0
+    batches = 2 * CMP_PER_CLASS // SD_CMP_BATCH
+    cfg_fwd = len(S.timestep_pairs(exp.pipes["sd"].scheduler_config, CMP_STEPS, 0.5)[0])
+    unet = unet_calls_by_latent[RES // 8]
+    want = add_launches(
+        (batches * (2 * CMP_STEPS * 3 + cfg_fwd), predicted_launches(unet)),
+        (batches * CMP_STEPS, predicted_launches(unet, forward=False, backward=True)),
+        (batches * len(METHODS), predicted_launches(vae_calls_by_res[RES])))
+    pngs = {m: len([f for _, _, fs in os.walk(os.path.join(cfg.output_dir, m)) for f in fs
+                    if "_to_" in f]) for m in METHODS}
+    with open(os.path.join(cfg.output_dir, "timings.json")) as f:
+        timings = json.load(f)
+    keys = [f"{m}/sd/train/{k}" for m in METHODS for k in (
+        "inception_score_mean", "kernel_inception_distance_mean",
+        "DMSO/kernel_inception_distance_mean", "drug/kernel_inception_distance_mean")]
+    rec = {
+        "phase": "sd_comparison", "batch": SD_CMP_BATCH, "res": RES, "steps": CMP_STEPS,
+        "metrics_computed": "ISC and KID; FID off (its float64 host sqrtm of 2048 x 2048 "
+                            "already takes most of the DDIM comparison phase)",
+        "images_per_method": 2 * CMP_PER_CLASS, "pngs_per_method": pngs,
+        "save_seconds": t_save, "load_seconds": t_load, "transfer_seconds": t_transfers,
+        "metrics_seconds": t_metrics,
+        "images_per_s": {k: v["images_per_sec"] for k, v in timings.items()},
+        "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+        "metrics": {k: metrics[k] for k in keys if k in metrics}, "n_metrics": len(metrics),
+        "missing_keys": [k for k in keys if k not in metrics],
+        "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    }
+    emit(rec)
+    if (any(n != 2 * CMP_PER_CLASS for n in pngs.values()) or rec["missing_keys"]
+            or not rec["metrics_finite"] or launches != want or plain):
+        fail(f"sd_comparison: {rec}")
+    return rec
+
+
 def main() -> None:
     try:
         import torch
@@ -1161,16 +1683,78 @@ def main() -> None:
     evaluator = phase_evaluator(torch, train_pipe, cmp_data)
     moments = phase_moments()
 
+    # -- 16-20. SD-2.1 class transfer ----------------------------------------
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_unet_calls, vae_calls
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+
+    unet_by_lat = {lat: sd_unet_calls(SDUNetConfig(), lat) for lat in (16, 64)}
+    unet32_64 = sd_unet_calls(SDUNetConfig(), 64, torch.float32)
+    vae_by_res = {res: vae_calls(AutoencoderKLConfig(), res) for res in (128, 512)}
+    sd_attn, sd_gn, sd_stream = phase_sd_kernel_check(torch, sfu_rate, unet_by_lat, vae_by_res)
+    t0 = time.perf_counter()
+    sd = sd_pipeline(torch.bfloat16, SEED)
+    sd32 = sd_pipeline(torch.float32, SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "sd_init", "seconds": time.perf_counter() - t0,
+          "unet_params": sum(p.numel() for p in sd.unet.parameters()),
+          "vae_params": sum(p.numel() for p in sd.vae.parameters()),
+          "gib_allocated": torch.cuda.memory_allocated() / 2**30})
+    phase_sd_forward_check(torch, sd, sd32)
+    sd_runs = {name: phase_sd_path(torch, sd, name, env, unet_by_lat, vae_by_res)
+               for name in SD_RUNS}
+    sd_guided = phase_sd_guided_check(torch, sd, sd32, unet_by_lat, unet32_64)
+    sd_cmp = phase_sd_comparison(torch, sd32, env, unet_by_lat, vae_by_res)
+
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
     # GroupNorm backward's 41 calls have the forward's shapes).
+    def sd_by_path(name):
+        return {**{run: sd_runs[run]["launches"][name] for run in SD_RUNS},
+                "sd_guided": sd_guided["bf16"]["launches"][name]
+                + sd_guided["f32"]["launches"][name],
+                "sd_comparison": sd_cmp["launches"][name]}
+
     by_path = {
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
                "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
                "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
-               "evaluator": evaluator["launches"][name]}
+               "evaluator": evaluator["launches"][name], **sd_by_path(name)}
         for name in KERNEL_NAMES
     }
+
+    def sd_attn_per_forward(which):
+        """Summed over the self-attention calls of one SD UNet forward (or
+        its input backward) at each SD run's shapes."""
+        return {run: {k: sum(n * recs[which][k] for (r, _, _), (n, *recs) in sd_attn.items()
+                             if r == run)
+                      for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                for run in SD_RUNS}
+
+    def sd_gn_sum(which):
+        """Summed over the cluster GroupNorm calls of one SD UNet forward
+        (which 0) or its input backward (1), and of one VAE encode + decode,
+        at each SD run's shapes."""
+        out = {}
+        for run, (_, res) in SD_RUNS.items():
+            parts = [("unet", unet_by_lat[res // 8])] + ([("vae", vae_by_res[res])]
+                                                          if which == 0 else [])
+            for model, calls in parts:
+                out[f"{run}_{model}"] = {k: sum(
+                    n * sd_gn[(run, s, c, g, act)][which][k]
+                    for (s, c, g, act, isz), n in calls["group_norm"].items()
+                    if gn_route(s, c, g, isz, which == 1) == "cluster")
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        return out
+
+    def stream_sum(calls, backward, key):
+        """Summed over the streamed GroupNorm calls of a recorded model."""
+        pre = "bwd_" if backward else ""
+        return sum(n * sd_stream[k][pre + key] for k, n in calls["group_norm"].items()
+                   if gn_route(*k[:3], k[4], backward) == "stream")
+
+    stream_fwd_calls, stream_bwd_calls = vae_by_res[512], unet32_64
     kernels = [
         {
             "name": "flash_attn_fwd", "route": "cuda",
@@ -1180,6 +1764,7 @@ def main() -> None:
             **{k: attn_per_forward * attn[k]
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": attn["bound_by"], "launches_by_path": by_path["flash_attn_fwd"],
+            "sd_per_unet_forward": sd_attn_per_forward(0),
             "design": DESIGN["flash_attn_fwd"],
         },
         {
@@ -1189,6 +1774,7 @@ def main() -> None:
             "launches": train["launches"]["flash_attn_bwd"], "max_abs_err": bwd["max_abs_err"],
             **{k: 6 * bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": bwd["bound_by"], "launches_by_path": by_path["flash_attn_bwd"],
+            "sd_per_unet_backward": sd_attn_per_forward(1),
             "design": DESIGN["flash_attn_bwd"],
         },
         {
@@ -1202,7 +1788,8 @@ def main() -> None:
             "library_ms": per_forward_sum("library_ms"),
             "library_channels_last_ms": per_forward_sum("library_channels_last_ms"),
             "call_ms": per_forward_sum("call_ms"),
-            "launches_by_path": by_path["group_norm_silu"], "design": DESIGN["group_norm_silu"],
+            "launches_by_path": by_path["group_norm_silu"], "sd_per_call_group": sd_gn_sum(0),
+            "design": DESIGN["group_norm_silu"],
         },
         {
             "name": "group_norm_silu_bwd", "route": "cuda",
@@ -1213,7 +1800,36 @@ def main() -> None:
             **{k: per_forward_sum(k, gn_bwd_recs)
                for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "bytes", "launches_by_path": by_path["group_norm_silu_bwd"],
+            "sd_per_call_group": sd_gn_sum(1),
             "design": DESIGN["group_norm_silu_bwd"],
+        },
+        {
+            # ms etc. per 512 px VAE encode + decode at batch 8 (its 11 streamed calls)
+            "name": "group_norm_silu_stream", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/group_norm_silu.cu",
+            "replaces": "phendiff_tpu/ops/gn_kernels.py:129",
+            "launches": sd_runs["sd_path_512"]["launches"]["group_norm_silu_stream"],
+            "max_abs_err": max(r["max_abs_err"] for r in sd_stream.values()),
+            **{k: stream_sum(stream_fwd_calls, False, k)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+            "launches_by_path": {run: sd_runs[run]["launches"]["group_norm_silu_stream"]
+                                 for run in SD_RUNS},
+            "design": DESIGN["group_norm_silu_stream"],
+        },
+        {
+            # ms etc. per f32 guided step at latent 64, batch 1 (its streamed calls)
+            "name": "group_norm_silu_stream_bwd", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/group_norm_silu.cu",
+            "replaces": "phendiff_tpu/ops/gn_kernels.py:98",
+            "launches": sd_guided["f32"]["launches"]["group_norm_silu_stream_bwd"],
+            "max_abs_err": max(r["bwd_max_abs_err"] for r in sd_stream.values()),
+            **{k: stream_sum(stream_bwd_calls, True, k)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+            "launches_by_path": {"sd_guided_f32_512px": sd_guided["f32"]["launches"][
+                "group_norm_silu_stream_bwd"]},
+            "design": DESIGN["group_norm_silu_stream_bwd"],
         },
         {
             "name": "channel_moments", "route": "cuda",

@@ -10,7 +10,11 @@ names another.
 
 Usage:
     python -m phendiff_tpu_torch.cli.img2img_cli --config conf.yaml \\
-        [key=value ...] [--debug] [--device cpu]
+        [--override key=value ...] [key=value ...] [--debug] [--device cpu]
+
+``--override key=value ...`` is the JAX app's form, which the JAX
+package's launcher (``build_command``) emits; bare ``key=value`` arguments
+are taken too, after the flag's.
 """
 
 from __future__ import annotations
@@ -56,11 +60,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser("phendiff-img2img-comparison")
     p.add_argument("--config", required=True, help="YAML comparison config")
     p.add_argument("overrides", nargs="*", help="key=value overrides of config fields")
+    p.add_argument("--override", nargs="*", default=[], help="key=value overrides (the JAX "
+                   "app's form)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     args = p.parse_args(argv)
 
-    config = apply_overrides(ComparisonConfig.from_yaml(args.config), args.overrides)
+    config = apply_overrides(ComparisonConfig.from_yaml(args.config),
+                             args.override + args.overrides)
     if args.debug:
         config = dataclasses.replace(
             config, debug=True, num_inference_steps=10,

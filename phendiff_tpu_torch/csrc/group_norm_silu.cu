@@ -57,6 +57,11 @@
 // S-tile grid axis; here gn_stats writes per-split partial sums from many
 // blocks per sample, and moments_combine adds them in a fixed order
 // (deterministic, no atomics).  One read of x bounds it.
+//
+// Maps whose tile does not fit a 16-block cluster take the streaming
+// variant (phd_gn_stream_fwd, phd_gn_stream_bwd, at the end of the file):
+// gn_stats' split statistics pass, a fixed-order combine, and a second read
+// of x that normalises and writes.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -736,6 +741,343 @@ __global__ void moments_combine(const float* __restrict__ psum,
   }
 }
 
+// ---- streaming variant ------------------------------------------------------
+//
+// For maps whose (sample, channel slice) tile does not fit the shared memory
+// of a 16-block cluster (ops/gn_kernels.py::gn_plan has no plan: the SD VAE's
+// 512 px maps, S = 262144), x is read from HBM twice instead of once.
+// Forward, three launches: gn_stats (per (split, channel) f32 sums of x and
+// x^2, the moments tool's pass), stream_stats_combine (per (sample, group):
+// splits, then the group's channels, in a fixed order -> mean, rstd) and
+// stream_apply (reads x again, writes the output).  2 reads + 1 write
+// against the bound's 1 + 1, so it reaches at most ~2/3 of the bound.  The
+// caller keeps the f32 partials small beside x (ops/gn_kernels.py
+// _stream_splits: at most one split per 256 bytes of a channel's column).
+// Backward, five launches: stream_bwd_sums (per (split, channel) sums of dz
+// and dz x^), stream_bwd_reduce (per (sample, channel): the splits -> A and
+// B), stream_bwd_coef (each group's a and b), stream_bwd_params (dbias,
+// dscale: the samples in order) and stream_bwd_dx (reads x and g again,
+// writes dx).
+// Every sum runs in a fixed order, so two calls give the same bits.  Threads
+// own 8 channels of a row, as in gn_stats: a block is (C/8) * R threads
+// working on R rows at once, the grid (nsplit, B), split i the rows
+// [i * rps, (i + 1) * rps) of its sample.
+
+__host__ __device__ inline int stream_rows(int C) {
+  const int cvn = C / 8;
+  return cvn >= 256 ? 1 : 256 / cvn;
+}
+
+constexpr int kCombineThreads = 256;  // a power of two: the tree below halves it
+
+// grid (G, B), kCombineThreads threads: a group's partial sums (over the
+// splits and its channels), a strided share a thread, then a fixed-order
+// tree over the block.
+__global__ void __launch_bounds__(kCombineThreads)
+stream_stats_combine(const float* __restrict__ psum, const float* __restrict__ psq,
+                     float* __restrict__ mean, float* __restrict__ rstd, int nsplit, int S,
+                     int C, int G, float eps) {
+  __shared__ float sa[kCombineThreads], sq[kCombineThreads];
+  const long long b = blockIdx.y;
+  const int g = blockIdx.x, t = threadIdx.x;
+  const int gw = C / G, n = nsplit * gw;
+  float a = 0.f, q = 0.f;
+  for (int j = t; j < n; j += kCombineThreads) {
+    const int sp = j / gw;
+    const long long idx = (b * nsplit + sp) * C + static_cast<long long>(g) * gw + (j - sp * gw);
+    a += psum[idx];
+    q += psq[idx];
+  }
+  sa[t] = a;
+  sq[t] = q;
+  __syncthreads();
+  for (int w = kCombineThreads / 2; w > 0; w >>= 1) {
+    if (t < w) {
+      sa[t] += sa[t + w];
+      sq[t] += sq[t + w];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const float count = static_cast<float>(S) * gw;
+    const float mu = sa[0] / count;
+    const float var = fmaxf(sq[0] / count - mu * mu, 0.f);
+    mean[b * G + g] = mu;
+    rstd[b * G + g] = rsqrtf(var + eps);
+  }
+}
+
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kMaxThreads)
+stream_apply(const T* __restrict__ x, const float* __restrict__ scale,
+             const float* __restrict__ bias, const float* __restrict__ mean,
+             const float* __restrict__ rstd, T* __restrict__ out, int S, int C, int G,
+             int rps) {
+  const int cvn = C / 8, R = blockDim.x / cvn;
+  const int cv = threadIdx.x % cvn, r = threadIdx.x / cvn;
+  const long long b = blockIdx.y;
+  const int s0 = blockIdx.x * rps, s1 = min(S, s0 + rps);
+  const int gw = C / G;
+  float mul[8], add[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * cv + i;
+    const float rs = rstd[b * G + c / gw];
+    mul[i] = rs * scale[c];
+    add[i] = fmaf(-mean[b * G + c / gw], mul[i], bias[c]);
+  }
+  const long long base = b * S * C + 8 * cv;
+#pragma unroll 4
+  for (int s = s0 + r; s < s1; s += R) {
+    float f[8];
+    load8(x + base + static_cast<long long>(s) * C, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float y = fmaf(f[i], mul[i], add[i]);
+      f[i] = SILU ? silu(y) : y;
+    }
+    store8(out + base + static_cast<long long>(s) * C, f);
+  }
+}
+
+// Per-thread coefficients of the backward: x^ = x * rs + nmr, z = x^ sc + bi.
+struct BwdCoef {
+  float rs[8], nmr[8], sc[8], bi[8];
+};
+
+__device__ __forceinline__ BwdCoef bwd_coef(const float* scale, const float* bias,
+                                            const float* mean, const float* rstd,
+                                            long long b, int c0, int G, int gw) {
+  BwdCoef k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = c0 + i;
+    k.rs[i] = rstd[b * G + c / gw];
+    k.nmr[i] = -mean[b * G + c / gw] * k.rs[i];
+    k.sc[i] = scale[c];
+    k.bi[i] = bias[c];
+  }
+  return k;
+}
+
+// pa, pb: f32 [B][nsplit][C], this split's sums of dz and dz x^ per channel.
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kMaxThreads)
+stream_bwd_sums(const T* __restrict__ x, const T* __restrict__ g,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                const float* __restrict__ mean, const float* __restrict__ rstd,
+                float* __restrict__ pa, float* __restrict__ pb, int S, int C, int G,
+                int rps) {
+  extern __shared__ float sh[];  // [2][R][C]
+  const int cvn = C / 8, R = blockDim.x / cvn;
+  const int cv = threadIdx.x % cvn, r = threadIdx.x / cvn;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const long long b = blockIdx.y;
+  const int s0 = split * rps, s1 = min(S, s0 + rps);
+  const BwdCoef k = bwd_coef(scale, bias, mean, rstd, b, 8 * cv, G, C / G);
+  float A[8], Bs[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) A[i] = Bs[i] = 0.f;
+  const long long base = b * S * C + 8 * cv;
+#pragma unroll 2
+  for (int s = s0 + r; s < s1; s += R) {
+    float f[8], gv[8];
+    load8(x + base + static_cast<long long>(s) * C, f);
+    load8(g + base + static_cast<long long>(s) * C, gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xh = fmaf(f[i], k.rs[i], k.nmr[i]);
+      const float dz = grad_z<SILU>(gv[i], xh, k.sc[i], k.bi[i]);
+      A[i] += dz;
+      Bs[i] = fmaf(dz, xh, Bs[i]);
+    }
+  }
+  float* sa = sh;
+  float* sb = sh + R * C;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    sa[r * C + 8 * cv + i] = A[i];
+    sb[r * C + 8 * cv + i] = Bs[i];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, q = 0.f;
+    for (int rr = 0; rr < R; ++rr) {
+      a += sa[rr * C + c];
+      q += sb[rr * C + c];
+    }
+    const long long idx = (b * nsplit + split) * C + c;
+    pa[idx] = a;
+    pb[idx] = q;
+  }
+}
+
+// grid (ceil(C / 32), B), block (32, 8): per (sample, channel) the splits'
+// sums of dz and dz x^, eight strided shares summed in order, into
+// sums: f32 [2][B][C].
+__global__ void __launch_bounds__(256)
+stream_bwd_reduce(const float* __restrict__ pa, const float* __restrict__ pb,
+                  float* __restrict__ sums, int nsplit, int B, int C) {
+  __shared__ float sa[8][32], sb[8][32];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  const long long b = blockIdx.y;
+  float a = 0.f, q = 0.f;
+  if (c < C) {
+    for (int sp = ty; sp < nsplit; sp += 8) {
+      const long long idx = (b * nsplit + sp) * C + c;
+      a += pa[idx];
+      q += pb[idx];
+    }
+  }
+  sa[ty][tx] = a;
+  sb[ty][tx] = q;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    a = q = 0.f;
+    for (int r = 0; r < 8; ++r) {
+      a += sa[r][tx];
+      q += sb[r][tx];
+    }
+    sums[b * C + c] = a;
+    sums[(B + b) * C + c] = q;
+  }
+}
+
+// grid B: each group's a = sum_c scale A / N and b = sum_c scale B / N, the
+// group's channels in order, into coef: f32 [2][B][G].
+__global__ void stream_bwd_coef(const float* __restrict__ sums, const float* __restrict__ scale,
+                                float* __restrict__ coef, int B, int S, int C, int G) {
+  const long long b = blockIdx.x;
+  const int gw = C / G;
+  const float count = static_cast<float>(S) * gw;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float a = 0.f, q = 0.f;
+    for (int i = 0; i < gw; ++i) {
+      const int c = g * gw + i;
+      a = fmaf(scale[c], sums[b * C + c], a);
+      q = fmaf(scale[c], sums[(B + b) * C + c], q);
+    }
+    coef[b * G + g] = a / count;
+    coef[(B + b) * G + g] = q / count;
+  }
+}
+
+// dbias = sum_b A, dscale = sum_b B, the samples in order.
+__global__ void stream_bwd_params(const float* __restrict__ sums, float* __restrict__ dscale,
+                                  float* __restrict__ dbias, int B, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float da = 0.f, db = 0.f;
+  for (int bb = 0; bb < B; ++bb) {
+    da += sums[static_cast<long long>(bb) * C + c];
+    db += sums[static_cast<long long>(B + bb) * C + c];
+  }
+  dbias[c] = da;
+  dscale[c] = db;
+}
+
+// dx = rs (sc dz - a - x^ b) = ka dz + kb x^ + kc.
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kMaxThreads)
+stream_bwd_dx(const T* __restrict__ x, const T* __restrict__ g,
+              const float* __restrict__ scale, const float* __restrict__ bias,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ coef, T* __restrict__ dx, int B, int S, int C, int G,
+              int rps) {
+  const int cvn = C / 8, R = blockDim.x / cvn;
+  const int cv = threadIdx.x % cvn, r = threadIdx.x / cvn;
+  const long long b = blockIdx.y;
+  const int s0 = blockIdx.x * rps, s1 = min(S, s0 + rps);
+  const int gw = C / G;
+  const BwdCoef k = bwd_coef(scale, bias, mean, rstd, b, 8 * cv, G, gw);
+  float ka[8], kb[8], kc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int grp = (8 * cv + i) / gw;
+    ka[i] = k.rs[i] * k.sc[i];
+    kb[i] = -k.rs[i] * coef[(B + b) * G + grp];
+    kc[i] = -k.rs[i] * coef[b * G + grp];
+  }
+  const long long base = b * S * C + 8 * cv;
+#pragma unroll 2
+  for (int s = s0 + r; s < s1; s += R) {
+    float f[8], gv[8];
+    load8(x + base + static_cast<long long>(s) * C, f);
+    load8(g + base + static_cast<long long>(s) * C, gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xh = fmaf(f[i], k.rs[i], k.nmr[i]);
+      const float dz = grad_z<SILU>(gv[i], xh, k.sc[i], k.bi[i]);
+      f[i] = fmaf(ka[i], dz, fmaf(kb[i], xh, kc[i]));
+    }
+    store8(dx + base + static_cast<long long>(s) * C, f);
+  }
+}
+
+// The streaming variant's constraints; 0 if valid.
+int check_stream(int B, int S, int C, int G, int nsplit) {
+  const bool ok = B >= 1 && B <= 65535 && S >= 1 && G >= 1 && C % 8 == 0 && C % G == 0 &&
+                  C / 8 <= kMaxThreads && nsplit >= 1 && nsplit <= 65535;
+  return ok ? 0 : kErrPlan;
+}
+
+template <typename T, bool SILU>
+int launch_stream_fwd(const void* x, const float* scale, const float* bias, void* out,
+                      float* mean, float* rstd, float* work, int B, int S, int C, int G,
+                      float eps, int nsplit, cudaStream_t st) {
+  const int R = stream_rows(C), threads = C / 8 * R;
+  const int rps = (S + nsplit - 1) / nsplit;
+  const dim3 grid(nsplit, B);
+  float* psum = work;
+  float* psq = work + static_cast<long long>(B) * nsplit * C;
+  gn_stats<T><<<grid, threads, 2 * sizeof(float) * R * C, st>>>(
+      static_cast<const T*>(x), psum, psq, S, C, rps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_stats_combine<<<dim3(G, B), kCombineThreads, 0, st>>>(psum, psq, mean, rstd, nsplit,
+                                                               S, C, G, eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_apply<T, SILU><<<grid, threads, 0, st>>>(static_cast<const T*>(x), scale, bias,
+                                                   mean, rstd, static_cast<T*>(out), S, C,
+                                                   G, rps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool SILU>
+int launch_stream_bwd(const void* x, const void* g, const float* scale, const float* bias,
+                      const float* mean, const float* rstd, void* dx, float* dscale,
+                      float* dbias, float* work, int B, int S, int C, int G, int nsplit,
+                      cudaStream_t st) {
+  const int R = stream_rows(C), threads = C / 8 * R;
+  const int rps = (S + nsplit - 1) / nsplit;
+  const dim3 grid(nsplit, B);
+  const long long part = static_cast<long long>(B) * nsplit * C;
+  float* pa = work;
+  float* pb = pa + part;
+  float* sums = pb + part;
+  float* coef = sums + 2ll * B * C;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  stream_bwd_sums<T, SILU><<<grid, threads, 2 * sizeof(float) * R * C, st>>>(
+      xt, gt, scale, bias, mean, rstd, pa, pb, S, C, G, rps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_bwd_reduce<<<dim3((C + 31) / 32, B), dim3(32, 8), 0, st>>>(pa, pb, sums, nsplit, B, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_bwd_coef<<<B, 128, 0, st>>>(sums, scale, coef, B, S, C, G);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_bwd_params<<<(C + 255) / 256, 256, 0, st>>>(sums, dscale, dbias, B, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream_bwd_dx<T, SILU><<<grid, threads, 0, st>>>(xt, gt, scale, bias, mean, rstd, coef,
+                                                    static_cast<T*>(dx), B, S, C, G, rps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Forward.  x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; out:
@@ -824,4 +1166,42 @@ extern "C" int phd_channel_moments(const void* x, int dtype, float* workspace,
   if (err != cudaSuccess) return static_cast<int>(err);
   moments_combine<<<B, 256, 0, st>>>(psum, psq, out_sum, out_sq, nsplit, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Streaming forward, for maps without a cluster plan.  x, out, scale, bias,
+// mean, rstd as in phd_gn_fwd; workspace: f32, 2 * B * nsplit * C elements.
+// C % 8 == 0, C / 8 <= 512, pointers 16-byte aligned.  Returns 0, a CUDA
+// error code, or kErrPlan (-1) for a shape it does not take.
+extern "C" int phd_gn_stream_fwd(const void* x, int dtype, const float* scale,
+                                 const float* bias, void* out, float* mean, float* rstd,
+                                 float* workspace, int B, int S, int C, int G, float eps,
+                                 int silu, int nsplit, void* stream) {
+  const int err = check_stream(B, S, C, G, nsplit);
+  if (err != 0) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return silu ? launch_stream_fwd<bf16, true>(x, scale, bias, out, mean, rstd, workspace, B, S, C, G, eps, nsplit, st)
+                : launch_stream_fwd<bf16, false>(x, scale, bias, out, mean, rstd, workspace, B, S, C, G, eps, nsplit, st);
+  return silu ? launch_stream_fwd<float, true>(x, scale, bias, out, mean, rstd, workspace, B, S, C, G, eps, nsplit, st)
+              : launch_stream_fwd<float, false>(x, scale, bias, out, mean, rstd, workspace, B, S, C, G, eps, nsplit, st);
+}
+
+// Streaming backward.  x, g, mean, rstd, dx, dscale, dbias as in phd_gn_bwd;
+// workspace: f32, 2 * B * nsplit * C + 2 * B * C + 2 * B * G elements.  Same
+// constraints and return convention as phd_gn_stream_fwd.
+extern "C" int phd_gn_stream_bwd(const void* x, const void* g, int dtype, const float* scale,
+                                 const float* bias, const float* mean, const float* rstd,
+                                 void* dx, float* dscale, float* dbias, float* workspace,
+                                 int B, int S, int C, int G, int silu, int nsplit,
+                                 void* stream) {
+  const int err = check_stream(B, S, C, G, nsplit);
+  if (err != 0) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return silu ? launch_stream_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st)
+                : launch_stream_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st);
+  return silu ? launch_stream_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st)
+              : launch_stream_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st);
 }

@@ -1,7 +1,7 @@
 """Img2img class-transfer comparison experiment engine.
 
 Counterpart of ``phendiff_tpu/experiments/comparison.py`` for
-``ConditionalDDIMPipeline`` folders on one device:
+``ConditionalDDIMPipeline`` and ``SDImg2ImgPipeline`` folders on one device:
 
 * loads the train (and test) image-folder splits, file names kept for
   output naming, and each named pipeline with ``from_pretrained``, its conv
@@ -19,9 +19,13 @@ Counterpart of ``phendiff_tpu/experiments/comparison.py`` for
   per-class sets are rows of the pooled ones, and a split's real features
   serve every method and pipeline.
 
-An ``SDImg2ImgPipeline`` folder raises: the SD-2.1 family is not ported
-yet (``ROADMAP.md`` Queue 1 item 12), and with it the segmented and
-pipeline-parallel routes.  One device runs the whole batch.
+An SD pipeline's transfer runs in its VAE's latent space: the images are
+encoded to their posterior means (times ``scaling_factor``), the method
+runs on the latents with the SD denoiser and ``encode_class``'s
+sequences, and the result is decoded.  The JAX engine's segmented and
+pipeline-parallel SD routes exist for the TPU's compile transport and have
+no counterpart here: a config that asks for them (``segmented_sd: true``,
+``pipeline_parallel: true``) raises.  One device runs the whole batch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from phendiff_tpu_torch.metrics.inception import InceptionExtractor
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 from phendiff_tpu_torch.pipelines.io import load_model_index
+from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
 
 METHODS = T.TRANSFER_METHODS
 logger = logging.getLogger(__name__)
@@ -87,6 +92,10 @@ class ComparisonConfig:
     # autocast, and the JAX engine's f32 matmuls over bf16 weights run as
     # bf16 passes on the TPU.  None: float32, weights as stored.
     inference_param_dtype: Optional[str] = "bfloat16"
+    # The JAX engine's segmented and pipeline-parallel SD routes (the TPU's
+    # compile transport); None and False are the only values the port takes.
+    segmented_sd: Optional[bool] = None
+    pipeline_parallel: bool = False
 
     @classmethod
     def from_dict(cls, raw: dict) -> "ComparisonConfig":
@@ -108,23 +117,22 @@ class ComparisonConfig:
             return cls.from_dict(yaml.safe_load(f))
 
 
-def _make_transfer_fn(pipe: ConditionalDDIMPipeline, method: str, params: MethodParams,
-                      steps: int) -> Callable:
-    """(images, src_labels, tgt_labels, generator) -> [-1, 1] images."""
+def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int) -> Callable:
+    """(images, src_labels, tgt_labels, generator) -> [-1, 1] images.  An SD
+    pipeline runs the method on the VAE latents of the images."""
     denoiser, schedule = pipe.denoiser_fn(), pipe.schedule
+    is_sd = isinstance(pipe, SDImg2ImgPipeline)
+    embed = pipe.encode_class if is_sd else pipe.class_embeddings
 
-    def fn(images, src_labels, tgt_labels, generator):
-        src_emb = pipe.class_embeddings(src_labels)
-        tgt_emb = pipe.class_embeddings(tgt_labels)
+    def transfer(x, src_emb, tgt_emb, generator):
         if method == "ddib":
-            return T.ddib(denoiser, schedule, images, src_emb, tgt_emb,
-                          num_inference_steps=steps)
+            return T.ddib(denoiser, schedule, x, src_emb, tgt_emb, num_inference_steps=steps)
         if method == "inverted_regeneration":
-            return T.inverted_regeneration(denoiser, schedule, images, src_emb,
+            return T.inverted_regeneration(denoiser, schedule, x, src_emb,
                                            num_inference_steps=steps)
         if method == "classifier_free_guidance_forward_start":
             return T.cfg_forward_start(
-                denoiser, schedule, images, tgt_emb, generator,
+                denoiser, schedule, x, tgt_emb, generator,
                 guidance_scale=params.guidance_scale,
                 frac_diffusion_skipped=params.frac_diffusion_skipped,
                 num_inference_steps=steps,
@@ -132,11 +140,16 @@ def _make_transfer_fn(pipe: ConditionalDDIMPipeline, method: str, params: Method
         if method == "linear_interp_custom_guidance_inverted_start":
             with pipe.frozen():
                 return T.guided_inverted_start(
-                    denoiser, schedule, images, src_emb, tgt_emb,
+                    denoiser, schedule, x, src_emb, tgt_emb,
                     guidance_loss_scale=params.guidance_loss_scale, p=params.p,
                     num_inference_steps=steps,
                 )
         raise ValueError(f"unknown transfer method: {method}")
+
+    def fn(images, src_labels, tgt_labels, generator):
+        x = pipe.encode_images(images) if is_sd else images
+        out = transfer(x, embed(src_labels), embed(tgt_labels), generator)
+        return pipe.decode_latents(out) if is_sd else out
 
     return fn
 
@@ -159,6 +172,11 @@ class ComparisonExperiment:
         self.config = config
         self.tracker = tracker
         self.device = resolve_device(device)
+        if config.segmented_sd or config.pipeline_parallel:
+            raise NotImplementedError(
+                "segmented_sd and pipeline_parallel select the JAX engine's SD routes for the "
+                "TPU's compile transport; the port runs every SD pipeline whole on one device: "
+                "set segmented_sd to null or false and pipeline_parallel to false")
         self.pipes = {name: self._load_pipeline(path) for name, path in config.pipelines.items()}
         self.splits: Dict[str, DatasetIndex] = {"train": scan_imagefolder(config.dataset_train)}
         if config.dataset_test:
@@ -168,19 +186,18 @@ class ComparisonExperiment:
             logger.warning("InceptionV3 is RANDOM-INIT: comparison FID/ISC/KID are not "
                            "comparable to torch-fidelity or across machines.")
 
-    def _load_pipeline(self, path: str) -> ConditionalDDIMPipeline:
+    def _load_pipeline(self, path: str):
         kind = load_model_index(path).get("_class_name")
-        if kind == "ConditionalDDIMPipeline":
-            name = self.config.inference_param_dtype
-            if name is None:
-                return ConditionalDDIMPipeline.from_pretrained(path, device=self.device)
-            dtype = getattr(torch, name)
-            pipe = ConditionalDDIMPipeline.from_pretrained(path, dtype=dtype, device=self.device)
-            return pipe.cast_params(dtype)
-        if kind == "SDImg2ImgPipeline":
-            raise NotImplementedError(
-                f"{path}: SDImg2ImgPipeline is not ported yet (ROADMAP.md Queue 1 item 12)")
-        raise ValueError(f"unknown pipeline kind {kind} at {path}")
+        classes = {"ConditionalDDIMPipeline": ConditionalDDIMPipeline,
+                   "SDImg2ImgPipeline": SDImg2ImgPipeline}
+        if kind not in classes:
+            raise ValueError(f"unknown pipeline kind {kind} at {path}")
+        name = self.config.inference_param_dtype
+        if name is None:
+            return classes[kind].from_pretrained(path, device=self.device)
+        dtype = getattr(torch, name)
+        return classes[kind].from_pretrained(path, dtype=dtype, device=self.device).cast_params(
+            dtype)
 
     # -- transfers ---------------------------------------------------------
     def run_transfers(self) -> None:

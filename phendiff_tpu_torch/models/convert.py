@@ -9,9 +9,16 @@ Flax scope names, so the mapping is a rename plus transposes:
 * ``params/`` is dropped and ``/`` becomes ``.``;
 * a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW);
 * a Dense ``kernel`` ([in, out]) becomes ``weight`` ([out, in]);
-* the class ``embedding`` table becomes ``class_embedding.weight``;
-* everything else (biases, norm scales and biases, the Fourier weight)
-  keeps its name and layout.
+* an ``embedding`` table becomes the ``weight`` of its ``nn.Embedding``
+  (``class_embedding.weight`` in the pixel UNet, ``embedding.weight`` in
+  the SD family's ``ClassEmbedding``);
+* everything else (biases, GroupNorm and LayerNorm scales and biases, the
+  Fourier weight) keeps its name and layout.
+
+The same rules carry every tree the port reads: ``CondUNet2D`` (a
+``UNet2DConfig``), ``SDUNet`` (an ``SDUNetConfig``), ``AutoencoderKL`` (an
+``AutoencoderKLConfig``), and any module handed over as it is (the SD
+family's ``ClassEmbedding``).
 """
 
 from __future__ import annotations
@@ -20,23 +27,43 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from phendiff_tpu_torch.models.config import UNet2DConfig
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
 
 _PREFIX = "params/"
+# Modules whose ``weight`` is an embedding table (Flax leaf ``embedding``).
+_EMBEDDING_SCOPES = ("class_embedding", "embedding")
 
 
-def _expected(cfg: UNet2DConfig) -> Dict[str, torch.Size]:
+def build_module(cfg) -> nn.Module:
+    """The float32 module a config describes (on the current default device)."""
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
+
+    if isinstance(cfg, UNet2DConfig):
+        return CondUNet2D(cfg)
+    if isinstance(cfg, SDUNetConfig):
+        return SDUNet(cfg)
+    if isinstance(cfg, AutoencoderKLConfig):
+        return AutoencoderKL(cfg)
+    raise TypeError(f"no port module for a {type(cfg).__name__}")
+
+
+def _expected(cfg) -> Dict[str, torch.Size]:
+    """Key -> shape of the module ``cfg`` describes (or of ``cfg`` itself,
+    a module)."""
+    if isinstance(cfg, nn.Module):
+        return {k: v.shape for k, v in cfg.state_dict().items()}
     with torch.device("meta"):
-        model = CondUNet2D(cfg)
+        model = build_module(cfg)
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
-def from_flax_params(
-    flat: Mapping[str, np.ndarray], cfg: UNet2DConfig
-) -> Dict[str, torch.Tensor]:
-    """Flattened Flax params -> a ``CondUNet2D(cfg)`` state dict (float32, CPU).
+def from_flax_params(flat: Mapping[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]:
+    """Flattened Flax params -> the state dict of ``build_module(cfg)``, or
+    of ``cfg`` itself where it is a module (float32, CPU).
 
     Raises if the key set or a shape does not match the architecture.
     """
@@ -75,7 +102,7 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarr
     for key, t in state_dict.items():
         *scope, leaf = key.split(".")
         a = t.detach().to("cpu", torch.float32)
-        if leaf == "weight" and scope == ["class_embedding"]:
+        if leaf == "weight" and scope[-1:] and scope[-1] in _EMBEDDING_SCOPES:
             leaf = "embedding"
         elif leaf == "weight" and a.ndim in (2, 4):
             leaf = "kernel"

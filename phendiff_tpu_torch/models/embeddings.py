@@ -1,8 +1,10 @@
-"""Time embeddings for the diffusion UNet.
+"""Time and class embeddings for the diffusion UNets.
 
 Counterpart of ``phendiff_tpu/models/embeddings.py``: the positional
 (sinusoidal) or Gaussian-Fourier timestep embedding, lifted to
-``time_embed_dim`` by a two-layer SiLU MLP.
+``time_embed_dim`` by a two-layer SiLU MLP; the SD family's learnable class
+table (``ClassEmbedding``) and its CLIP-shaped sequence
+(``pad_to_clip_sequence``).
 """
 
 from __future__ import annotations
@@ -73,3 +75,24 @@ class TimestepEmbedMLP(nn.Module):
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class ClassEmbedding(nn.Module):
+    """Learnable per-class embedding table (the SD fine-tune's custom
+    embedding: ``embedding_dim`` = the UNet's cross-attention width).  The
+    table is the submodule ``embedding``, as the Flax scope names it."""
+
+    def __init__(self, num_classes: int, embedding_dim: int):
+        super().__init__()
+        self.embedding = nn.Embedding(num_classes, embedding_dim)
+
+    def forward(self, class_labels: torch.Tensor) -> torch.Tensor:
+        return self.embedding(class_labels)
+
+
+def pad_to_clip_sequence(class_emb: torch.Tensor, seq_len: int = 77) -> torch.Tensor:
+    """(B, D) -> (B, seq_len, D): the class vector in slot 0, zeros elsewhere
+    (the reference feeds one class embedding through SD's cross-attention in
+    the CLIP text encoder's output shape)."""
+    b, d = class_emb.shape
+    return torch.cat([class_emb[:, None], class_emb.new_zeros((b, seq_len - 1, d))], dim=1)

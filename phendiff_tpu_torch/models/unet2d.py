@@ -63,6 +63,44 @@ def _norm_params(channels: int):
     return nn.Parameter(torch.ones(channels)), nn.Parameter(torch.zeros(channels))
 
 
+@torch.no_grad()
+def init_flax_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initialisers, drawn from ``generator`` module by module:
+    truncated lecun-normal conv and dense kernels, zero biases, unit norm
+    scales, N(0, 1/dim) embedding tables, N(0, 16^2) Fourier weights.  Draws
+    on the generator's device, then copies to each parameter's device."""
+    dev = generator.device
+
+    def trunc_normal(t: torch.Tensor, std: float):
+        # variance_scaling(1, fan_in, truncated_normal): std / .8796 over +-2 std
+        w = torch.empty(t.shape, dtype=torch.float32, device=dev)
+        s = std / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s, generator=generator)
+        t.copy_(w)
+
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            trunc_normal(m.weight, 1.0 / math.sqrt(fan_in))
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            trunc_normal(m.weight, 1.0 / math.sqrt(m.in_features))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            w = torch.randn(m.weight.shape, generator=generator, device=dev)
+            m.weight.copy_(w / math.sqrt(m.embedding_dim))
+        elif isinstance(m, GaussianFourierProjection):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator, device=dev) * m.scale)
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("scale"):  # GroupNorm *_scale, LayerNorm scale
+            p.fill_(1.0)
+        elif leaf.endswith("bias"):
+            p.zero_()
+    return module
+
+
 class ResnetBlock(nn.Module):
     """GroupNorm -> SiLU -> conv3x3 -> (+temb) -> GroupNorm -> SiLU -> conv3x3 + skip."""
 
@@ -230,38 +268,10 @@ class CondUNet2D(nn.Module):
         self.conv_out = Conv(ch, cfg.out_channels, 3, padding=1)
         self.to(memory_format=torch.channels_last)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "CondUNet2D":
-        """Flax's default initialisers, drawn from ``generator``: truncated
-        lecun-normal conv and dense kernels, zero biases, unit norm scales,
-        N(0, 1/dim) class embeddings, N(0, 16^2) Fourier weights.  Draws on
-        the CPU, then copies to the parameters' device."""
-        def trunc_normal(t: torch.Tensor, std: float):
-            # variance_scaling(1, fan_in, truncated_normal): std / .8796 over +-2 std
-            w = torch.empty(t.shape, dtype=torch.float32)
-            s = std / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s, generator=generator)
-            t.copy_(w)
-
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                trunc_normal(m.weight, 1.0 / math.sqrt(fan_in))
-                m.bias.zero_()
-            elif isinstance(m, nn.Linear):
-                trunc_normal(m.weight, 1.0 / math.sqrt(m.in_features))
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(m.embedding_dim)
-                m.weight.copy_(w)
-            elif isinstance(m, GaussianFourierProjection):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * m.scale)
-        for name, p in self.named_parameters():
-            if name.endswith("_scale"):
-                p.fill_(1.0)
-            elif name.endswith(("norm1_bias", "norm2_bias", "norm_bias", "norm_out_bias")):
-                p.zero_()
-        return self
+        """Flax's default initialisers, drawn from ``generator``
+        (``init_flax_weights``)."""
+        return init_flax_weights(self, generator)
 
     def forward(
         self,

@@ -4,6 +4,7 @@ or a guided-transfer step.
     python -m phendiff_tpu_torch.obs.forward_profile [--batch 32] [--forwards 5]
     python -m phendiff_tpu_torch.obs.forward_profile --train [--batch 32] [--steps 3]
     python -m phendiff_tpu_torch.obs.forward_profile --guided [--batch 32] [--steps 3]
+    python -m phendiff_tpu_torch.obs.forward_profile --sd [--batch 64] [--res 128] [--forwards 3]
 
 Builds the ``super_small`` 128 px pipeline (random weights, seed 0, bf16
 compute), warms up, then traces ``--forwards`` denoiser calls (or, with
@@ -18,11 +19,15 @@ its backward's device time by autograd node (convolution, GroupNorm,
 attention, ...).  A guided step (``--guided``: the reconstruction-guided
 transfer's forward with an input gradient and its backward, bf16 weights
 frozen) is traced whole and as its forward alone, which splits its device
-time into forward and backward.  Needs a CUDA device.
+time into forward and backward.  ``--sd`` traces full-width SD-2.1 UNet
+forwards on the latents of ``--res`` px images and one VAE encode + decode
+of them (random weights, seed 0, bf16).  Needs a CUDA device.
 
-``group_norm_calls`` lists the GroupNorm calls of one forward by shape,
-from the model run on the meta device (no card needed), and
-``plain_kernels`` routes the UNet through its plain versions.
+``record_calls`` (with ``unet_calls``, ``sd_unet_calls``, ``vae_calls``)
+lists the GroupNorm and attention calls of a forward by shape, from the
+model run on the meta device (no card needed): the one recorder of those
+calls, which ``chip_smoke.py`` and the CPU tests share.  ``plain_kernels``
+routes the models through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -32,19 +37,24 @@ import collections
 import contextlib
 import json
 import time
+from typing import Callable
 
 import torch
 
 # Kernel-name fragments -> category, first match wins.  The attention
 # kernels are the tensor-core ones (bf16, *_mma_kernel) and the CUDA-core
-# ones (f32); the GroupNorm kernels are the cluster forward and backward;
-# the moments tool's are the split statistics pass and its combine.
+# ones (f32); the GroupNorm kernels are the cluster forward and backward
+# and the streaming variant's passes; the moments tool's are the split
+# statistics pass and its combine (gn_stats, which the streaming forward
+# also runs as its first pass, counts there).
 _CATEGORIES = (
     ("flash_attn_fwd", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),
     ("flash_attn_bwd", ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel",
                         "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
     ("group_norm_silu", ("gn_fwd_cluster",)),
     ("group_norm_silu_bwd", ("gn_bwd_cluster",)),
+    ("group_norm_silu_stream", ("stream_apply", "stream_stats_combine")),
+    ("group_norm_silu_stream_bwd", ("stream_bwd_",)),
     ("channel_moments", ("gn_stats", "moments_combine")),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "nhwc", "fprop", "dgrad", "wgrad",
               "winograd")),
@@ -79,26 +89,89 @@ def plain_kernels():
         group_norm.fused_group_norm, attention.flash_attention = saved
 
 
+def record_calls(run: Callable[[], object]) -> dict:
+    """Run ``run()`` with GroupNorm and attention routed through their plain
+    versions (so on the meta device: no data, no kernels) and record every
+    call by shape: ``{"group_norm": {(S, C, G, act, itemsize): calls},
+    "attention": {(S_q, S_kv, H, D, itemsize): calls},
+    "single_head_attention": calls}``.  ``gn_kernels.gn_route`` and
+    ``attention.takes_kernel`` say which kernel (or route) each call takes
+    on the card."""
+    from phendiff_tpu_torch.ops import attention, group_norm
+
+    gn, attn = collections.Counter(), collections.Counter()
+    single = attention.single_head_attention.calls
+    with plain_kernels():
+        plain_gn, plain_attn = group_norm.fused_group_norm, attention.attention_plain
+
+        def record_gn(x, scale, bias, **kw):
+            gn[(x.shape[1], x.shape[2], kw["num_groups"], kw["act"], x.element_size())] += 1
+            return plain_gn(x, scale, bias, **kw)
+
+        def record_attn(q, k, v, scale=None):
+            attn[(q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.element_size())] += 1
+            return plain_attn(q, k, v, scale=scale)
+
+        group_norm.fused_group_norm = record_gn
+        attention.attention_plain = attention.flash_attention = record_attn
+        try:
+            run()
+        finally:
+            attention.attention_plain = plain_attn
+    return {"group_norm": dict(gn), "attention": dict(attn),
+            "single_head_attention": attention.single_head_attention.calls - single}
+
+
+def unet_calls(cfg, res: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``record_calls`` of one ``CondUNet2D(cfg)`` forward at ``res`` px."""
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+
+    def run():
+        with torch.device("meta"):
+            model = CondUNet2D(cfg, dtype=dtype)
+            labels = torch.zeros(1, dtype=torch.long) if cfg.num_class_embeds else None
+            model(torch.zeros(1, res, res, cfg.in_channels), torch.zeros(1, dtype=torch.long),
+                  class_labels=labels)
+
+    return record_calls(run)
+
+
+def sd_unet_calls(cfg, latent: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``record_calls`` of one ``SDUNet(cfg)`` forward on ``latent`` x
+    ``latent`` latents with a 77-token class sequence."""
+    from phendiff_tpu_torch.models.sd_unet import SDUNet
+
+    def run():
+        with torch.device("meta"):
+            SDUNet(cfg, dtype=dtype)(torch.zeros(1, latent, latent, cfg.in_channels),
+                                     torch.zeros(1, dtype=torch.long),
+                                     torch.zeros(1, 77, cfg.cross_attention_dim))
+
+    return record_calls(run)
+
+
+def vae_calls(cfg, res: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``record_calls`` of one ``AutoencoderKL(cfg)`` encode and decode of a
+    ``res`` px image."""
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL
+
+    def run():
+        with torch.device("meta"):
+            vae = AutoencoderKL(cfg, dtype=dtype)
+            mean, _ = vae.encode(torch.zeros(1, res, res, cfg.in_channels))
+            vae.decode(mean)
+
+    return record_calls(run)
+
+
 def group_norm_calls(res: int = 128) -> dict:
     """{(S, C, G, act): calls} of one ``super_small`` forward at ``res`` px,
-    recorded from the model run on the meta device (no data, no kernels)."""
+    in bf16 (``unet_calls``)."""
     from phendiff_tpu_torch.models.config import super_small
-    from phendiff_tpu_torch.models.unet2d import CondUNet2D
-    from phendiff_tpu_torch.ops import group_norm
 
     calls = collections.Counter()
-    with plain_kernels():
-        plain = group_norm.fused_group_norm
-
-        def record(x, scale, bias, **kw):
-            calls[(x.shape[1], x.shape[2], kw["num_groups"], kw["act"])] += 1
-            return plain(x, scale, bias, **kw)
-
-        group_norm.fused_group_norm = record
-        with torch.device("meta"):
-            model = CondUNet2D(super_small(), dtype=torch.bfloat16)
-            model(torch.zeros(1, res, res, 3), torch.zeros(1, dtype=torch.long),
-                  class_labels=torch.zeros(1, dtype=torch.long))
+    for (s, c, g, act, _), n in unet_calls(super_small(), res)["group_norm"].items():
+        calls[(s, c, g, act)] += n
     return dict(calls)
 
 
@@ -249,15 +322,61 @@ def profile_guided(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
             "forward_ms_per_call_by_category": fwd["ms_per_call_by_category"]}
 
 
+def sd_pipeline(dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """Full-width SD-2.1 (``SDUNetConfig()``, ``AutoencoderKLConfig()``) with
+    random weights from ``seed`` on the card, the transfer scheduler of
+    ``bench.py``; conv and linear weights and compute in ``dtype``."""
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("forward_profile measures the device: CUDA is not available")
+    pipe = SDImg2ImgPipeline.init_random(
+        SDUNetConfig(), AutoencoderKLConfig(),
+        SchedulerConfig(num_train_timesteps=1000, timestep_spacing="trailing",
+                        clip_sample=False), seed=seed, dtype=dtype, device="cuda")
+    return pipe.cast_params(dtype) if dtype != torch.float32 else pipe
+
+
+def profile_sd(batch: int = 64, res: int = 128, forwards: int = 3) -> dict:
+    """One full-width SD UNet forward on ``res`` px images' latents and one
+    VAE encode + decode of ``res`` px images, bf16."""
+    pipe = sd_pipeline()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.rand(batch, res, res, 3, generator=gen, device="cuda") * 2 - 1
+    lat = pipe.encode_images(images)
+    t = torch.full((batch,), 500, device="cuda")
+    seq = pipe.encode_class(torch.zeros(batch, dtype=torch.long))
+    denoise = pipe.denoiser_fn()
+
+    def vae():
+        pipe.decode_latents(pipe.encode_images(images))
+
+    for _ in range(2):
+        denoise(lat, t, seq)
+        vae()
+    torch.cuda.synchronize()
+    return {"path": "sd_forward", "batch": batch, "res": res, "latent": lat.shape[1],
+            **_trace(lambda: denoise(lat, t, seq), forwards),
+            "vae_encode_decode": _trace(vae, 1)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile train steps instead")
     ap.add_argument("--guided", action="store_true", help="profile guided-transfer steps")
+    ap.add_argument("--sd", action="store_true",
+                    help="profile a full-width SD-2.1 UNet forward and a VAE encode + decode")
+    ap.add_argument("--res", type=int, default=128, help="image size of --sd")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
-    if args.train:
+    if args.sd:
+        print(json.dumps(profile_sd(args.batch, args.res, args.forwards)))
+    elif args.train:
         print(json.dumps(profile_train(args.batch, args.steps)))
     elif args.guided:
         print(json.dumps(profile_guided(args.batch, args.steps)))

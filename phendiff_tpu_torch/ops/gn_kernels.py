@@ -8,7 +8,12 @@ package's XLA GroupNorm path, the TPU default: f32 one-pass moments, the
 CUDA source, ``csrc/group_norm_silu.cu``, holds each (sample, channel
 slice) tile in the shared memory of a thread-block cluster, so x is read
 from HBM once; its header gives the design and the bound.  ``gn_plan``
-picks the launch shape.
+picks the launch shape.  Where it has none (a tile whose rows do not fit 16
+blocks' shared memory, such as the SD VAE's 512 px maps, or a group wider
+than 256 channels), the call takes the streaming variant of the same
+source: a split statistics pass, a fixed-order combine, and a second read
+of x that normalises (the backward: split sums, a combine, a second read
+of x and g for dx).  ``gn_route`` says which a shape takes.
 
 ``fused_group_norm`` launches the forward kernel for CUDA tensors (which
 writes its output in the input's dtype, as every UNet call asks) and uses
@@ -19,7 +24,8 @@ mean and rstd, and the backward is the backward kernel
 states in plain PyTorch.  The TPU package has no backward kernel (its
 ``_fused_gn_bwd`` recomputes the XLA reference under ``jax.vjp``).
 ``fused_group_norm.launches`` and ``fused_group_norm_bwd.launches`` count
-kernel launches.
+cluster-kernel launches, ``.stream_launches`` the streaming variant's calls
+(three kernels a forward call, five a backward call).
 
 ``channel_moments`` is the counterpart of ``m_pallas`` in
 ``tools/bench_gn_moments.py``: per-channel f32 sum x and sum x^2 of a
@@ -40,10 +46,11 @@ from phendiff_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Moments tool: blocks per sample are chosen so a call has about this many
-# blocks in all (a few waves over the H100's 132 SMs).
+# Moments tool and streaming variant: splits of S per sample are chosen so a
+# call has about this many blocks in all (a few waves over the H100's 132
+# SMs).
 _TARGET_BLOCKS = 1024
-_MAX_CHANNELS = 2048
+_MAX_CHANNELS = 4096
 
 # Launch plan of the cluster kernels (limits as in csrc/group_norm_silu.cu).
 SMEM_LIMIT = 232448  # 227 KB of shared memory a Hopper block can use
@@ -115,6 +122,16 @@ def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) 
             return GnPlan(cb, k, rows, THREADS, smem)
     raise ValueError(f"group_norm kernels: S={s} rows of {widths[0]} channels do not fit "
                      f"{MAX_CLUSTER} blocks' shared memory ({smem} > {SMEM_LIMIT} bytes)")
+
+
+def gn_route(s: int, c: int, groups: int, itemsize: int, backward: bool = False) -> str:
+    """``"cluster"`` where ``gn_plan`` has a plan for the call, else
+    ``"stream"``: the kernel a CUDA call of this shape launches."""
+    try:
+        gn_plan(s, c, groups, itemsize, backward)
+    except ValueError:
+        return "stream"
+    return "cluster"
 
 
 def _grouped_stats(xf: torch.Tensor, eps: float):
@@ -223,6 +240,28 @@ def _bwd_entry():
 
 
 @functools.cache
+def _stream_fwd_entry():
+    fn = _build.load("group_norm_silu").phd_gn_stream_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
+    return fn
+
+
+@functools.cache
+def _stream_bwd_entry():
+    fn = _build.load("group_norm_silu").phd_gn_stream_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+@functools.cache
 def _occupancy_entry():
     fn = _build.load("group_norm_silu").phd_gn_max_active_clusters
     fn.restype = ctypes.c_int
@@ -280,7 +319,8 @@ def max_active_clusters(b, s, c, num_groups, dtype, act=None, backward=False) ->
 
 
 def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
-    """Forward kernel: (out, mean, rstd), mean and rstd f32 [B, G]."""
+    """Forward kernel, the cluster one or the streaming variant as
+    ``gn_route`` says: (out, mean, rstd), mean and rstd f32 [B, G]."""
     b, s, c = x.shape
     if out_dtype != x.dtype:
         raise TypeError(
@@ -291,11 +331,22 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
     if act not in (None, "silu"):
         raise ValueError(f"unknown activation: {act}")
     x = _check_input(x, num_groups)
-    plan = gn_plan(s, c, num_groups, x.element_size())
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((b, s, c), dtype=out_dtype, device=x.device)
     stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
+    if gn_route(s, c, num_groups, x.element_size()) == "stream":
+        nsplit = _stream_splits(b, s, c, x.element_size())
+        work = torch.empty(2 * b * nsplit * c, dtype=torch.float32, device=x.device)
+        err = _stream_fwd_entry()(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), work.data_ptr(),
+            b, s, c, num_groups, float(eps), int(act == "silu"), nsplit, _stream(x),
+        )
+        _build.check(err, "group_norm_silu stream launch")
+        fused_group_norm.stream_launches += 1
+        return out, stats[0], stats[1]
+    plan = gn_plan(s, c, num_groups, x.element_size())
     err = _fwd_entry()(
         x.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
@@ -308,9 +359,10 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
 
 
 def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None):
-    """(dx in x's dtype, dscale, dbias in f32) from the backward kernel, for
-    CUDA inputs: x as the forward took it, the output gradient ``g``, and
-    the forward's mean and rstd ([B, G], ``_launch``).  Deterministic."""
+    """(dx in x's dtype, dscale, dbias in f32) from the backward kernel (the
+    cluster one or the streaming variant, as ``gn_route`` says), for CUDA
+    inputs: x as the forward took it, the output gradient ``g``, and the
+    forward's mean and rstd ([B, G], ``_launch``).  Deterministic."""
     b, s, c = x.shape
     if act not in (None, "silu"):
         raise ValueError(f"unknown activation: {act}")
@@ -323,11 +375,24 @@ def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None)
     mean, rstd = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (mean, rstd))
     if mean.shape != (b, num_groups) or rstd.shape != (b, num_groups):
         raise ValueError(f"mean and rstd must be [B, G] = [{b}, {num_groups}]")
-    plan = gn_plan(s, c, num_groups, x.element_size(), backward=True)
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     dx = torch.empty_like(x)
     dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    if gn_route(s, c, num_groups, x.element_size(), backward=True) == "stream":
+        nsplit = _stream_splits(b, s, c, x.element_size())
+        work = torch.empty(2 * b * nsplit * c + 2 * b * c + 2 * b * num_groups,
+                           dtype=torch.float32, device=x.device)
+        err = _stream_bwd_entry()(
+            x.data_ptr(), g.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(),
+            bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            dparams[0].data_ptr(), dparams[1].data_ptr(), work.data_ptr(),
+            b, s, c, num_groups, int(act == "silu"), nsplit, _stream(x),
+        )
+        _build.check(err, "group_norm_silu_bwd stream launch")
+        fused_group_norm_bwd.stream_launches += 1
+        return dx, dparams[0], dparams[1]
+    plan = gn_plan(s, c, num_groups, x.element_size(), backward=True)
     sums = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     err = _bwd_entry()(
         x.data_ptr(), g.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
@@ -371,8 +436,9 @@ def fused_group_norm(
 ) -> torch.Tensor:
     """GroupNorm (+ affine + SiLU) over [B, S, C], differentiable.
 
-    A CUDA tensor goes through the kernels (``out_dtype`` equal to x's) or
-    raises; a CPU tensor goes through ``group_norm_plain``.
+    A CUDA tensor goes through the kernels (``out_dtype`` equal to x's; the
+    cluster kernels or, where ``gn_route`` says so, the streaming variant)
+    or raises; a CPU tensor goes through ``group_norm_plain``.
     """
     out_dtype = out_dtype or torch.float32
     if x.device.type == "cpu":
@@ -392,6 +458,13 @@ def _num_splits(b: int, s: int, c: int) -> int:
     rows_per_block_pass = 1 if cvn >= 256 else 256 // cvn
     max_splits = -(-s // rows_per_block_pass)
     return max(1, min(max_splits, -(-_TARGET_BLOCKS // b)))
+
+
+def _stream_splits(b: int, s: int, c: int, itemsize: int) -> int:
+    """Splits of S a sample for the streaming variant: ``_num_splits``'
+    count, but at most one per 256 bytes of a channel's column, so the f32
+    partial sums (8 bytes a channel a split) stay within 1/32 of x."""
+    return max(1, min(_num_splits(b, s, c), s * itemsize // 256))
 
 
 def channel_moments_plain(x: torch.Tensor, tile: int = 512):
@@ -433,6 +506,8 @@ def channel_moments(x: torch.Tensor):
 
 
 fused_group_norm.launches = 0
+fused_group_norm.stream_launches = 0
 fused_group_norm_bwd.launches = 0
+fused_group_norm_bwd.stream_launches = 0
 fused_group_norm_bwd.g_copies = 0  # output gradients the backward had to make contiguous
 channel_moments.launches = 0

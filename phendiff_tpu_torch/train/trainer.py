@@ -12,7 +12,8 @@ image-folder route:
 * metrics read back in one host fetch every ``metrics_flush_every`` steps,
   with a NaN alert on non-finite loss or gradient norm;
 * lr x sqrt(data-parallel size), which is 1 on one device;
-* with ``compute_metrics=True`` an eval pass runs the ``Evaluator``
+* with ``compute_metrics=True`` (the default, as in the JAX package) an
+  eval pass runs the ``Evaluator``
   (per-class FID/ISC/KID of EMA samples) and saves the EMA pipeline when
   its ``main_metric_mean`` is the best so far; without it, an eval pass
   saves the pipeline only while the save folder is still empty.
@@ -105,7 +106,11 @@ class TrainerConfig:
     checkpoints_total_limit: Optional[int] = None
     resume_from_checkpoint: Optional[str] = None  # "latest" or a step number
     mixed_precision: str = "bf16"
-    compute_metrics: bool = False  # run the Evaluator at each eval pass
+    # Run the Evaluator at each eval pass and keep the best pipeline by its
+    # FID, as the JAX package does by default.  Until FID-Inception weights
+    # are supplied (PHENDIFF_INCEPTION_WEIGHTS) the Inception is a seeded
+    # random init, and its FID ranks nothing.
+    compute_metrics: bool = True
     save_final_checkpoint: bool = True
     metrics_flush_every: int = 1  # read metrics back every N steps, one fetch
     upload_uint8: bool = False  # ship uint8 batches, normalise on the device

@@ -163,13 +163,56 @@ def test_cli_overrides_and_debug(inputs, monkeypatch, tmp_path):
 
 
 def test_sd_pipeline_folder_is_a_later_slice(inputs, tmp_path):
+    """The slice has come: an ``SDImg2ImgPipeline`` folder loads as the
+    port's SD pipeline (``tests/test_torch_sd_pipeline.py`` holds its route
+    against the JAX engine), and a folder of neither kind still raises."""
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
     from phendiff_tpu_torch.pipelines import io
+    from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
 
-    io.save_model_index(str(tmp_path / "sd"), "SDImg2ImgPipeline", {})
+    sd = SDImg2ImgPipeline.init_random(
+        SDUNetConfig(sample_size=2, block_out_channels=(8, 8),
+                     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+                     cross_attention_dim=8, attention_head_dim=2, norm_num_groups=4),
+        AutoencoderKLConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                            norm_num_groups=4), SchedulerConfig(), class_embedding_dim=8,
+        device="cpu")
+    sd.save_pretrained(str(tmp_path / "sd"))
     conf = dict(_conf(inputs, "sd"), pipelines={"sd": str(tmp_path / "sd")})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    exp = comparison.ComparisonExperiment(comparison.ComparisonConfig.from_dict(conf),
+                                          device="cpu")
+    assert isinstance(exp.pipes["sd"], SDImg2ImgPipeline)
+    io.save_model_index(str(tmp_path / "other"), "OtherPipeline", {})
+    conf = dict(_conf(inputs, "sd"), pipelines={"x": str(tmp_path / "other")})
+    with pytest.raises(ValueError, match="unknown pipeline kind"):
         comparison.ComparisonExperiment(comparison.ComparisonConfig.from_dict(conf),
                                         device="cpu")
+
+
+def test_cli_takes_the_override_flag_of_the_jax_launcher(inputs, monkeypatch, tmp_path):
+    """``--override key=value ...``, as ``phendiff_tpu/cli/launcher.py``'s
+    ``build_command`` emits it for the JAX app, configures the port's app."""
+    from phendiff_tpu.cli.launcher import build_command
+
+    monkeypatch.setenv("PHENDIFF_INCEPTION_RESIZE", "75")
+    conf = _conf(inputs, "unused")
+    conf["methods"] = ["inverted_regeneration"]
+    conf["method_params"] = {"inverted_regeneration": {"batch_size": 4}}
+    conf["metrics"] = {"fid": False, "isc": True, "kid": False}
+    (tmp_path / "conf.yaml").write_text(yaml.safe_dump(conf))
+    out = tmp_path / "flag_out"
+    cmd = build_command(str(tmp_path / "conf.yaml"),
+                        [f"output_dir={out}", "num_inference_steps=1", "seed=3"], debug=False)
+    argv = cmd[cmd.index("--config"):]
+    assert argv[2] == "--override"
+    assert cli_main(argv + ["--device", "cpu"]) == 0
+    with open(out / "resolved_config.json") as f:
+        resolved = json.load(f)
+    assert (resolved["num_inference_steps"], resolved["seed"]) == (1, 3)
+    assert len(list((out / "inverted_regeneration").rglob("*_to_*.png"))) == 8
 
 
 def _evaluator(index, definition, cache_root, extractor=None):

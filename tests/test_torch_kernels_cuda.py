@@ -214,6 +214,92 @@ def test_group_norm_bwd_kernel_matches_plain(cuda, s, c, groups, act):
             assert _rel_l2(a, want) <= GN_BWD_PARAM_REL_L2
 
 
+# (S, C, G, streamed by gn_route itself): the SD VAE's 512 px maps stream
+# on their own; smaller maps are sent down the streaming variant by hand.
+GN_STREAM_SHAPES = [(262144, 128, 32, True), (4096, 960, 32, False), (300, 2560, 32, False),
+                    (100, 48, 8, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,groups,natural", GN_STREAM_SHAPES)
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_stream_variant_matches_plain(cuda, monkeypatch, s, c, groups, natural,
+                                                 act):
+    from phendiff_tpu_torch.ops import gn_kernels
+
+    if natural:
+        assert gn_kernels.gn_route(s, c, groups, 2) == "stream"
+    else:
+        monkeypatch.setattr(gn_kernels, "gn_route", lambda *a, **k: "stream")
+    g = torch.Generator(device=cuda).manual_seed(c + 2)
+    x32 = torch.randn(2, s, c, generator=g, device=cuda) * 2 + 0.5
+    g32 = torch.randn(2, s, c, generator=g, device=cuda)
+    scale = torch.randn(c, generator=g, device=cuda)
+    bias = torch.randn(c, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, gout = x32.to(dtype), g32.to(dtype)
+        kw = dict(num_groups=groups, eps=1e-6, act=act, out_dtype=dtype)
+        before = (fused_group_norm.launches, fused_group_norm.stream_launches)
+        out, mean, rstd = gn_launch(x, scale, bias, groups, 1e-6, act, dtype)
+        again = fused_group_norm(x, scale, bias, **kw)
+        torch.cuda.synchronize()
+        assert (fused_group_norm.launches, fused_group_norm.stream_launches) == (
+            before[0], before[1] + 2)
+        assert torch.equal(out, again)  # fixed-order sums
+        torch.testing.assert_close(out.float(), group_norm_plain(x, scale, bias, **kw).float(),
+                                   **GN_TOL[dtype])
+        for got, want in zip((mean, rstd), group_stats_plain(x, groups, 1e-6)):
+            torch.testing.assert_close(got, want, **GN_STATS_TOL)
+        mean, rstd = group_stats_plain(x, groups, 1e-6)
+        bkw = dict(num_groups=groups, act=act)
+        before = fused_group_norm_bwd.stream_launches
+        got = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **bkw)
+        again = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **bkw)
+        torch.cuda.synchronize()
+        assert fused_group_norm_bwd.stream_launches == before + 2
+        ref = group_norm_bwd_plain(x, gout, scale, bias, mean, rstd, **bkw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _rel_l2(got[0], ref[0]) <= GN_BWD_DX_REL_L2[dtype]
+        for a, want in zip(got[1:], ref[1:]):
+            assert _rel_l2(a, want) <= GN_BWD_PARAM_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sd_unet_on_the_card_routes_self_and_cross_attention(cuda, monkeypatch, dtype):
+    from phendiff_tpu_torch.core.precision import cast_matmul_weights
+    from phendiff_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+
+    # f32 convolutions and products in full f32: with TF32 the two paths'
+    # last-bit differences flip TF32 roundings
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    cfg = SDUNetConfig(block_out_channels=(128, 128), layers_per_block=1,
+                       down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                       up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                       attention_head_dim=2, cross_attention_dim=64)  # heads of 64
+    model = SDUNet(cfg, dtype=dtype).init_weights(torch.Generator().manual_seed(0)).to(cuda)
+    if dtype == torch.bfloat16:
+        model = cast_matmul_weights(model)
+    x = torch.randn(2, 16, 16, 4, device=cuda)
+    ctx = torch.randn(2, 77, 64, device=cuda)
+    t = torch.tensor([10, 900], device=cuda)
+    attn0, xla0 = flash_attention.launches, attention_mod.multi_head_attention.xla_route_calls
+    with torch.no_grad():
+        out = model(x, t, ctx)
+        torch.cuda.synchronize()
+        # 1 + 2 + 1 Transformer2D blocks (down, mid, up x 2): self by the kernel,
+        # cross by the counted plain route
+        assert flash_attention.launches - attn0 == 4
+        assert attention_mod.multi_head_attention.xla_route_calls - xla0 == 4
+        with plain_kernels():
+            ref = model(x, t, ctx)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert _rel_l2(out, ref) <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_unet_on_the_card_runs_through_both_kernels(cuda, dtype):

@@ -197,6 +197,13 @@ def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
     ("void (anonymous namespace)::gn_bwd_cluster<float, false>(...)", "group_norm_silu_bwd"),
     ("void (anonymous namespace)::gn_stats<__nv_bfloat16>(...)", "channel_moments"),
     ("void (anonymous namespace)::moments_combine(...)", "channel_moments"),
+    ("void (anonymous namespace)::stream_apply<__nv_bfloat16, true>(...)",
+     "group_norm_silu_stream"),
+    ("void (anonymous namespace)::stream_stats_combine(...)", "group_norm_silu_stream"),
+    ("void (anonymous namespace)::stream_bwd_sums<float, false>(...)",
+     "group_norm_silu_stream_bwd"),
+    ("void (anonymous namespace)::stream_bwd_dx<__nv_bfloat16, true>(...)",
+     "group_norm_silu_stream_bwd"),
 ])
 def test_forward_profile_attributes_the_attention_kernels(kernel, category):
     from phendiff_tpu_torch.obs.forward_profile import categorize
@@ -339,6 +346,93 @@ def test_gn_plan_fits_every_main_path_call(itemsize, backward):
         gn_plan(1 << 20, 192, 32, itemsize, backward)
     with pytest.raises(ValueError):  # a tile wider than 256 channels
         gn_plan(64, 1024, 2, itemsize, backward)
+
+
+def _preset_records(dtype):
+    """Every GroupNorm and attention call, by shape, of one forward of each
+    ``configs/denoiser`` preset at its own size, of full-width SD-2.1 at
+    latent 16 and 64, and of the SD VAE's encode + decode at 128 and 512 px."""
+    import glob
+
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.config import UNet2DConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls, vae_calls
+
+    root = os.path.join(os.path.dirname(__file__), "..", "configs", "denoiser")
+    records = {}
+    for path in sorted(glob.glob(os.path.join(root, "*.json"))):
+        cfg = UNet2DConfig.from_json(path)
+        records[os.path.basename(path)[:-5]] = unet_calls(cfg, cfg.sample_size, dtype)
+    for latent in (16, 64):
+        records[f"sd21_latent{latent}"] = sd_unet_calls(SDUNetConfig(), latent, dtype)
+    for res in (128, 512):
+        records[f"vae_{res}px"] = vae_calls(AutoencoderKLConfig(), res, dtype)
+    return records
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_every_preset_call_has_a_kernel_plan_the_stream_variant_or_the_counted_route(dtype):
+    from phendiff_tpu_torch.ops import attention
+    from phendiff_tpu_torch.ops.gn_kernels import MAX_CLUSTER, SMEM_LIMIT, _smem_bytes, gn_route
+
+    itemsize = torch.finfo(getattr(torch, dtype)).bits // 8
+    records = _preset_records(getattr(torch, dtype))
+    assert len(records) == 8 and all(r["group_norm"] for r in records.values())
+    streamed, xla = set(), {}
+    for name, rec in records.items():
+        for (s, c, groups, act, isz), _ in rec["group_norm"].items():
+            assert isz == itemsize, name
+            for backward in (False, True):
+                if gn_route(s, c, groups, isz, backward) == "cluster":
+                    p = gn_plan(s, c, groups, isz, backward)
+                    assert 1 <= p.k <= MAX_CLUSTER and (p.k - 1) * p.rows < s <= p.k * p.rows
+                    assert c % p.cb == 0 and p.cb % (c // groups) == 0
+                    assert _smem_bytes(2 if backward else 1, p.rows, p.cb, isz,
+                                       p.threads) == p.smem <= SMEM_LIMIT
+                else:  # the streaming variant's constraints (csrc check_stream)
+                    assert c % 8 == 0 and c % groups == 0 and c // 8 <= 512, (name, s, c)
+                    streamed.add((name, s, c, backward))
+        for (s_q, s_kv, h, d, isz), n in rec["attention"].items():
+            if attention.takes_kernel(s_q, s_kv, d):
+                assert s_q == s_kv and d <= 64
+            else:  # cross-attention or D > 64: the counted attention_plain route
+                assert s_q != s_kv or d > 64
+                xla[name] = xla.get(name, 0) + n
+    # the shapes that had no plan before the streaming variant
+    assert ("vae_512px", 262144, 128, False) in streamed
+    assert ("vae_512px", 262144, 256, True) in streamed
+    assert ("sd21_size", 16384, 960, False) in streamed
+    if dtype == "float32":
+        assert ("ddpm_unconditional_256", 65536, 128, True) in streamed
+    assert not any(n.startswith(("super_small", "small")) for n, *_ in streamed)
+    # one head of D = 512, and the SD UNet's 16 cross-attentions a forward
+    assert xla["ddpm_unconditional_256"] == 6
+    assert xla["sd21_latent16"] == xla["sd21_latent64"] == 16
+    assert "super_small" not in xla and records["vae_512px"]["single_head_attention"] == 2
+
+
+def test_attention_routes_count_the_calls_that_skip_the_kernel():
+    from phendiff_tpu_torch.models.config import UNet2DConfig
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+
+    cfg = UNet2DConfig.from_json(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                              "denoiser", "ddpm_unconditional_256.json"))
+    before = multi_head_attention.xla_route_calls
+    with plain_kernels(), torch.device("meta"):
+        CondUNet2D(cfg)(torch.zeros(1, 256, 256, 3), torch.zeros(1, dtype=torch.long))
+    assert multi_head_attention.xla_route_calls - before == 6  # D = 512 > 64
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 16, 2, 8)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 77, 2, 8)).astype(np.float32))
+    before = multi_head_attention.xla_route_calls
+    np.testing.assert_allclose(
+        multi_head_attention(q, kv, kv).numpy(),
+        np.asarray(attention_xla(jnp.asarray(q.numpy()), jnp.asarray(kv.numpy()),
+                                 jnp.asarray(kv.numpy()))), atol=1e-6)
+    multi_head_attention(q, q, q)  # self-attention at D <= 64: the kernel's route
+    assert multi_head_attention.xla_route_calls - before == 1
 
 
 def test_plain_kernels_route_the_unet_through_plain_versions_and_restore():

@@ -61,6 +61,7 @@ def make_config(data_dir, **overrides):
     base = dict(
         train_data_dir=str(data_dir), definition=(16, 16), train_batch_size=8,
         num_epochs=2, eval_every_epochs=None, checkpointing_steps=2, mixed_precision="no",
+        compute_metrics=False,  # these tests check the loop, not the Evaluator
         train=TrainConfig(proba_uncond=0.1,
                           optimizer=OptimizerConfig(learning_rate=1e-3, total_steps=50)),
     )
@@ -274,3 +275,11 @@ def test_trackers(tmp_path):
     assert isinstance(make_tracker("none", run_dir), NullTracker)
     with pytest.raises(ValueError):
         make_tracker("wandb", run_dir)
+
+
+def test_compute_metrics_default_matches_the_jax_package():
+    """A default run keeps the best pipeline by FID, as the reference does."""
+    from phendiff_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
+
+    assert TrainerConfig().compute_metrics is JaxTrainerConfig().compute_metrics is True
+
