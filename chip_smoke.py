@@ -60,10 +60,10 @@ failure exits non-zero before the final line:
 15. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
     kernel against its plain version at [32, 8192, 128] bf16;
 16. sd_kernel_check: full-width SD-2.1's self-attention shapes (heads of
-    64) at 128 px, batch 64 and 512 px, batch 8, both attention kernels
-    against their plain versions and SDPA; the cluster GroupNorm kernels at
-    the SD UNet's and the VAE's shapes at the same batches; the streaming
-    GroupNorm variant,
+    64) at 128 px, batch 64 and 512 px, batch 8, and the train step's at 128
+    px, batch 32, both attention kernels against their plain versions and
+    SDPA; the cluster GroupNorm kernels at the SD UNet's and the VAE's
+    shapes at the same batches; the streaming GroupNorm variant,
     forward and backward, against the plain versions at every (S, C, act)
     of the CPU fault test's list (calls no cluster plan fits: the SD VAE's
     512 px maps among them);
@@ -84,7 +84,24 @@ failure exits non-zero before the final line:
 20. sd_comparison: the SD pipeline saved with ``save_pretrained`` and run
     by ``ComparisonExperiment`` over 2 x 32 random 128 px PNGs, all four
     methods, 10 steps, batch 32; ISC and KID (FID off: its host ``sqrtm``
-    already takes most of the DDIM comparison phase).
+    already takes most of the DDIM comparison phase);
+21. sd_train_check: one full-width SD fine-tune step (``for_sd_pipeline``'s:
+    frozen bf16 VAE encode, f32 master weights, bf16 compute) at latent 16,
+    batch 4, on the kernels and on the plain versions, each held against
+    the same step in f32: loss, gradient norm and the UNet's and class
+    embedding's gradients; the same step with remat against without; one
+    step with the VAE's encoder trained (its gradients finite and nonzero,
+    the decoder's zero);
+22. sd_train_path: SD fine-tune steps at 128 px, batch 32
+    (``bench.py::bench_sd_train``'s shape, plus the frozen VAE encode): 10
+    timed steps without remat and 3 with it, samples/s, peak memory, device
+    time against wall time, and exact launches against the recorded calls
+    of one step (``obs.forward_profile.sd_train_calls``: the blocks'
+    recomputed forwards under remat);
+23. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
+    DDIM with ``examples/launch_train_ddim.sh``'s flags and ``--debug``,
+    and an SD fine-tune of the folder phase 20 saved (3 steps, one eval);
+    each exits 0 with finite losses, a checkpoint and a save that reloads.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -205,6 +222,15 @@ SD_F32_REL_L2_TOL = 1e-3
 # this multiple of the bf16 plain path's (each rounds differently, neither
 # is the reference).
 SD_BF16_VS_PLAIN = 1.25
+# The SD train step (bf16 compute) against the same step in f32: the kernel
+# path's loss, gradient norm and per-component gradient distances at most
+# SD_BF16_VS_PLAIN times the plain path's, or this relative floor where the
+# plain path's distance is below it (a loss both paths hit to a few bf16
+# ulps).  Remat repeats the same forward kernels on the same inputs: its
+# loss equals the step's without remat to f32 rounding of the loss's sum,
+# and its gradients are held as the kernel path's.
+SD_TRAIN_FLOOR = 1e-3
+SD_REMAT_LOSS_REL = 1e-6
 
 
 def emit(obj) -> None:
@@ -1279,23 +1305,24 @@ def sd_streamed_calls() -> set:
     return out
 
 
-def phase_sd_kernel_check(torch, sfu_rate, unet_calls_by_latent, vae_calls_by_res):
+def phase_sd_kernel_check(torch, sfu_rate, runs):
     """Both attention kernels at SD-2.1's self-attention shapes, the cluster
     GroupNorm kernels at the SD UNet's and the VAE's shapes (the backward at
-    the UNet's, the one the guided method differentiates), each at its
-    path's batch, and the streaming GroupNorm variant at every streamed
-    shape."""
+    the UNet's, the one the guided method and the train step differentiate),
+    each at its path's batch, and the streaming GroupNorm variant at every
+    streamed shape.  ``runs``: {path: (batch, the UNet forward's recorded
+    calls, the recorded calls that run forward only beside them: the VAE's,
+    or for the train step its whole forward)}."""
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
 
     attn, gn = {}, {}
-    for name, (b, res) in SD_RUNS.items():
-        lat = res // 8
-        for (s_q, s_kv, h, d, _), n in unet_calls_by_latent[lat]["attention"].items():
+    for name, (b, unet_calls, fwd_only_calls) in runs.items():
+        for (s_q, s_kv, h, d, _), n in unet_calls["attention"].items():
             if s_q == s_kv and d <= 64:
                 f = attention_check(torch, b, s_q, h, d, sfu_rate)
                 bw = attention_bwd_check(torch, b, s_q, h, d, sfu_rate)
                 attn[(name, s_q, h)] = (n, f, bw)
-        for model, calls in (("unet", unet_calls_by_latent[lat]), ("vae", vae_calls_by_res[res])):
+        for model, calls in (("unet", unet_calls), ("vae", fwd_only_calls)):
             for (s, c, g, act, isz), n in calls["group_norm"].items():
                 pair = gn.setdefault((name, s, c, g, act), [None, None])
                 if pair[0] is None and gn_route(s, c, g, isz) == "cluster":
@@ -1519,6 +1546,246 @@ def phase_sd_comparison(torch, pipe32, env, unet_calls_by_latent, vae_calls_by_r
     if (any(n != 2 * CMP_PER_CLASS for n in pngs.values()) or rec["missing_keys"]
             or not rec["metrics_finite"] or launches != want or plain):
         fail(f"sd_comparison: {rec}")
+    return rec, os.path.join(root, "pipe"), data
+
+
+def sd_train_run(torch, pipe, images, labels, draws, mixed_precision="bf16", remat=False,
+                 components=("denoiser", "class_embedding")):
+    """One SD train step (``for_sd_pipeline``'s) from ``pipe``'s weights: its
+    metrics and the gradients its optimizer was given."""
+    from phendiff_tpu_torch.obs.forward_profile import sd_train_step
+
+    step, state, _, opt = sd_train_step(pipe, remat, components, proba_uncond=0.0,
+                                        mixed_precision=mixed_precision)
+    grads, update = {}, opt.update
+
+    def capture(g, opt_state, params):
+        grads.update(g)
+        update(g, opt_state, params)
+
+    opt.update = capture
+    state, metrics = step(state, (images, labels), draws)
+    del opt.update  # no reference cycle keeps the gradients alive after the phase
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "params_finite": finite}, grads
+
+
+def component_rel_l2(got, want, prefix):
+    """Relative L2 distance of all the gradients under ``prefix`` together."""
+    names = [n for n in want if n.startswith(prefix)]
+    diff = sum(float((got[n].float() - want[n].float()).square().sum()) for n in names)
+    ref = sum(float(want[n].float().square().sum()) for n in names)
+    return math.sqrt(diff / max(ref, 1e-30))
+
+
+def phase_sd_train_check(torch):
+    """One full-width SD train step at latent 16, batch 4 (f32 master weights,
+    bf16 compute, frozen bf16 VAE): on the kernels against the same step
+    under the plain versions, both held against the step in f32 (plain
+    versions, f32 VAE); with remat against without; and with the VAE's
+    encoder trained."""
+    from phendiff_tpu_torch.obs.forward_profile import plain_kernels, sd_pipeline
+    from phendiff_tpu_torch.train.train_loop import make_draws
+
+    pipe = sd_pipeline(torch.bfloat16, SEED, cast=False)
+    pipe32 = sd_pipeline(torch.float32, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    images = torch.rand(4, RES, RES, 3, generator=gen, device="cuda") * 2 - 1
+    labels = torch.tensor([0, 1, 1, 0], device="cuda")
+    draws = make_draws(SEED, 0, (4, RES // 8, RES // 8, 4), pipe.schedule.num_train_timesteps,
+                       0.0, "cuda", posterior=True)
+    comps = ("unet.", "class_embedding.")
+    with plain_kernels():
+        ref, g_ref = sd_train_run(torch, pipe32, images, labels, draws, mixed_precision="no")
+        plain, g_plain = sd_train_run(torch, pipe, images, labels, draws)
+    kern, g_kern = sd_train_run(torch, pipe, images, labels, draws)
+
+    def versus_f32(m, g):
+        return {"loss_rel_err": abs(m["loss"] - ref["loss"]) / abs(ref["loss"]),
+                "grad_norm_rel_err": abs(m["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                **{f"{c}grad_rel_l2": component_rel_l2(g, g_ref, c) for c in comps}}
+
+    d_plain, d_kern = versus_f32(plain, g_plain), versus_f32(kern, g_kern)
+    rec = {"phase": "sd_train_check", "batch": 4, "latent": RES // 8,
+           "tol": {"kernel_vs_f32_at_most_times_plain_vs_f32": SD_BF16_VS_PLAIN,
+                   "floor": SD_TRAIN_FLOOR, "remat_loss_rel_err": SD_REMAT_LOSS_REL},
+           "f32": ref, "plain": plain, "kernel": kern,
+           "plain_vs_f32": d_plain, "kernel_vs_f32": d_kern,
+           "kernel_vs_plain": {f"{c}grad_rel_l2": component_rel_l2(g_kern, g_plain, c)
+                               for c in comps}}
+    ok = kern["params_finite"] and all(
+        d_kern[k] <= max(SD_BF16_VS_PLAIN * d_plain[k], SD_TRAIN_FLOOR) for k in d_plain)
+    del g_plain, g_ref
+    remat, g_remat = sd_train_run(torch, pipe, images, labels, draws, remat=True)
+    rec["remat"] = {**remat, "loss_rel_err_vs_no_remat": abs(remat["loss"] - kern["loss"])
+                    / abs(kern["loss"]),
+                    **{f"{c}grad_rel_l2_vs_no_remat": component_rel_l2(g_remat, g_kern, c)
+                       for c in comps}}
+    ok &= (rec["remat"]["loss_rel_err_vs_no_remat"] <= SD_REMAT_LOSS_REL
+           and all(rec["remat"][f"{c}grad_rel_l2_vs_no_remat"]
+                   <= max(SD_BF16_VS_PLAIN * d_plain[f"{c}grad_rel_l2"], SD_TRAIN_FLOOR)
+                   for c in comps))
+    del g_remat, g_kern
+    vae_run, g_vae = sd_train_run(torch, pipe, images, labels, draws,
+                                  components=("denoiser", "class_embedding", "autoencoder"))
+    enc = {n: g for n, g in g_vae.items()
+           if n.split(".")[:2] in (["vae", "encoder"], ["vae", "quant_conv"])}
+    dec = {n: g for n, g in g_vae.items() if n.startswith("vae.") and n not in enc}
+    rec["autoencoder"] = {
+        **vae_run, "encoder_tensors": len(enc),
+        "encoder_zero_or_nonfinite": sorted(n for n, g in enc.items() if not bool(
+            torch.isfinite(g).all()) or float(g.abs().max()) == 0.0),
+        "decoder_tensors": len(dec),
+        "decoder_max_abs_grad": max(float(g.abs().max()) for g in dec.values())}
+    ok &= (len(enc) > 0 and not rec["autoencoder"]["encoder_zero_or_nonfinite"]
+           and rec["autoencoder"]["decoder_max_abs_grad"] == 0.0 and vae_run["params_finite"])
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        fail(f"sd_train_check: {rec}")
+    del pipe, pipe32, g_vae
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sd_train_path(torch, env, train_calls):
+    """Full-width SD-2.1 fine-tune steps at 128 px, batch 32 over a frozen bf16
+    VAE (``bench.py::bench_sd_train``'s shape): 2 warm-up and 10 timed steps
+    without remat, then 1 and 3 with it; launches against the recorded
+    calls; device time against wall time from a trace of 2 more steps."""
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step, trace
+    from phendiff_tpu_torch.train.train_loop import make_draws
+
+    pipe = sd_pipeline(torch.bfloat16, SEED, cast=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    images = torch.rand(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 2 - 1
+    labels = torch.tensor([0, 1], device="cuda").repeat(TRAIN_BATCH // 2)
+    rec = {"phase": "sd_train_path", "batch": TRAIN_BATCH, "res": RES, "latent": RES // 8,
+           "params": sum(p.numel() for p in pipe.unet.parameters())
+           + sum(p.numel() for p in pipe.class_embedding.parameters()),
+           "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    ok = True
+    for mode, remat, warm, steps in (("no_remat", False, 2, 10), ("remat", True, 1, 3)):
+        step, state, kw, _ = sd_train_step(pipe, remat)
+        shape = kw["diffusion_shape"](tuple(images.shape))
+
+        def run(n):
+            nonlocal state
+            losses = []
+            for _ in range(n):
+                draws = make_draws(SEED, state.step, shape, pipe.schedule.num_train_timesteps,
+                                   0.1, "cuda", posterior=True)
+                state, m = step(state, (images, labels), draws)
+                losses.append(m["loss"])
+            return torch.stack(losses)
+
+        run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_sd_launches()
+        with counting_plain_calls() as plain:
+            t0 = time.perf_counter()
+            losses = run(steps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = read_sd_launches()
+        calls = train_calls[remat]
+        want = add_launches((steps, predicted_launches(calls["forward"])),
+                            (steps, predicted_launches(calls["backward"], False, True)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        traced = trace(lambda: run(1), 2)
+        r = {"steps": steps, "seconds": dt, "samples_per_s": TRAIN_BATCH * steps / dt,
+             "ms_per_step": 1e3 * dt / steps, "peak_mem_gib": peak,
+             "traced_wall_ms_per_step": traced["wall_ms_per_call"],
+             "traced_device_ms_per_step": traced["device_ms_per_call"],
+             "device_idle_share": traced["device_idle_share"],
+             "device_ms_per_step_by_category": traced["ms_per_call_by_category"],
+             "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+             "losses": [float(x) for x in losses],
+             "loss_finite": bool(torch.isfinite(losses).all())}
+        rec[mode] = r
+        ok &= r["loss_finite"] and launches == want and not plain
+        del step, state, kw
+        torch.cuda.empty_cache()
+    emit(rec)
+    if not ok:
+        fail(f"sd_train_path: {rec}")
+    del pipe
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_cli(torch, sd_folder, data):
+    """``phendiff_tpu_torch.cli.train_cli.main`` in this process, twice: DDIM
+    with the flags of ``examples/launch_train_ddim.sh`` and ``--debug
+    --train_batch_size 32 --max_num_steps 5``, and an SD fine-tune of the
+    saved full-width folder, 3 steps at batch 32 with one eval; each over
+    the 2 x 32 PNG folder at 128 px."""
+    import shlex
+
+    from phendiff_tpu_torch.cli import train_cli
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
+
+    with open(os.path.join("examples", "launch_train_ddim.sh")) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if "train_cli" in ln)
+    words = shlex.split(line.replace('"${DATA_DIR:-data/prepared/train}"', shlex.quote(data)))
+    script_flags = [w for w in words[words.index("phendiff_tpu.cli.train_cli") + 1:] if w != "$@"]
+    root = tempfile.mkdtemp(prefix="phd_train_cli_")
+    # FID off in both (its float64 host sqrtm of 2048 x 2048 takes ~13 s a
+    # class); ISC and KID rank the evals
+    metrics = ["--no_compute_fid", "--compute_isc", "--compute_kid", "--main_metric", "kid"]
+    runs = {
+        "ddim": (script_flags + ["--debug", "--train_batch_size", "32", "--max_num_steps", "5"]
+                 + metrics, ConditionalDDIMPipeline, "ddim_128px"),
+        "sd": (["--run_name", "sd_128px", "--model_type", "StableDiffusion",
+                "--pretrained_model_name_or_path", sd_folder, "--train_data_dir", data,
+                "--definition", str(RES), "--train_batch_size", "32", "--max_num_steps", "3",
+                "--eval_save_model_every_opti_steps", "3", "--eval_batch_size", "32",
+                "--nb_generated_images", "32", "--num_inference_steps", "10",
+                "--kid_subset_size", "16", "--proba_uncond", "0.1", "--guidance_factor", "2.5",
+                "--learning_rate", "1e-5"] + metrics, SDImg2ImgPipeline, "sd_128px"),
+    }
+    rec = {"phase": "train_cli",
+           "metrics_computed": "ISC and KID; FID off (its float64 host sqrtm of 2048 x 2048 "
+                               "takes ~13 s a class)"}
+    ok = True
+    for name, (argv, cls, run_name) in runs.items():
+        argv = argv + ["--exp_output_dirs_parent_folder", os.path.join(root, name)]
+        t0 = time.perf_counter()
+        rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run_dir = os.path.join(root, name, "phendiff-tpu", run_name)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["main_metric_mean"] for r in recs if "main_metric_mean" in r]
+        t1 = time.perf_counter()
+        loaded = cls.from_pretrained(os.path.join(run_dir, "full_pipeline_save"), device="cuda")
+        t_load = time.perf_counter() - t1
+        params = sum(p.numel() for p in (loaded.model if name == "ddim" else loaded.unet)
+                     .parameters())
+        r = {"rc": rc, "seconds": dt, "load_seconds": t_load, "argv": argv,
+             "steps": [r["step"] for r in recs if "loss" in r], "losses": losses,
+             "main_metric_mean": evals, "checkpoints": sorted(os.listdir(
+                 os.path.join(run_dir, "checkpoints"))), "reloaded_params": params,
+             "reloaded_finite": all(bool(torch.isfinite(p).all()) for p in (
+                 loaded.model if name == "ddim" else loaded.unet).parameters())}
+        rec[name] = r
+        ok &= (rc == 0 and bool(losses) and all(math.isfinite(x) for x in losses)
+               and bool(r["checkpoints"]) and r["reloaded_finite"] and bool(evals)
+               and all(math.isfinite(x) for x in evals))
+        del loaded
+        torch.cuda.empty_cache()
+    rec["steps_note"] = ("--debug sets max_num_steps 30 and 3 epochs (the JAX package's "
+                         "modify_args_for_debug): the DDIM run takes 3 epochs of 2 batches")
+    emit(rec)
+    if not ok:
+        fail(f"train_cli: {rec}")
     return rec
 
 
@@ -1686,13 +1953,21 @@ def main() -> None:
     # -- 16-20. SD-2.1 class transfer ----------------------------------------
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_unet_calls, vae_calls
+    from phendiff_tpu_torch.obs.forward_profile import (
+        sd_pipeline, sd_train_calls, sd_unet_calls, vae_calls)
+    from phendiff_tpu_torch.ops.attention import takes_kernel
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
 
     unet_by_lat = {lat: sd_unet_calls(SDUNetConfig(), lat) for lat in (16, 64)}
     unet32_64 = sd_unet_calls(SDUNetConfig(), 64, torch.float32)
     vae_by_res = {res: vae_calls(AutoencoderKLConfig(), res) for res in (128, 512)}
-    sd_attn, sd_gn, sd_stream = phase_sd_kernel_check(torch, sfu_rate, unet_by_lat, vae_by_res)
+    # one SD train step's calls at 128 px, without and with remat
+    train_calls = {remat: sd_train_calls(SDUNetConfig(), AutoencoderKLConfig(), RES, remat)
+                   for remat in (False, True)}
+    sd_attn, sd_gn, sd_stream = phase_sd_kernel_check(torch, sfu_rate, {
+        **{name: (b, unet_by_lat[res // 8], vae_by_res[res]) for name, (b, res) in SD_RUNS.items()},
+        "sd_train_path": (TRAIN_BATCH, train_calls[False]["backward"],
+                          train_calls[False]["forward"])})
     t0 = time.perf_counter()
     sd = sd_pipeline(torch.bfloat16, SEED)
     sd32 = sd_pipeline(torch.float32, SEED)
@@ -1705,7 +1980,14 @@ def main() -> None:
     sd_runs = {name: phase_sd_path(torch, sd, name, env, unet_by_lat, vae_by_res)
                for name in SD_RUNS}
     sd_guided = phase_sd_guided_check(torch, sd, sd32, unet_by_lat, unet32_64)
-    sd_cmp = phase_sd_comparison(torch, sd32, env, unet_by_lat, vae_by_res)
+    sd_cmp, sd_folder, sd_data = phase_sd_comparison(torch, sd32, env, unet_by_lat, vae_by_res)
+    del sd, sd32
+    torch.cuda.empty_cache()
+
+    # -- 21-23. SD-2.1 fine-tuning and the training CLI -----------------------
+    phase_sd_train_check(torch)
+    sd_train = phase_sd_train_path(torch, env, train_calls)
+    phase_train_cli(torch, sd_folder, sd_data)
 
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
@@ -1714,7 +1996,9 @@ def main() -> None:
         return {**{run: sd_runs[run]["launches"][name] for run in SD_RUNS},
                 "sd_guided": sd_guided["bf16"]["launches"][name]
                 + sd_guided["f32"]["launches"][name],
-                "sd_comparison": sd_cmp["launches"][name]}
+                "sd_comparison": sd_cmp["launches"][name],
+                "sd_train_path": sd_train["no_remat"]["launches"][name],
+                "sd_train_path_remat": sd_train["remat"]["launches"][name]}
 
     by_path = {
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
@@ -1754,6 +2038,21 @@ def main() -> None:
         return sum(n * sd_stream[k][pre + key] for k, n in calls["group_norm"].items()
                    if gn_route(*k[:3], k[4], backward) == "stream")
 
+    def sd_train_per_step(kernel):
+        """Summed over one SD train step's calls of ``kernel`` (no remat;
+        batch 32, 128 px): the UNet forward and the VAE encode for the
+        forward kernels, the UNet's backward for the backward kernels."""
+        backward = kernel.endswith("_bwd")
+        calls = train_calls[False]["backward" if backward else "forward"]
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+        if kernel.startswith("flash_attn"):
+            return {k: sum(n * sd_attn[("sd_train_path", s_q, h)][1 + backward][k]
+                           for (s_q, s_kv, h, d, _), n in calls["attention"].items()
+                           if takes_kernel(s_q, s_kv, d)) for k in keys}
+        return {k: sum(n * sd_gn[("sd_train_path", s, c, g, act)][int(backward)][k]
+                       for (s, c, g, act, isz), n in calls["group_norm"].items()
+                       if gn_route(s, c, g, isz, backward) == "cluster") for k in keys}
+
     stream_fwd_calls, stream_bwd_calls = vae_by_res[512], unet32_64
     kernels = [
         {
@@ -1765,6 +2064,7 @@ def main() -> None:
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": attn["bound_by"], "launches_by_path": by_path["flash_attn_fwd"],
             "sd_per_unet_forward": sd_attn_per_forward(0),
+            "sd_train_per_step": sd_train_per_step("flash_attn_fwd"),
             "design": DESIGN["flash_attn_fwd"],
         },
         {
@@ -1775,6 +2075,7 @@ def main() -> None:
             **{k: 6 * bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": bwd["bound_by"], "launches_by_path": by_path["flash_attn_bwd"],
             "sd_per_unet_backward": sd_attn_per_forward(1),
+            "sd_train_per_step": sd_train_per_step("flash_attn_bwd"),
             "design": DESIGN["flash_attn_bwd"],
         },
         {
@@ -1789,6 +2090,7 @@ def main() -> None:
             "library_channels_last_ms": per_forward_sum("library_channels_last_ms"),
             "call_ms": per_forward_sum("call_ms"),
             "launches_by_path": by_path["group_norm_silu"], "sd_per_call_group": sd_gn_sum(0),
+            "sd_train_per_step": sd_train_per_step("group_norm_silu"),
             "design": DESIGN["group_norm_silu"],
         },
         {
@@ -1801,6 +2103,7 @@ def main() -> None:
                for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "bytes", "launches_by_path": by_path["group_norm_silu_bwd"],
             "sd_per_call_group": sd_gn_sum(1),
+            "sd_train_per_step": sd_train_per_step("group_norm_silu_bwd"),
             "design": DESIGN["group_norm_silu_bwd"],
         },
         {

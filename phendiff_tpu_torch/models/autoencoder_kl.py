@@ -222,21 +222,26 @@ class AutoencoderKL(nn.Module):
 
 
 def sample_gaussian(mean: torch.Tensor, logvar: torch.Tensor,
-                    generator: torch.Generator) -> torch.Tensor:
-    """mean + exp(logvar / 2) * N(0, 1), the noise drawn from ``generator``
-    (on its device, then moved)."""
-    noise = torch.randn(mean.shape, generator=generator, device=generator.device,
-                        dtype=torch.float32).to(mean.device, mean.dtype)
-    return mean + torch.exp(0.5 * logvar) * noise
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + exp(logvar / 2) * N(0, 1): the standard-normal ``noise`` given,
+    or drawn in f32 from ``generator`` (on its device), then cast to the
+    mean's device and dtype."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=generator.device,
+                            dtype=torch.float32)
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean.device, mean.dtype)
 
 
 def encode_to_latents(vae: AutoencoderKL, images: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[-1, 1] images -> scaled latents: the posterior's mean (or a sample of
-    it, given a generator) times ``scaling_factor``."""
+    it, given a generator or the noise) times ``scaling_factor``."""
     mean, logvar = vae.encode(images)
-    z = sample_gaussian(mean, logvar, generator) if generator is not None else mean
-    return z * vae.config.scaling_factor
+    if generator is not None or noise is not None:
+        mean = sample_gaussian(mean, logvar, generator, noise)
+    return mean * vae.config.scaling_factor
 
 
 def decode_from_latents(vae: AutoencoderKL, latents: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,8 @@ feed-forward, linear projections and per-level head counts.
   attention kernel through ``ops.attention.multi_head_attention``;
   cross-attention (S_kv = 77) takes its ``attention_plain`` route, as the
   JAX package sends it to XLA.
+* ``remat=True`` recomputes each resnet and Transformer2D block in the
+  backward (``unet2d.run_block``), as the JAX model's ``nn.remat`` does.
 * Hazards of the reference kept: the GEGLU gate is Flax's ``nn.gelu``, the
   tanh approximation; the transformer block's LayerNorms are Flax's, eps
   1e-6, computed in float32; Transformer2D's GroupNorm has eps 1e-6 and no
@@ -40,6 +42,7 @@ from phendiff_tpu_torch.models.unet2d import (
     Upsample2D,
     _norm_params,
     init_flax_weights,
+    run_block,
 )
 from phendiff_tpu_torch.ops.attention import multi_head_attention
 from phendiff_tpu_torch.ops.group_norm import group_norm
@@ -247,11 +250,13 @@ class SDUNet(nn.Module):
     [B, 77, cross_attention_dim]) -> the model output, in ``sample``'s dtype.
     ``dtype`` is the compute dtype, as in ``CondUNet2D``."""
 
-    def __init__(self, config: SDUNetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: SDUNetConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = remat
         c0, ted = cfg.block_out_channels[0], cfg.time_embed_dim
         self.time_embedding = TimestepEmbedMLP(c0, ted)
 
@@ -331,24 +336,24 @@ class SDUNet(nn.Module):
         skips = [x]
         for i, btype in enumerate(cfg.down_block_types):
             for j in range(cfg.layers_per_block):
-                x = getattr(self, f"down_{i}_res_{j}")(x, temb)
+                x = run_block(self, f"down_{i}_res_{j}", x, temb)
                 if btype == "CrossAttnDownBlock2D":
-                    x = getattr(self, f"down_{i}_attn_{j}")(x, ctx)
+                    x = run_block(self, f"down_{i}_attn_{j}", x, ctx)
                 skips.append(x)
             if i < n_levels - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
                 skips.append(x)
 
-        x = self.mid_res_0(x, temb)
-        x = self.mid_attn(x, ctx)
-        x = self.mid_res_1(x, temb)
+        x = run_block(self, "mid_res_0", x, temb)
+        x = run_block(self, "mid_attn", x, ctx)
+        x = run_block(self, "mid_res_1", x, temb)
 
         for i, btype in enumerate(cfg.up_block_types):
             for j in range(cfg.layers_per_block + 1):
                 x = torch.cat([x, skips.pop().to(dt)], dim=-1)
-                x = getattr(self, f"up_{i}_res_{j}")(x, temb)
+                x = run_block(self, f"up_{i}_res_{j}", x, temb)
                 if btype == "CrossAttnUpBlock2D":
-                    x = getattr(self, f"up_{i}_attn_{j}")(x, ctx)
+                    x = run_block(self, f"up_{i}_attn_{j}", x, ctx)
             if i < n_levels - 1:
                 x = getattr(self, f"up_{i}_upsample")(x)
 

@@ -15,6 +15,9 @@ a precomputed ``class_emb`` (the CFG unconditional pass feeds zeros).
 * ``dtype`` is the compute dtype: the input is cast to it, conv and linear
   weights are used in it, GroupNorm statistics are float32, and the output
   is cast back to the input's dtype.
+* ``remat=True`` recomputes each resnet and attention block in the
+  backward (``checkpointed``), as the JAX model's ``nn.remat`` does; the
+  parameter names do not change.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from phendiff_tpu_torch.models.config import UNet2DConfig
 from phendiff_tpu_torch.models.embeddings import (
@@ -57,6 +62,35 @@ class Conv(nn.Conv2d):
             self.stride, self.padding,
         )
         return y.permute(0, 2, 3, 1)
+
+
+def checkpointed(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``).
+
+    The block's parameters go in as explicit inputs and are rebound for the
+    recompute, so a model called through ``functional_call`` recomputes
+    with the tensors it was called with, not with the module's own (by then
+    restored, and for a model built on the meta device, empty) ones.  The
+    reentrant form would run the forward under ``no_grad``, where the
+    attention kernel saves no log-sum-exp for its backward."""
+    names, tensors = zip(*module.named_parameters())
+    n = len(args)
+
+    def run(*inputs):
+        return functional_call(module, dict(zip(names, inputs[n:])), inputs[:n])
+
+    # the blocks draw no random numbers: no RNG state to restore
+    return checkpoint(run, *args, *tensors, use_reentrant=False, preserve_rng_state=False)
+
+
+def run_block(model: nn.Module, name: str, *args) -> torch.Tensor:
+    """``model``'s resnet or attention block ``name`` on ``args``,
+    recomputed in the backward when ``model.remat`` is set."""
+    module = getattr(model, name)
+    if model.remat and torch.is_grad_enabled():
+        return checkpointed(module, *args)
+    return module(*args)
 
 
 def _norm_params(channels: int):
@@ -203,11 +237,13 @@ class Upsample2D(nn.Module):
 class CondUNet2D(nn.Module):
     """Class-conditional pixel-space UNet (the DDIM model family's denoiser)."""
 
-    def __init__(self, config: UNet2DConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: UNet2DConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = remat
         c0, ted = cfg.block_out_channels[0], cfg.time_embed_dim
         if cfg.time_embedding_type == "fourier":
             self.time_proj = GaussianFourierProjection(embedding_size=c0)
@@ -316,18 +352,18 @@ class CondUNet2D(nn.Module):
         skips = [x]
         for i, btype in enumerate(cfg.down_block_types):
             for j in range(cfg.layers_per_block):
-                x = getattr(self, f"down_{i}_res_{j}")(x, temb)
+                x = run_block(self, f"down_{i}_res_{j}", x, temb)
                 if btype == "AttnDownBlock2D":
-                    x = getattr(self, f"down_{i}_attn_{j}")(x)
+                    x = run_block(self, f"down_{i}_attn_{j}", x)
                 skips.append(x)
             if i < n_levels - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
                 skips.append(x)
 
         # --- mid ------------------------------------------------------------
-        x = self.mid_res_0(x, temb)
-        x = self.mid_attn(x)
-        x = self.mid_res_1(x, temb)
+        x = run_block(self, "mid_res_0", x, temb)
+        x = run_block(self, "mid_attn", x)
+        x = run_block(self, "mid_res_1", x, temb)
         if cfg.mid_block_scale_factor != 1.0:
             x = x * cfg.mid_block_scale_factor
 
@@ -335,9 +371,9 @@ class CondUNet2D(nn.Module):
         for i, btype in enumerate(cfg.up_block_types):
             for j in range(cfg.layers_per_block + 1):
                 x = torch.cat([x, skips.pop().to(dt)], dim=-1)
-                x = getattr(self, f"up_{i}_res_{j}")(x, temb)
+                x = run_block(self, f"up_{i}_res_{j}", x, temb)
                 if btype == "AttnUpBlock2D":
-                    x = getattr(self, f"up_{i}_attn_{j}")(x)
+                    x = run_block(self, f"up_{i}_attn_{j}", x)
             if i < n_levels - 1:
                 x = getattr(self, f"up_{i}_upsample")(x)
 

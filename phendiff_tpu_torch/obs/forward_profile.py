@@ -5,6 +5,7 @@ or a guided-transfer step.
     python -m phendiff_tpu_torch.obs.forward_profile --train [--batch 32] [--steps 3]
     python -m phendiff_tpu_torch.obs.forward_profile --guided [--batch 32] [--steps 3]
     python -m phendiff_tpu_torch.obs.forward_profile --sd [--batch 64] [--res 128] [--forwards 3]
+    python -m phendiff_tpu_torch.obs.forward_profile --sd --train [--batch 32] [--res 128] [--remat]
 
 Builds the ``super_small`` 128 px pipeline (random weights, seed 0, bf16
 compute), warms up, then traces ``--forwards`` denoiser calls (or, with
@@ -21,12 +22,17 @@ transfer's forward with an input gradient and its backward, bf16 weights
 frozen) is traced whole and as its forward alone, which splits its device
 time into forward and backward.  ``--sd`` traces full-width SD-2.1 UNet
 forwards on the latents of ``--res`` px images and one VAE encode + decode
-of them (random weights, seed 0, bf16).  Needs a CUDA device.
+of them (random weights, seed 0, bf16); ``--sd --train`` traces full-width
+SD-2.1 fine-tune steps (``for_sd_pipeline``'s step: frozen bf16 VAE encode,
+f32 master weights, bf16 compute, ``proba_uncond=0.1``, lr 1e-5, as
+``bench.py``'s ``bench_sd_train``), with ``--remat`` the blocks recomputed
+in the backward.  Needs a CUDA device.
 
-``record_calls`` (with ``unet_calls``, ``sd_unet_calls``, ``vae_calls``)
-lists the GroupNorm and attention calls of a forward by shape, from the
-model run on the meta device (no card needed): the one recorder of those
-calls, which ``chip_smoke.py`` and the CPU tests share.  ``plain_kernels``
+``record_calls`` (with ``unet_calls``, ``sd_unet_calls``, ``vae_calls``,
+``sd_train_calls``) lists the GroupNorm and attention calls of a forward
+(or a train step) by shape, from the model run on the meta device (no card
+needed): the one recorder of those calls, which ``chip_smoke.py`` and the
+CPU tests share.  ``plain_kernels``
 routes the models through the kernels' plain versions.
 """
 
@@ -164,6 +170,29 @@ def vae_calls(cfg, res: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     return record_calls(run)
 
 
+def sd_train_calls(ucfg, vcfg, res: int, remat: bool = False,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The calls of one SD train step on ``res`` px images over a frozen VAE:
+    ``{"forward": record_calls`` of the VAE encode and the UNet's forward
+    and backward (under ``remat`` the blocks' recomputed forwards too),
+    ``"backward": record_calls`` of the UNet forward whose calls each run
+    one backward``}``."""
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from phendiff_tpu_torch.models.sd_unet import SDUNet
+
+    def run():
+        with torch.device("meta"):
+            vae = AutoencoderKL(vcfg, dtype=dtype)
+            unet = SDUNet(ucfg, dtype=dtype, remat=remat)
+            with torch.no_grad():
+                lat, _ = vae.encode(torch.zeros(1, res, res, vcfg.in_channels))
+            out = unet(lat, torch.zeros(1, dtype=torch.long),
+                       torch.zeros(1, 77, ucfg.cross_attention_dim))
+            torch.autograd.grad(out.float().sum(), list(unet.parameters()))
+
+    return {"forward": record_calls(run), "backward": sd_unet_calls(ucfg, res // 8, dtype)}
+
+
 def group_norm_calls(res: int = 128) -> dict:
     """{(S, C, G, act): calls} of one ``super_small`` forward at ``res`` px,
     in bf16 (``unet_calls``)."""
@@ -185,7 +214,7 @@ def _pipeline(scheduler_config):
                                                dtype=torch.bfloat16, device="cuda")
 
 
-def _trace(fn, calls: int) -> dict:
+def trace(fn, calls: int) -> dict:
     """Trace ``calls`` calls of ``fn``; the per-call breakdown."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -249,7 +278,7 @@ def profile(batch: int = 32, forwards: int = 5, res: int = 128) -> dict:
         denoise(x, t, emb)
     torch.cuda.synchronize()
     return {"path": "forward", "batch": batch, "res": res,
-            **_trace(lambda: denoise(x, t, emb), forwards)}
+            **trace(lambda: denoise(x, t, emb), forwards)}
 
 
 def profile_train(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
@@ -284,7 +313,7 @@ def profile_train(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
     for _ in range(2):
         one()
     torch.cuda.synchronize()
-    return {"path": "train_step", "batch": batch, "res": res, **_trace(one, steps)}
+    return {"path": "train_step", "batch": batch, "res": res, **trace(one, steps)}
 
 
 def profile_guided(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
@@ -314,7 +343,7 @@ def profile_guided(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
             step()
             forward()
         torch.cuda.synchronize()
-        whole, fwd = _trace(step, steps), _trace(forward, steps)
+        whole, fwd = trace(step, steps), trace(forward, steps)
     return {"path": "guided_step", "batch": batch, "res": res, **whole,
             "forward_device_ms_per_call": fwd["device_ms_per_call"],
             "backward_device_ms_per_call": whole["device_ms_per_call"]
@@ -322,10 +351,11 @@ def profile_guided(batch: int = 32, steps: int = 3, res: int = 128) -> dict:
             "forward_ms_per_call_by_category": fwd["ms_per_call_by_category"]}
 
 
-def sd_pipeline(dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+def sd_pipeline(dtype: torch.dtype = torch.bfloat16, seed: int = 0, cast: bool = True):
     """Full-width SD-2.1 (``SDUNetConfig()``, ``AutoencoderKLConfig()``) with
     random weights from ``seed`` on the card, the transfer scheduler of
-    ``bench.py``; conv and linear weights and compute in ``dtype``."""
+    ``bench.py``; compute in ``dtype``, and conv and linear weights too
+    unless ``cast`` is False (f32 weights, as a trainer takes them)."""
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
@@ -337,7 +367,7 @@ def sd_pipeline(dtype: torch.dtype = torch.bfloat16, seed: int = 0):
         SDUNetConfig(), AutoencoderKLConfig(),
         SchedulerConfig(num_train_timesteps=1000, timestep_spacing="trailing",
                         clip_sample=False), seed=seed, dtype=dtype, device="cuda")
-    return pipe.cast_params(dtype) if dtype != torch.float32 else pipe
+    return pipe.cast_params(dtype) if cast and dtype != torch.float32 else pipe
 
 
 def profile_sd(batch: int = 64, res: int = 128, forwards: int = 3) -> dict:
@@ -359,8 +389,56 @@ def profile_sd(batch: int = 64, res: int = 128, forwards: int = 3) -> dict:
         vae()
     torch.cuda.synchronize()
     return {"path": "sd_forward", "batch": batch, "res": res, "latent": lat.shape[1],
-            **_trace(lambda: denoise(lat, t, seq), forwards),
-            "vae_encode_decode": _trace(vae, 1)}
+            **trace(lambda: denoise(lat, t, seq), forwards),
+            "vae_encode_decode": trace(vae, 1)}
+
+
+def sd_train_step(pipe, remat: bool = False, components_to_train=("denoiser", "class_embedding"),
+                  proba_uncond: float = 0.1, mixed_precision: str = "bf16"):
+    """``for_sd_pipeline``'s step on ``pipe`` (the optimizer of ``bench.py``'s
+    ``bench_sd_train``): ``(step, state, kwargs, optimizer)``, where
+    ``kwargs`` are the Trainer's (``sd_trainer_kwargs``)."""
+    from phendiff_tpu_torch.train.train_loop import (
+        OptimizerConfig, TrainConfig, init_train_state, make_optimizer, make_train_step)
+    from phendiff_tpu_torch.train.trainer import TrainerConfig, sd_trainer_kwargs
+
+    cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig(learning_rate=1e-5))
+    kw = sd_trainer_kwargs(
+        pipe, TrainerConfig(mixed_precision=mixed_precision, remat=remat, train=cfg),
+        components_to_train)
+    opt = make_optimizer(cfg.optimizer, kw["trainable_mask"])
+    step = make_train_step(kw["model_apply"], kw["embed_fn"], kw["schedule"], cfg, opt,
+                           kw["encode_fn"], kw["encode_inside_grad"])
+    return step, init_train_state(kw["trainable_params"], opt), kw, opt
+
+
+def profile_sd_train(batch: int = 32, res: int = 128, steps: int = 3,
+                     remat: bool = False) -> dict:
+    """Full-width SD-2.1 fine-tune steps (``sd_train_step``) on ``res`` px
+    images."""
+    from phendiff_tpu_torch.train.train_loop import make_draws
+
+    pipe = sd_pipeline(torch.bfloat16, cast=False)
+    step, state, kw, _ = sd_train_step(pipe, remat)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.rand(batch, res, res, 3, generator=gen, device="cuda") * 2 - 1
+    labels = torch.tensor([0, 1], device="cuda").repeat(batch // 2)
+    shape = kw["diffusion_shape"](tuple(images.shape))
+
+    def one():
+        nonlocal state
+        draws = make_draws(0, state.step, shape, pipe.schedule.num_train_timesteps, 0.1,
+                           "cuda", posterior=True)
+        state, _ = step(state, (images, labels), draws)
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"path": "sd_train_step", "batch": batch, "res": res, "remat": remat,
+           **trace(one, steps)}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
 
 
 def main() -> None:
@@ -373,8 +451,12 @@ def main() -> None:
                     help="profile a full-width SD-2.1 UNet forward and a VAE encode + decode")
     ap.add_argument("--res", type=int, default=128, help="image size of --sd")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--remat", action="store_true",
+                    help="with --sd --train: recompute the UNet's blocks in the backward")
     args = ap.parse_args()
-    if args.sd:
+    if args.sd and args.train:
+        print(json.dumps(profile_sd_train(args.batch, args.res, args.steps, args.remat)))
+    elif args.sd:
         print(json.dumps(profile_sd(args.batch, args.res, args.forwards)))
     elif args.train:
         print(json.dumps(profile_train(args.batch, args.steps)))

@@ -25,9 +25,12 @@ State lives on the device and is updated in place: parameters are f32
 leaf tensors held in a dict (the model runs them through
 ``torch.func.functional_call``), and the optimizer's moments and the EMA
 are dicts of the same shapes.  The random draws of a step (noise,
-timesteps, coin flip) are an explicit ``StepDraws`` argument, made by
-``make_draws`` from a seed and the step number, so a test can inject the
-draws another implementation made.  Adam's first moment is always f32 (the
+timesteps, coin flip, and for the SD family the VAE posterior's noise) are
+an explicit ``StepDraws`` argument, made by ``make_draws`` from a seed and
+the step number, so a test can inject the draws another implementation
+made.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
+family's VAE encode), outside the gradient for a frozen VAE or inside it
+when the VAE trains.  Adam's first moment is always f32 (the
 JAX package's ``moment_dtype`` option measured slower and is not ported).
 """
 
@@ -225,37 +228,46 @@ def init_train_state(params: Union[Params, torch.nn.Module], optimizer: Optimize
 
 @dataclasses.dataclass
 class StepDraws:
-    """The random numbers one train step uses."""
+    """The random numbers one train step uses.  ``noise`` and ``enc_noise``
+    have the shape of the diffusion space (the SD family's latents, not its
+    pixels); the step casts them to the clean tensor's dtype."""
 
     noise: torch.Tensor  # [B, H, W, C] f32, N(0, 1)
     timesteps: torch.Tensor  # [B] int64, uniform in [0, num_train_timesteps)
     uncond: bool  # the batch-level CFG coin flip
+    enc_noise: Optional[torch.Tensor] = None  # [B, H, W, C] f32: the VAE posterior's sample
 
 
 def make_draws(seed: int, step: int, shape: Tuple[int, ...], num_train_timesteps: int,
-               proba_uncond: float, device) -> StepDraws:
+               proba_uncond: float, device, posterior: bool = False) -> StepDraws:
     """The draws of step ``step``, determined by ``(seed, step)`` alone (so a
     resumed run draws what the uninterrupted one would have).  The coin flip
     and timesteps come from a CPU generator (no device sync for the flip),
-    the noise from a generator on ``device``."""
+    the noise from a generator on ``device``; with ``posterior`` the VAE
+    posterior's noise comes from a third one."""
     host = torch.Generator().manual_seed(derive_seed(seed, step, 0))
     uncond = proba_uncond > 0.0 and float(torch.rand((), generator=host)) < proba_uncond
     t = torch.randint(0, num_train_timesteps, (shape[0],), generator=host)
     dev = torch.Generator(device=device).manual_seed(derive_seed(seed, step, 1))
     noise = torch.randn(shape, generator=dev, device=device)
-    return StepDraws(noise=noise, timesteps=t.to(device), uncond=uncond)
+    enc_noise = None
+    if posterior:
+        dev = torch.Generator(device=device).manual_seed(derive_seed(seed, step, 2))
+        enc_noise = torch.randn(shape, generator=dev, device=device)
+    return StepDraws(noise=noise, timesteps=t.to(device), uncond=uncond, enc_noise=enc_noise)
 
 
 def diffusion_loss(
     model_apply: Callable,  # (params, x, t, class_emb) -> model_out
     params: Params,
     schedule: S.NoiseSchedule,
-    clean: torch.Tensor,  # [B, H, W, C] in [-1, 1]
+    clean: torch.Tensor,  # [B, H, W, C] in [-1, 1] (pixels, or VAE latents for SD)
     class_emb: torch.Tensor,  # [B, D], already masked for the uncond branch
     noise: torch.Tensor,
     t: torch.Tensor,
 ) -> torch.Tensor:
     b = clean.shape[0]
+    noise = noise.to(clean.dtype)  # the JAX step draws it in clean's dtype
     noisy = S.add_noise(schedule, clean, noise, t)
     model_out = model_apply(params, noisy, t, class_emb)
     pt = schedule.config.prediction_type
@@ -282,11 +294,19 @@ def make_train_step(
     schedule: S.NoiseSchedule,
     config: TrainConfig,
     optimizer: Optional[Optimizer] = None,
+    encode_fn: Optional[Callable] = None,
+    encode_inside_grad: bool = False,
 ):
     """The train step: ``step(state, (images, labels), draws) -> (state,
     metrics)``.  ``state`` is updated in place and returned; the metrics
     ``loss``, ``grad_norm`` and ``nonfinite`` are device tensors (no sync),
-    ``lr`` a float."""
+    ``lr`` a float.
+
+    ``encode_fn(images, draws)`` maps the pixel batch to the clean targets
+    under ``no_grad`` (a frozen VAE's encode times its scaling factor);
+    with ``encode_inside_grad`` it is ``encode_fn(params, images, draws)``
+    and runs inside the gradient, so the loss reaches the VAE's encoder
+    through the noisy latents (its decoder gets no gradient from it)."""
     opt = optimizer or make_optimizer(config.optimizer)
     lr_sched = make_lr_schedule(config.optimizer)
 
@@ -296,10 +316,16 @@ def make_train_step(
             # uint8 transport: normalise to [-1, 1] on the device
             images = images.float() / 127.5 - 1.0
         params = state.params
+        clean = images
+        if encode_fn is not None and encode_inside_grad:
+            clean = encode_fn(params, images, draws)
+        elif encode_fn is not None:
+            with torch.no_grad():
+                clean = encode_fn(images, draws)
         class_emb = embed_fn(params, labels)
         if config.proba_uncond > 0.0:
             class_emb = class_emb * (1.0 - float(draws.uncond))
-        loss = diffusion_loss(model_apply, params, schedule, images, class_emb,
+        loss = diffusion_loss(model_apply, params, schedule, clean, class_emb,
                               draws.noise, draws.timesteps)
         names = [n for n, p in params.items() if p.requires_grad]
         got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)

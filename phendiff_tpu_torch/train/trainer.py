@@ -18,9 +18,11 @@ image-folder route:
   its ``main_metric_mean`` is the best so far; without it, an eval pass
   saves the pipeline only while the save folder is still empty.
 
-The eval-cadence options the port does not run yet (``eval_every_opti_steps``,
-``precise_first_n_epochs``) come with the CLI route.
-``for_ddim_pipeline`` builds a ``Trainer`` for a ``ConditionalDDIMPipeline``.
+Both model families plug in through callables (``model_apply``,
+``embed_fn``, ``encode_fn``) over one flat dict of f32 parameters:
+``for_ddim_pipeline`` builds a ``Trainer`` for a ``ConditionalDDIMPipeline``,
+``for_sd_pipeline`` one for an ``SDImg2ImgPipeline`` (the UNet and class
+embedding fine-tuned over a frozen VAE, or the VAE's encoder trained too).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 
 from phendiff_tpu_torch.core.device import DeviceLike, resolve_device
@@ -44,6 +47,13 @@ from phendiff_tpu_torch.data.imagefolder import (
     balanced_subsample,
     scan_imagefolder,
 )
+from phendiff_tpu_torch.models.autoencoder_kl import (
+    AutoencoderKL,
+    decode_from_latents,
+    encode_to_latents,
+)
+from phendiff_tpu_torch.models.embeddings import ClassEmbedding, pad_to_clip_sequence
+from phendiff_tpu_torch.models.sd_unet import SDUNet
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
 from phendiff_tpu_torch.obs.profiling import StepTimer
 from phendiff_tpu_torch.obs.trackers import make_tracker
@@ -95,13 +105,20 @@ class TrainerConfig:
     train_data_dir: str = ""
     definition: Tuple[int, int] = (128, 128)
     perc_samples: float = 100.0
+    # the metrics' reference set: the full dataset (the reference's default)
+    # or the perc_samples subsample the model trains on
+    compute_metrics_full_dataset: bool = True
     seed: int = 0
     data_aug_on_the_fly: bool = True
+    loader_prefetch: int = 2  # batches the loader's thread decodes ahead
     train_batch_size: int = 16
     # run control
     num_epochs: int = 10
     max_train_steps: Optional[int] = None
     eval_every_epochs: Optional[int] = 1
+    eval_every_opti_steps: Optional[int] = None
+    # additionally evaluate at the end of each of the first n epochs
+    precise_first_n_epochs: Optional[int] = None
     checkpointing_steps: int = 1000
     checkpoints_total_limit: Optional[int] = None
     resume_from_checkpoint: Optional[str] = None  # "latest" or a step number
@@ -111,6 +128,10 @@ class TrainerConfig:
     # are supplied (PHENDIFF_INCEPTION_WEIGHTS) the Inception is a seeded
     # random init, and its FID ranks nothing.
     compute_metrics: bool = True
+    # Recompute the UNet's resnet and attention blocks in the backward
+    # (torch.utils.checkpoint): less activation memory, one more forward of
+    # each block per step.
+    remat: bool = False
     save_final_checkpoint: bool = True
     metrics_flush_every: int = 1  # read metrics back every N steps, one fetch
     upload_uint8: bool = False  # ship uint8 batches, normalise on the device
@@ -121,19 +142,21 @@ class TrainerConfig:
 
 def build_data(config: TrainerConfig):
     """``(index, loader, eval_index)`` for the image-folder route;
-    ``eval_index`` is the full dataset, the metrics' reference set."""
+    ``eval_index`` is the metrics' reference set."""
     loader_cfg = LoaderConfig(
         batch_size=config.train_batch_size,
         definition=config.definition,
         transport="uint8" if config.upload_uint8 else "f32",
         random_flip=config.data_aug_on_the_fly,
         seed=config.seed,
+        prefetch=config.loader_prefetch,
     )
     full_index = scan_imagefolder(config.train_data_dir)
     index = full_index
     if config.perc_samples < 100:
         index = balanced_subsample(full_index, config.perc_samples, config.seed)
-    return index, ImageFolderLoader(index, loader_cfg), full_index
+    eval_index = full_index if config.compute_metrics_full_dataset else index
+    return index, ImageFolderLoader(index, loader_cfg), eval_index
 
 
 class Trainer:
@@ -149,6 +172,11 @@ class Trainer:
         save_pipeline_fn: Callable,  # (state, dirpath) -> None
         make_generate_fn: Optional[Callable] = None,  # (state) -> Evaluator's generate_fn
         trainable_mask=None,
+        encode_fn: Optional[Callable] = None,  # pixels -> diffusion space (make_train_step)
+        encode_inside_grad: bool = False,
+        # the diffusion space's shape from the pixel batch's (the SD
+        # family's latents); the pixel batch's own when None
+        diffusion_shape: Optional[Callable[[Tuple[int, ...]], Tuple[int, ...]]] = None,
         device: DeviceLike = None,
     ):
         if config.compute_metrics and make_generate_fn is None:
@@ -162,7 +190,9 @@ class Trainer:
         self.optimizer = make_optimizer(opt_cfg, trainable_mask)
         self.schedule = schedule
         self._step_fn = make_train_step(model_apply, embed_fn, schedule, self.train_cfg,
-                                        self.optimizer)
+                                        self.optimizer, encode_fn, encode_inside_grad)
+        self.posterior = encode_fn is not None  # the step samples the VAE posterior
+        self.diffusion_shape = diffusion_shape or (lambda shape: shape)
         self.state = init_train_state(trainable_params, self.optimizer)
         self.ckpt = CheckpointManager(paths.checkpoints, config.checkpoints_total_limit)
         self.tracker = make_tracker(config.tracker, paths.run_dir)
@@ -248,8 +278,9 @@ class Trainer:
             for images, labels in self.loader.epoch(epoch, skip_batches):
                 t_data_end = time.perf_counter()
                 batch = self._to_device(images, labels)
-                draws = make_draws(cfg.seed, self.state.step, tuple(images.shape), t_count,
-                                   p_uncond, self.device)
+                draws = make_draws(cfg.seed, self.state.step,
+                                   self.diffusion_shape(tuple(images.shape)), t_count,
+                                   p_uncond, self.device, posterior=self.posterior)
                 self.state, metrics = self._step_fn(self.state, batch, draws)
                 global_step += 1
                 timer.tick()
@@ -264,12 +295,17 @@ class Trainer:
                 if global_step % cfg.checkpointing_steps == 0:
                     self._flush_metrics(pending, timer)
                     self.ckpt.save(global_step, self.state)
+                if cfg.eval_every_opti_steps and global_step % cfg.eval_every_opti_steps == 0:
+                    self._flush_metrics(pending, timer)
+                    self._run_eval(global_step)
                 if cfg.max_train_steps and global_step >= cfg.max_train_steps:
                     done = True
                     break
                 t_iter = time.perf_counter()
             self._flush_metrics(pending, timer)
-            if cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0:
+            precise = (cfg.precise_first_n_epochs is not None
+                       and epoch < cfg.precise_first_n_epochs)
+            if precise or (cfg.eval_every_epochs and (epoch + 1) % cfg.eval_every_epochs == 0):
                 self._run_eval(global_step)
             if done:
                 break
@@ -301,7 +337,7 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
     an EMA pipeline save through ``save_pretrained``."""
     policy = Policy.from_mixed_precision(config.mixed_precision)
     with torch.device("meta"):  # structure only: functional_call brings the weights
-        model = CondUNet2D(pipe.unet_config, dtype=policy.compute_torch)
+        model = CondUNet2D(pipe.unet_config, dtype=policy.compute_torch, remat=config.remat)
     params = {n: p.detach().float() for n, p in pipe.model.named_parameters()}
     for n, p in pipe.model.named_parameters():
         params[n].requires_grad_(p.requires_grad)
@@ -349,4 +385,166 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
         trainable_mask=attention_param_mask if attention_fine_tuning else None,
         device=pipe.device,
         **kw,
+    )
+
+
+# components_to_train -> the trainable dict's prefix (the reference's naming:
+# "denoiser" is the UNet, "autoencoder" the VAE)
+_SD_COMPONENTS = {"denoiser": "unet", "class_embedding": "class_embedding",
+                  "autoencoder": "vae"}
+
+
+class _VAEPart(nn.Module):
+    """The VAE under the name ``vae``, as the trainable dict prefixes it, its
+    forward one of the latent helpers (``encode_to_latents``,
+    ``decode_from_latents``), so ``functional_call`` runs it on given
+    weights."""
+
+    def __init__(self, vae: AutoencoderKL, fn: Callable):
+        super().__init__()
+        self.vae = vae
+        self.fn = fn
+
+    def forward(self, *args, **kw):
+        return self.fn(self.vae, *args, **kw)
+
+
+def for_sd_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
+                    components_to_train=("denoiser", "class_embedding"),
+                    attention_fine_tuning: bool = False, **kw) -> Trainer:
+    """A Trainer fine-tuning an ``SDImg2ImgPipeline`` (``sd_trainer_kwargs``)."""
+    return Trainer(config, paths, **sd_trainer_kwargs(
+        pipe, config, components_to_train, attention_fine_tuning), **kw)
+
+
+def sd_trainer_kwargs(pipe, config: TrainerConfig,
+                      components_to_train=("denoiser", "class_embedding"),
+                      attention_fine_tuning: bool = False) -> dict:
+    """The ``Trainer`` keyword arguments that fine-tune an
+    ``SDImg2ImgPipeline`` on the latent diffusion loss: f32 master copies of
+    the UNet (``unet.*``) and class embedding (``class_embedding.*``), the
+    UNet in ``config.mixed_precision``'s compute dtype, the class row padded
+    to the 77-token sequence.
+
+    The batch is VAE-encoded in the step (the posterior sampled, times the
+    scaling factor), in the VAE's own dtype.  Without ``"autoencoder"`` in
+    ``components_to_train`` the VAE is frozen and encodes outside the
+    gradient; with it its weights join the trainable dict (``vae.*``), the
+    encode runs inside the gradient, and only ``encoder`` and
+    ``quant_conv`` train: the decoder gets no gradient from this loss.
+    ``attention_fine_tuning`` narrows the UNet's trainable parameters to its
+    Transformer2D blocks and needs ``"denoiser"``.  Evaluation samples with
+    the EMA weights (no copy of the pipeline) and decodes to [-1, 1]
+    images; the pipeline save writes the EMA weights as an
+    ``SDImg2ImgPipeline`` folder."""
+    unknown = [c for c in components_to_train if c not in _SD_COMPONENTS]
+    if unknown:
+        raise ValueError(f"unknown components_to_train for the SD family: {unknown}; "
+                         f"choose from {sorted(_SD_COMPONENTS)}")
+    if attention_fine_tuning and "denoiser" not in components_to_train:
+        raise ValueError("Attention fine tuning requires 'denoiser' to be trained")
+    train_vae = "autoencoder" in components_to_train
+    active = {_SD_COMPONENTS[c] for c in components_to_train}
+    policy = Policy.from_mixed_precision(config.mixed_precision)
+    ucfg, vcfg = pipe.unet_config, pipe.vae_config
+    with torch.device("meta"):  # structure only: functional_call brings the weights
+        unet = SDUNet(ucfg, dtype=policy.compute_torch, remat=config.remat)
+        vae = AutoencoderKL(vcfg, dtype=pipe.vae.dtype)
+    vae_encode, vae_decode = _VAEPart(vae, encode_to_latents), _VAEPart(vae, decode_from_latents)
+    parts = {"unet": pipe.unet, "class_embedding": pipe.class_embedding}
+    if train_vae:
+        parts["vae"] = pipe.vae
+    params = {f"{prefix}.{n}": p.detach().float().requires_grad_(p.requires_grad)
+              for prefix, module in parts.items() for n, p in module.named_parameters()}
+    unet_names = [n for n, _ in unet.named_parameters()]
+    vae_names = [f"vae.{n}" for n, _ in pipe.vae.named_parameters()]
+    table = "class_embedding.embedding.weight"
+
+    def model_apply(p, x, t, class_seq):
+        return functional_call(unet, {n: p[f"unet.{n}"] for n in unet_names}, (x, t, class_seq))
+
+    def embed_fn(p, labels):
+        return pad_to_clip_sequence(p[table][labels])
+
+    if train_vae:
+        def encode_fn(p, images, draws):
+            return functional_call(vae_encode, {n: p[n] for n in vae_names}, (images,),
+                                   {"noise": draws.enc_noise})
+    else:
+        def encode_fn(images, draws):
+            return encode_to_latents(pipe.vae, images, noise=draws.enc_noise)
+
+    def trainable_mask(p):
+        mask = {}
+        for n in p:
+            prefix, _, rest = n.partition(".")
+            on = prefix in active
+            if prefix == "vae":  # the decoder gets no gradient from the loss
+                on = rest.split(".")[0] in ("encoder", "quant_conv")
+            mask[n] = on
+        if attention_fine_tuning:
+            attn = attention_param_mask(p)
+            mask.update({n: attn[n] for n in p if n.startswith("unet.")})
+        return mask
+
+    down = 2 ** (len(vcfg.block_out_channels) - 1)  # the VAE's downsampling
+
+    def diffusion_shape(shape):
+        b, h, w, _ = shape
+        return (b, h // down, w // down, vcfg.latent_channels)
+
+    ev = config.eval
+
+    def make_generate_fn(state: TrainState):
+        """EMA-weight sampling from noise, decoded to [-1, 1] images."""
+        ema = state.ema_params
+        ema_unet = {n: ema[f"unet.{n}"] for n in unet_names}
+        ema_vae = {n: ema[n] for n in vae_names} if train_vae else None
+
+        def generate(labels, generator, num_inference_steps):
+            seq = pad_to_clip_sequence(ema[table][labels])
+            shape = (len(labels), ucfg.sample_size, ucfg.sample_size, ucfg.in_channels)
+            with torch.no_grad():
+                lat = ddim_sample(
+                    lambda x, t, s: functional_call(unet, ema_unet, (x, t, s)), pipe.schedule,
+                    seq, shape=shape, generator=generator,
+                    num_inference_steps=num_inference_steps,
+                    guidance=GuidanceConfig(ev.guidance_factor))
+                if train_vae:
+                    return functional_call(vae_decode, ema_vae, (lat,)).float()
+                return decode_from_latents(pipe.vae, lat).float()
+
+        return generate
+
+    def save_pipeline_fn(state: TrainState, dirpath: str):
+        def ema_module(module_fn, prefix):
+            with torch.device("meta"):
+                module = module_fn()
+            # assign: the module takes the EMA tensors themselves, no copy
+            module.load_state_dict({n[len(prefix) + 1:]: t.detach()
+                                    for n, t in state.ema_params.items()
+                                    if n.startswith(prefix + ".")}, assign=True)
+            return module
+
+        ce = pipe.class_embedding.embedding
+        dataclasses.replace(
+            pipe, unet=ema_module(lambda: SDUNet(ucfg, dtype=pipe.dtype), "unet"),
+            class_embedding=ema_module(
+                lambda: ClassEmbedding(ce.num_embeddings, ce.embedding_dim), "class_embedding"),
+            vae=ema_module(lambda: AutoencoderKL(vcfg, dtype=pipe.vae.dtype), "vae")
+            if train_vae else pipe.vae,
+        ).save_pretrained(dirpath)
+
+    return dict(
+        model_apply=model_apply,
+        embed_fn=embed_fn,
+        trainable_params=params,
+        schedule=pipe.schedule,
+        save_pipeline_fn=save_pipeline_fn,
+        make_generate_fn=make_generate_fn,
+        trainable_mask=trainable_mask,
+        encode_fn=encode_fn,
+        encode_inside_grad=train_vae,
+        diffusion_shape=diffusion_shape,
+        device=pipe.device,
     )
