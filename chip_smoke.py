@@ -10,15 +10,17 @@ failure exits non-zero before the final line:
 2. build: every CUDA kernel library, from ``phendiff_tpu_torch/csrc``, one
    ``nvcc`` per source, all in parallel, with registers and spills per
    compiled function (``ptxas -v``; the GroupNorm kernels' also on their
-   own); a spill in any tensor-core (bf16) attention kernel fails the run;
+   own); a spill in any tensor-core (bf16) attention kernel or any GroupNorm
+   kernel fails the run;
 3. kernel checks at the main paths' shapes: each kernel against its plain
    PyTorch version on the same inputs, two calls bit-equal, with its time,
    the plain version's, one library call's (a yardstick the port never
    calls) and the bound; the GroupNorm forward and backward at each of the
-   main path's 12 (S, C) with and without SiLU, with their launch plans and
-   the clusters the card holds at once (their ``ms`` is device time, the
-   calls captured in a CUDA graph, since a call from Python takes longer
-   than the kernel at most of these shapes; ``call_ms`` is the call's),
+   main path's 12 (S, C) with and without SiLU, with their launch plans, the
+   clusters the card holds at once and the registers a thread of the kernel
+   takes (their ``ms`` is device time, the calls captured in a CUDA graph,
+   since a call from Python takes longer than the kernel at most of these
+   shapes; ``call_ms`` is the call's),
    the forward's [B, G] mean and rstd against the plain statistics, which
    the backward's check also takes; a plain device copy of the largest
    GroupNorm map, the rate the card reaches on those bytes;
@@ -176,18 +178,24 @@ DESIGN = {
                        "boxes, f32 sums as the boxes land, combined in rank order through "
                        "distributed shared memory, normalised from shared memory: one HBM "
                        "read of x",
-    "group_norm_silu_bwd": "one launch, the forward's cluster tiling holding x and g: per-"
-                           "channel sums of dz and dz*x^ over the cluster, dx from shared "
-                           "memory; dscale/dbias summed over the batch in sample order by "
-                           "the last cluster of each channel slice (atomic ticket)",
+    "group_norm_silu_bwd": "one launch holding x and g by TMA: a block takes one channel "
+                           "slice of several whole samples (small maps, the call in one "
+                           "wave) or of a cluster's share of one sample's rows (large maps); "
+                           "per-(sample, channel) sums of dz and dz*x, the per-channel "
+                           "coefficients in shared memory (80 registers a thread, three "
+                           "blocks an SM), dx from shared memory; dscale/dbias per block in "
+                           "sample order, then over the sample groups in order by the last "
+                           "block of each channel slice (atomic ticket), all its threads",
     "group_norm_silu_stream": "three launches for maps no cluster plan fits: split f32 "
                               "sums of x and x^2 per channel (gn_stats), a fixed-order "
                               "combine per group, a second read of x that normalises: 2 "
                               "reads + 1 write against the bound's 1 + 1",
-    "group_norm_silu_stream_bwd": "five launches: split sums of dz and dz*x^ per channel, "
-                                  "their fixed-order reduction over the splits, each group's "
-                                  "coefficients, dscale/dbias over samples in order, a "
-                                  "second read of x and g for dx",
+    "group_norm_silu_stream_bwd": "two launches: split sums of dz and dz*x^ per channel, "
+                                  "added over clusters of 8 splits through distributed "
+                                  "shared memory; the last block of each sample (a ticket) "
+                                  "adds the clusters' sums in order and computes the "
+                                  "group's coefficients, the last sample dscale/dbias in "
+                                  "sample order; then a second read of x and g for dx",
 }
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 32, 10, 2
 # The guided step's model output and input gradient, kernels against plain
@@ -204,6 +212,7 @@ GUIDED_BATCH_F32_REL_L2_TOL = 1e-4
 # features and logits: f32 convolutions summed in other orders.
 INCEPTION_REL_L2_TOL = 1e-3
 CMP_PER_CLASS, CMP_STEPS = 32, 10
+GN_PTXAS = {}  # ptxas -v of the GroupNorm library's functions, from the build phase
 KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
 # The SD paths' launch counts: the kernels, the streaming GroupNorm variant,
 # the counted attention_plain route (cross-attention) and the VAE's
@@ -334,13 +343,16 @@ def phase_build():
     mma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
            for fn, props in ptxas[name].items() if "_mma_kernel" in fn}
     spills = sorted(fn for fn, props in mma.items() if props.get("spill_bytes", 1) != 0)
-    gn = {fn: props for fn, props in ptxas["group_norm_silu"].items() if "cluster" in fn}
+    gn = ptxas["group_norm_silu"]
+    GN_PTXAS.update(gn)
     emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS),
           "ptxas": ptxas, "mma_kernels_spilling": spills, "group_norm_kernels": gn,
           "group_norm_kernels_spilling": sorted(fn for fn, p in gn.items()
                                                 if p.get("spill_bytes", 0))})
     if len(mma) != 6 or spills:
         fail(f"tensor-core attention kernels: expected 6 without spills, got {mma}")
+    if any(p.get("spill_bytes", 0) for p in gn.values()):
+        fail(f"GroupNorm kernels spill: {gn}")
 
 
 def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
@@ -397,11 +409,15 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
 
 
 def gn_plan_record(torch, b, s, c, groups, act, backward=False):
+    """The bf16 call's launch plan, the clusters of it the card holds at once
+    and the registers a thread of its kernel (``ptxas -v``)."""
     from phendiff_tpu_torch.ops import gn_kernels
 
-    plan = gn_kernels.gn_plan(s, c, groups, 2, backward)
+    plan = gn_kernels.gn_plan(s, c, groups, 2, backward, b if backward else 1)
+    mangled = f"gn_{'bwd' if backward else 'fwd'}_clusterI13__nv_bfloat16Lb{int(act == 'silu')}E"
+    regs = [p.get("registers") for fn, p in GN_PTXAS.items() if mangled in fn]
     return {"plan": plan._asdict(), "max_active_clusters": gn_kernels.max_active_clusters(
-        b, s, c, groups, torch.bfloat16, act, backward)}
+        b, s, c, groups, torch.bfloat16, act, backward), "registers": regs[0] if regs else None}
 
 
 def gn_check(torch, b, s, c, groups, act, iters=20):

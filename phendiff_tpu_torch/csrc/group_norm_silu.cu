@@ -35,20 +35,42 @@
 // their partial sums through distributed shared memory in rank order, so
 // every block holds the same totals and two calls give the same bits.  Each
 // block then normalises its slice from shared memory and writes it out: one
-// read, one write.  The backward holds x and g the same way, reduces A and
-// B the same way, and writes dx; the B per-sample partials of dscale and
-// dbias go to a workspace, and the last cluster of each channel slice to
-// finish (an atomic ticket) sums them over the batch in sample order, so
-// the whole backward is one launch and deterministic.  Threads own 8
-// channels (a 16-byte bf16 vector) of a row: lane l of a warp takes vector
-// l % (cb/8) of rows stepping by the warp's row count, so its channels'
-// coefficients stay in registers and a warp's shuffles reduce the rows that
-// share them.  The per-element work is a few FMAs and, with SiLU, one fast
-// exp and one fast reciprocal.  The launch shape (cb, k, threads, shared
-// bytes) comes from the caller's plan (ops/gn_kernels.py::gn_plan) and is
-// checked here.  What still holds them back: a block's phases (load,
-// reduce across the cluster, write) run one after another, and the blocks
-// of a wave run them in step, so reads and writes overlap little (PERF.md).
+// read, one write.  Threads own 8 channels (a 16-byte bf16 vector) of a
+// row: lane l of a warp takes vector l % (cb/8) of rows stepping by the
+// warp's row count, so its channels' coefficients stay in registers and a
+// warp's shuffles reduce the rows that share them.  The per-element work is
+// a few FMAs and, with SiLU, one fast exp and one fast reciprocal.
+//
+// The backward (gn_bwd_cluster) holds x and g the same way, one launch a
+// call, and is shaped by three limits the H100 showed (PERF.md):
+// - Residency.  Its per-channel constants live in shared memory (ka = rs
+//   scale and zb with z = x ka + zb, then the dx coefficients kb, kc with
+//   dx = ka dz + kb x + kc), not in a thread's registers, and the sums run
+//   on x itself (B = rs sum dz x + nmr sum dz), so it asks for three 256-
+//   thread blocks an SM (80 registers a thread, no spill): shared memory,
+//   not registers, sets how many blocks an SM holds.  (A cluster of 8
+//   blocks that each take over a third of an SM's shared memory splits
+//   again into 16 blocks of 128 threads, as gn_plan measured best.)
+// - Small maps.  Where one sample's tile fits a block (k = 1), a block takes
+//   nb whole samples of its channel slice: nb * S consecutive rows of the
+//   [B*S, C] maps in the same TMA boxes, nb chosen so a call's blocks fit one
+//   wave (ops/gn_kernels.py::gn_plan).  Warps split over the samples; a
+//   sample of at most 8 rows is summed by one thread a vector, with no lanes
+//   to combine.  The fixed chain of a block (TMA, barriers, coefficients,
+//   ticket) is paid once for nb samples, not once a (sample, slice).
+// - The batch reduction.  dbias and dscale add over the batch: each block
+//   sums its samples in order, and the last block of a channel slice to
+//   post its partial (an atomic ticket, one fencing thread) adds the
+//   blocks' partials in order with all its threads, lanes taking runs of
+//   blocks (ordered_sum); no float atomics, so calls are bit-equal.
+// Large maps keep the cluster split of one sample's rows (nb = 1), whose
+// partial sums meet through distributed shared memory, every block's
+// values read at once.  What still holds them back: at large maps a
+// cluster waits at its barrier for its slowest block's loads, and the
+// blocks' loads, sums and dx writes overlap only across blocks; with SiLU,
+// dz is computed twice (4 special-function operations an element), and at
+// small maps a block's fixed chain (several microseconds on an H100) sets
+// the time.
 //
 // The same file holds the per-channel moments of the moments tool
 // (phd_channel_moments): the counterpart of `m_pallas` / `_pallas_kernel`
@@ -60,8 +82,8 @@
 //
 // Maps whose tile does not fit a 16-block cluster take the streaming
 // variant (phd_gn_stream_fwd, phd_gn_stream_bwd, at the end of the file):
-// gn_stats' split statistics pass, a fixed-order combine, and a second read
-// of x that normalises and writes.
+// split statistics, a fixed-order combine, and a second read of x (and g)
+// that normalises (or writes dx).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -128,13 +150,12 @@ __host__ __device__ inline size_t tile_bytes(int rpb, int cb, int esize) {
   return (static_cast<size_t>(alloc_rows(rpb)) * cb * esize + 127) / 128 * 128;
 }
 
-// Shared memory of one block: `arrays` tiles, then f32 scratch
-// red[2][nwarps][cb], part[2][cb], tot[2][cb], coef[2][cb], then a ticket
-// (16 bytes) and one mbarrier per box.  ops/gn_kernels.py::_smem_bytes
-// computes the same.
-__host__ __device__ inline size_t smem_bytes(int arrays, int rpb, int cb, int esize,
-                                             int threads) {
-  return arrays * tile_bytes(rpb, cb, esize) +
+// Shared memory of one forward block: its tile, then f32 scratch
+// red[2][nwarps][cb], part[2][cb], tot[2][cb], coef[2][cb], then 16 bytes
+// and one mbarrier per box.  ops/gn_kernels.py::_smem_bytes computes the
+// same.
+__host__ __device__ inline size_t smem_bytes(int rpb, int cb, int esize, int threads) {
+  return tile_bytes(rpb, cb, esize) +
          sizeof(float) * (2 * (threads / 32) * cb + 6 * cb) + 16 + 8 * kMaxBoxes;
 }
 
@@ -153,16 +174,16 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
       : "memory");
 }
 
-// Start loading the block's tiles (xs, and gs unless null): rows row0 ..
-// of the [B*S, C] maps tx (and tg), channels c0 .. c0 + cb - 1, as TMA
-// boxes of box_rows(rpb) rows; box i completes on mbarrier bars[i].  Thread
-// 0 issues every box at once; the others return at once.  Every thread
-// calls it; a thread waits (mbar_wait) on the boxes of the rows it reads.
+// Start loading the block's tiles (xs, and gs unless null): nbox TMA boxes
+// of `box` rows from row row0 of the [B*S, C] maps tx (and tg), channels
+// c0 .. c0 + cb - 1; box i completes on mbarrier bars[i].  Thread 0 issues
+// every box at once; the others return at once.  The caller passes a
+// __syncthreads before any thread waits (mbar_wait) on the boxes of the rows
+// it reads, so the barriers exist.
 template <typename T>
 __device__ void start_tiles(const CUtensorMap* tx, const CUtensorMap* tg, T* xs, T* gs,
-                            long long row0, int c0, int rpb, int cb, uint64_t* bars) {
+                            long long row0, int c0, int box, int nbox, int cb, uint64_t* bars) {
   if (threadIdx.x == 0) {
-    const int box = box_rows(rpb), nbox = alloc_rows(rpb) / box;
     const unsigned box_bytes = box * cb * static_cast<unsigned>(sizeof(T));
     for (int i = 0; i < nbox; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + i))
@@ -188,14 +209,12 @@ __device__ void start_tiles(const CUtensorMap* tx, const CUtensorMap* tg, T* xs,
             : "memory");
     }
   }
-  __syncthreads();  // the barriers exist before anyone waits on them
 }
 
 // Before the block exits: every box has landed (a box no thread read may
 // still be in flight, and shared memory must outlive it).
-__device__ __forceinline__ void finish_tiles(int rpb, uint64_t* bars) {
+__device__ __forceinline__ void finish_tiles(int nbox, uint64_t* bars) {
   if (threadIdx.x == 0) {
-    const int nbox = alloc_rows(rpb) / box_rows(rpb);
     for (int i = 0; i < nbox; ++i) mbar_wait(smem_u32(bars + i), 0);
   }
 }
@@ -209,6 +228,53 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// dst(v, sum over q < n of src(q, v)) for v < m, each sum in a fixed order:
+// `lanes` threads a value, lane l adding a run of consecutive q in order,
+// then the lanes' partials in order (scratch: m * lanes floats).  The runs'
+// loads are in flight together, where one thread a value would wait on them
+// one after another.
+template <typename Src, typename Dst>
+__device__ void ordered_sum(int m, int n, int lanes, const Src& src, float* scratch,
+                            const Dst& dst) {
+  const int run = (n + lanes - 1) / lanes;
+  for (int t = threadIdx.x; t < m * lanes; t += blockDim.x) {
+    const int v = t / lanes, l = t - v * lanes, end = min(n, (l + 1) * run);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int q = l * run; q < end; ++q) acc += src(q, v);
+    scratch[t] = acc;
+  }
+  __syncthreads();
+  for (int v = threadIdx.x; v < m; v += blockDim.x) {
+    float acc = 0.f;
+    for (int l = 0; l < lanes; ++l) acc += scratch[v * lanes + l];
+    dst(v, acc);
+  }
+}
+
+// After the block's writes: one atomic ticket from *counter, for every
+// thread.  Thread 0 fences after the block's barrier (a fence is cumulative
+// over the writes the barrier ordered before it) and again after the atomic,
+// so the last block to take a ticket reads every block's writes.
+__device__ __forceinline__ unsigned take_ticket(unsigned* counter, unsigned* ticket) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *ticket = atomicAdd(counter, 1u);
+    __threadfence();
+  }
+  __syncthreads();
+  return *ticket;
+}
+
+// The most lanes (a power of two, at most `most`) that m values can take
+// in one pass of the block's threads.
+__device__ __forceinline__ int sum_lanes(int m, int most) {
+  int lanes = 1;
+  while (2 * lanes <= most && 2 * lanes * m <= static_cast<int>(blockDim.x)) lanes *= 2;
+  return lanes;
 }
 
 // Which vector of which rows a thread owns: lane l < V * P of each warp
@@ -240,6 +306,19 @@ __device__ __forceinline__ float warp_rows_sum(float val, const VecMap& m) {
     if (m.j + d < m.P) val += o;
   }
   return val;
+}
+
+// The same for eight values at once, their shuffles issued together.
+__device__ __forceinline__ void warp_rows_sum8(float (&v)[8], const VecMap& m) {
+  for (int d = 1; d < m.P; d <<= 1) {
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = __shfl_down_sync(0xffffffffu, v[i], d * m.V);
+    if (m.j + d < m.P) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += o[i];
+    }
+  }
 }
 
 // Two per-thread 8-channel partials (a, q) summed over the block's rows,
@@ -308,7 +387,8 @@ gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__
   float* coef = tot + 2 * cb;
   uint64_t* bars = reinterpret_cast<uint64_t*>(coef + 2 * cb) + 2;
 
-  start_tiles<T>(&tx, nullptr, xs, nullptr, b * S + r0, c0, rpb, cb, bars);
+  start_tiles<T>(&tx, nullptr, xs, nullptr, b * S + r0, c0, box, alloc_rows(rpb) / box, cb, bars);
+  __syncthreads();
 
   // sums of x and x^2 per channel, box by box as the boxes land
   const VecMap m = vec_map(cb);
@@ -377,7 +457,7 @@ gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__
       store8(ob + static_cast<long long>(r) * C, f);
     }
   }
-  finish_tiles(rpb, bars);
+  finish_tiles(alloc_rows(rpb) / box, bars);
   cluster_wait();
 }
 
@@ -390,141 +470,270 @@ __device__ __forceinline__ float grad_z(float g, float xh, float sc, float bi) {
   return g * sg * fmaf(z, 1.f - sg, 1.f);
 }
 
-// sums: f32 [2][B][C] workspace (per-sample A and B); counters: one zeroed
-// ticket per channel slice, left at zero again by the last cluster.
+// The same from z itself.
+template <bool SILU>
+__device__ __forceinline__ float grad_of_z(float g, float z) {
+  if (!SILU) return g;
+  const float sg = __fdividef(1.f, 1.f + __expf(-z));
+  return g * sg * fmaf(z, 1.f - sg, 1.f);
+}
+
+// ---- cluster backward -------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMinBlocks = 3;  // registers for three blocks an SM: at most 80 a thread
+constexpr int kLaneRows = 8;      // samples of at most this many rows: one thread a vector
+
+// Shared memory of one backward block holding nb samples of rpb rows: the x
+// and g tiles, then f32 red[2][nwarps][cb], part[2][cb], sc[cb],
+// tot[2][nb][cb], coef[4][nb][cb], a ticket (16 bytes) and one mbarrier per
+// box.  ops/gn_kernels.py::_bwd_smem_bytes computes the same.
+__host__ __device__ inline size_t bwd_smem_bytes(int nb, int rpb, int cb, int esize,
+                                                 int threads) {
+  return 2 * tile_bytes(nb * rpb, cb, esize) +
+         sizeof(float) * (2 * (threads / 32) * cb + 3 * cb + 6 * nb * cb) + 16 + 8 * kMaxBoxes;
+}
+
+// Grid (k * C / cb, ceil(B / nb)), clusters of k blocks.  A block holds one
+// channel slice of either nb whole samples (k = 1: nb * S consecutive rows of
+// the [B*S, C] maps) or rows r0 .. r0 + rpb - 1 of one sample (nb = 1).
+// sums: f32 [2][ceil(B / nb)][C] workspace (each block's dbias and dscale
+// partials); counters: one zeroed ticket per channel slice, left at zero
+// again by the slice's last block.
 template <typename T, bool SILU>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 gn_bwd_cluster(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
                const float* __restrict__ scale, const float* __restrict__ bias,
                const float* __restrict__ mean, const float* __restrict__ rstd,
                T* __restrict__ dx, float* __restrict__ dscale, float* __restrict__ dbias,
                float* __restrict__ sums, unsigned* __restrict__ counters, int B, int S,
-               int C, int G, int cb, int rpb) {
+               int C, int G, int cb, int rpb, int nb) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int slice = static_cast<int>(blockIdx.x) / k;
   const int c0 = slice * cb;
-  const long long b = blockIdx.y;
+  const int b0 = static_cast<int>(blockIdx.y) * nb;
+  const int nloc = min(nb, B - b0);  // samples this block holds
   const int r0 = rank * rpb;
-  const int rows = max(0, min(S - r0, rpb));
+  const int rows = max(0, min(S - r0, rpb));  // rows of each of them
+  const int used = (nloc - 1) * rpb + rows;
   const int gw = C / G;
-  const int box = box_rows(rpb);
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int box = box_rows(nb * rpb), nbox = (used + box - 1) / box;
+  const size_t tb = tile_bytes(nb * rpb, cb, sizeof(T));
   T* xs = reinterpret_cast<T*>(smem);
-  T* gs = reinterpret_cast<T*>(smem + tile_bytes(rpb, cb, sizeof(T)));
-  float* red = reinterpret_cast<float*>(smem + 2 * tile_bytes(rpb, cb, sizeof(T)));
-  float* part = red + 2 * (blockDim.x >> 5) * cb;
-  float* tot = part + 2 * cb;
-  float* coef = tot + 2 * cb;
-  unsigned* ticket = reinterpret_cast<unsigned*>(coef + 2 * cb);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + 2 * cb) + 2;
+  T* gs = reinterpret_cast<T*>(smem + tb);
+  float* red = reinterpret_cast<float*>(smem + 2 * tb);  // [2][nw][cb]
+  float* part = red + 2 * nw * cb;                       // [2][cb]
+  float* scs = part + 2 * cb;                            // [cb]: scale
+  float* tot = scs + cb;                                 // [2][nb][cb]: A, then B
+  float* coef = tot + 2 * nb * cb;  // [4][nb][cb]: ka, zb, then rs, nmr -> kb, kc
+  unsigned* ticket = reinterpret_cast<unsigned*>(coef + 4 * nb * cb);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ticket) + 2;
 
-  start_tiles<T>(&tx, &tg, xs, gs, b * S + r0, c0, rpb, cb, bars);
+  start_tiles<T>(&tx, &tg, xs, gs, static_cast<long long>(b0) * S + r0, c0, box, nbox, cb,
+                 bars);
 
-  // per channel of this thread: x^ = x * rs + nmr, z = x^ * sc + bi
-  const VecMap m = vec_map(cb);
-  float rs[8], nmr[8], sc[8], bi[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = c0 + 8 * m.v + i;
-    rs[i] = rstd[b * G + c / gw];
-    nmr[i] = -mean[b * G + c / gw] * rs[i];
-    sc[i] = scale[c];
-    bi[i] = bias[c];
+  // While the tiles load: per (sample, channel) z = x ka + zb, i.e. ka = rs
+  // sc and zb = sc nmr + bi with nmr = -mu rs; rs, nmr and scale are kept for
+  // the coefficients.  The barrier after it also makes the mbarriers visible.
+  for (int t = threadIdx.x; t < nloc * cb; t += blockDim.x) {
+    const int s = t / cb, c = t - s * cb;
+    const long long gi = static_cast<long long>(b0 + s) * G + (c0 + c) / gw;
+    const float rs = rstd[gi], nmr = -mean[gi] * rs, sc = scale[c0 + c];
+    coef[t] = rs * sc;
+    coef[nb * cb + t] = fmaf(nmr, sc, bias[c0 + c]);
+    coef[2 * nb * cb + t] = rs;
+    coef[3 * nb * cb + t] = nmr;
+    if (s == 0) scs[c] = sc;
   }
+  __syncthreads();
 
-  float A[8], Bs[8];
+  // Warps in ng groups of wps: group i takes samples i, i + ng, ...; lane l
+  // of a warp takes vector l % V of rows l / V + P * (warp's place in its
+  // group), stepping by wps * P.
+  VecMap m = vec_map(cb);
+  const int ng = min(nb, nw), wps = nw / ng, gi = warp / wps;
+  m.row0 = (warp - gi * wps) * m.P + m.j;
+  m.rstep = wps * m.P;
+
+  // Per (sample, channel): A = sum dz and Bx = sum dz x over the rows.  A
+  // thread adds channels v8 .. v8 + 7 of sample s's rows from row0 by rstep,
+  // waiting on each box as it reaches it.
+  int landed = -1;
+  const auto row_sums = [&](int s, int v8, int row0, int rstep, float(&A)[8], float(&Bx)[8]) {
+    float ka[8], zb[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) A[i] = Bs[i] = 0.f;
-  if (m.active) {
-    int landed = -1;
-    for (int r = m.row0; r < rows; r += m.rstep) {
-      if (r / box != landed) {
-        landed = r / box;
+    for (int i = 0; i < 8; ++i) {
+      ka[i] = SILU ? coef[s * cb + v8 + i] : 0.f;
+      zb[i] = SILU ? coef[(nb + s) * cb + v8 + i] : 0.f;
+      A[i] = Bx[i] = 0.f;
+    }
+    for (int r = row0; r < rows; r += rstep) {
+      const int t = s * rpb + r;
+      if (t / box != landed) {
+        landed = t / box;
         mbar_wait(smem_u32(bars + landed), 0);
       }
       float f[8], gv[8];
-      load8(xs + r * cb + 8 * m.v, f);
-      load8(gs + r * cb + 8 * m.v, gv);
+      load8(xs + t * cb + v8, f);
+      load8(gs + t * cb + v8, gv);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float xh = fmaf(f[i], rs[i], nmr[i]);
-        const float dz = grad_z<SILU>(gv[i], xh, sc[i], bi[i]);
+        const float dz = grad_of_z<SILU>(gv[i], fmaf(f[i], ka[i], zb[i]));
         A[i] += dz;
-        Bs[i] = fmaf(dz, xh, Bs[i]);
+        Bx[i] = fmaf(dz, f[i], Bx[i]);
       }
     }
-  }
-  tile_sums(cluster, A, Bs, m, cb, red, part, tot);
-
-  // per channel: its group's a and b, from the group's channels in order
-  const float count = static_cast<float>(S) * gw;
-  for (int c = threadIdx.x; c < cb; c += blockDim.x) {
-    const int first = c - c % gw;
-    float a = 0.f, bq = 0.f;
-    for (int i = 0; i < gw; ++i) {
-      const float s = scale[c0 + first + i];
-      a = fmaf(s, tot[first + i], a);
-      bq = fmaf(s, tot[cb + first + i], bq);
+  };
+  const bool lane_rows = k == 1 && rows <= kLaneRows;
+  if (lane_rows) {
+    // A few rows a sample: thread task (s, v) adds vector v of sample s over
+    // all its rows in order, and no lanes need combining.
+    for (int task = threadIdx.x; task < nloc * m.V; task += blockDim.x) {
+      const int s = task / m.V, v8 = 8 * (task - s * m.V);
+      float A[8], Bx[8];
+      row_sums(s, v8, 0, 1, A, Bx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        tot[s * cb + v8 + i] = A[i];
+        tot[(nb + s) * cb + v8 + i] = Bx[i];
+      }
     }
-    coef[c] = a / count;
-    coef[cb + c] = bq / count;
-  }
-
-  // dbias and dscale: rank 0 of each cluster posts its sample's sums; the
-  // last of the B clusters of this channel slice adds them in sample order.
-  if (rank == 0) {
-    for (int c = threadIdx.x; c < cb; c += blockDim.x) {
-      sums[b * C + c0 + c] = tot[c];
-      sums[(B + b) * C + c0 + c] = tot[cb + c];
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) *ticket = atomicAdd(&counters[slice], 1u);
-    __syncthreads();
-    if (*ticket == static_cast<unsigned>(B - 1)) {
-      __threadfence();
-      for (int c = threadIdx.x; c < cb; c += blockDim.x) {
-        float da = 0.f, db = 0.f;
-        for (int bb = 0; bb < B; ++bb) {
-          da += __ldcg(&sums[static_cast<long long>(bb) * C + c0 + c]);
-          db += __ldcg(&sums[static_cast<long long>(B + bb) * C + c0 + c]);
+  } else {
+    // Rows over the lanes: each warp's rows, then (wps > 1) its group's warps.
+    for (int s = gi; s < nloc; s += ng) {
+      float A[8], Bx[8];
+      row_sums(s, 8 * m.v, m.active ? m.row0 : rows, m.rstep, A, Bx);
+      warp_rows_sum8(A, m);
+      warp_rows_sum8(Bx, m);
+      if (lane < m.V) {
+        float* dst = wps > 1 ? red + warp * cb : tot + s * cb;
+        const int next = wps > 1 ? nw * cb : nb * cb;  // from the A array to the Bx array
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          dst[8 * lane + i] = A[i];
+          dst[next + 8 * lane + i] = Bx[i];
         }
-        dbias[c0 + c] = da;
-        dscale[c0 + c] = db;
       }
-      if (threadIdx.x == 0) counters[slice] = 0u;
+    }
+  }
+  __syncthreads();
+  if (!lane_rows && wps > 1) {  // then each group has one sample: its warps' sums in order
+    for (int t = threadIdx.x; t < 2 * nloc * cb; t += blockDim.x) {
+      const int which = t / (nloc * cb), rem = t - which * nloc * cb;
+      const int s = rem / cb, c = rem - s * cb;
+      float acc = 0.f;
+      for (int w = 0; w < wps; ++w) acc += red[(which * nw + s * wps + w) * cb + c];
+      tot[(which * nb + s) * cb + c] = acc;
+    }
+    __syncthreads();
+  }
+  if (k > 1) {  // nb = 1: over the cluster's blocks, runs of ranks in order
+    for (int t = threadIdx.x; t < 2 * cb; t += blockDim.x) part[t] = tot[t];
+    cluster.sync();
+    ordered_sum(
+        2 * cb, k, sum_lanes(2 * cb, nw),
+        [&](int r, int t) { return cluster.map_shared_rank(part, r)[t]; }, red,
+        [&](int t, float acc) { tot[t] = acc; });
+    cluster_arrive();
+    __syncthreads();
+  }
+
+  // Per (sample, group), one warp: B = rs Bx + nmr A per channel, then
+  // a = sum scale A / N and b = sum scale B / N (the lanes' strided shares,
+  // then a butterfly, which leaves every lane the same bits), and the
+  // group's dx coefficients dx = ka dz + kb x + kc: kb = -rs^2 b and
+  // kc = -rs (b nmr + a).
+  const int ngl = cb / gw;
+  const float count = static_cast<float>(S) * gw;
+  for (int task = warp; task < nloc * ngl; task += nw) {
+    const int s = task / ngl, first = (task - s * ngl) * gw;
+    const float rs = coef[(2 * nb + s) * cb + first], nmr = coef[(3 * nb + s) * cb + first];
+    float a = 0.f, bq = 0.f;
+    for (int c = first + lane; c < first + gw; c += 32) {
+      const float At = tot[s * cb + c];
+      const float Bt = fmaf(rs, tot[(nb + s) * cb + c], nmr * At);
+      tot[(nb + s) * cb + c] = Bt;
+      a = fmaf(scs[c], At, a);
+      bq = fmaf(scs[c], Bt, bq);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, d);
+      bq += __shfl_xor_sync(0xffffffffu, bq, d);
+    }
+    a /= count;
+    bq /= count;
+    const float kb = -rs * rs * bq, kc = -rs * fmaf(bq, nmr, a);
+    __syncwarp();  // every lane has read rs and nmr before they are overwritten
+    for (int c = first + lane; c < first + gw; c += 32) {
+      coef[(2 * nb + s) * cb + c] = kb;
+      coef[(3 * nb + s) * cb + c] = kc;
     }
   }
   __syncthreads();
 
-  if (m.active) {
-    // dx = rs (sc dz - a - x^ b) = ka dz + kb x^ + kc
-    float ka[8], kb[8], kc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      ka[i] = rs[i] * sc[i];
-      kb[i] = -rs[i] * coef[cb + 8 * m.v + i];
-      kc[i] = -rs[i] * coef[8 * m.v + i];
+  // dbias = sum_b A and dscale = sum_b B: rank 0 sums its block's samples in
+  // order; with more than one sample group it posts that partial, and the
+  // last block of the channel slice to post (an atomic ticket) adds the
+  // groups' partials in order (ordered_sum).
+  const int nbg = static_cast<int>(gridDim.y);
+  const auto write_params = [&](int t, float acc) {
+    (t >= cb ? dscale : dbias)[c0 + t % cb] = acc;
+  };
+  if (rank == 0) {
+    for (int t = threadIdx.x; t < 2 * cb; t += blockDim.x) {
+      const int which = t / cb, c = t - which * cb;
+      float acc = 0.f;
+      for (int s = 0; s < nloc; ++s) acc += tot[(which * nb + s) * cb + c];
+      if (nbg == 1)
+        write_params(t, acc);
+      else
+        sums[(static_cast<long long>(which) * nbg + blockIdx.y) * C + c0 + c] = acc;
     }
-    T* db = dx + (b * S + r0) * C + c0 + 8 * m.v;
-#pragma unroll 2
-    for (int r = m.row0; r < rows; r += m.rstep) {
-      float f[8], gv[8];
-      load8(xs + r * cb + 8 * m.v, f);
-      load8(gs + r * cb + 8 * m.v, gv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float xh = fmaf(f[i], rs[i], nmr[i]);
-        const float dz = grad_z<SILU>(gv[i], xh, sc[i], bi[i]);
-        f[i] = fmaf(ka[i], dz, fmaf(kb[i], xh, kc[i]));
-      }
-      store8(db + static_cast<long long>(r) * C, f);
+    if (nbg > 1 && take_ticket(&counters[slice], ticket) == static_cast<unsigned>(nbg - 1)) {
+      ordered_sum(
+          2 * cb, nbg, sum_lanes(2 * cb, nw),
+          [&](int q, int t) {
+            return __ldcg(sums + (static_cast<long long>(t / cb) * nbg + q) * C + c0 + t % cb);
+          },
+          red, write_params);
+      if (threadIdx.x == 0) counters[slice] = 0u;
     }
   }
-  finish_tiles(rpb, bars);
-  cluster_wait();
+
+  // dx, sample by sample, from the tiles
+  for (int s = gi; s < nloc; s += ng) {
+    float ka[8], zb[8], kb[8], kc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = s * cb + 8 * m.v + i;
+      ka[i] = coef[c];
+      zb[i] = SILU ? coef[nb * cb + c] : 0.f;
+      kb[i] = coef[2 * nb * cb + c];
+      kc[i] = coef[3 * nb * cb + c];
+    }
+    if (m.active) {
+      T* dst = dx + (static_cast<long long>(b0 + s) * S + r0) * C + c0 + 8 * m.v;
+      for (int r = m.row0; r < rows; r += m.rstep) {
+        const int t = s * rpb + r;
+        float f[8], gv[8];
+        load8(xs + t * cb + 8 * m.v, f);
+        load8(gs + t * cb + 8 * m.v, gv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float dz = grad_of_z<SILU>(gv[i], fmaf(f[i], ka[i], zb[i]));
+          f[i] = fmaf(ka[i], dz, fmaf(kb[i], f[i], kc[i]));
+        }
+        store8(dst + static_cast<long long>(r) * C, f);
+      }
+    }
+  }
+  finish_tiles(nbox, bars);
+  if (k > 1) cluster_wait();
 }
 
 template <typename T, bool SILU, bool BWD>
@@ -578,8 +787,8 @@ struct ClusterLaunch {
 constexpr int kErrPlan = -1;          // the launch plan breaks a constraint
 constexpr int kErrEncode = -1000;  // minus the CUresult of a refused TMA descriptor
 
-// The plan's constraints; 0 if the launch shape is valid.
-int check_plan(int arrays, int esize, int B, int S, int C, int G, int cb, int k, int threads,
+// The forward plan's constraints; 0 if the launch shape is valid.
+int check_plan(int esize, int B, int S, int C, int G, int cb, int k, int threads,
                int smem) {
   const int rpb = k >= 1 ? (S + k - 1) / k : 0;
   const bool ok =
@@ -588,7 +797,23 @@ int check_plan(int arrays, int esize, int B, int S, int C, int G, int cb, int k,
       C % cb == 0 && cb % (C / G) == 0 && k >= 1 && k <= kMaxCluster && threads >= 32 &&
       threads <= kMaxThreads && threads % 32 == 0 && smem <= kMaxSmem &&
       alloc_rows(rpb) / box_rows(rpb) <= kMaxBoxes &&
-      static_cast<size_t>(smem) >= smem_bytes(arrays, rpb, cb, esize, threads);
+      static_cast<size_t>(smem) >= smem_bytes(rpb, cb, esize, threads);
+  return ok ? 0 : kErrPlan;
+}
+
+// The backward plan's constraints (nb samples a block); 0 if valid.
+int check_bwd_plan(int esize, int B, int S, int C, int G, int cb, int k, int nb, int threads,
+                   int smem) {
+  const int rpb = k >= 1 ? (S + k - 1) / k : 0;
+  const int nw = threads / 32;
+  const bool ok =
+      B >= 1 && S >= 1 && static_cast<long long>(B) * S < (1ll << 31) && G >= 1 &&
+      C % G == 0 && cb >= 8 && cb % 8 == 0 && cb <= kMaxTileChannels && C % cb == 0 &&
+      cb % (C / G) == 0 && k >= 1 && k <= kMaxCluster && nb >= 1 && nb <= B &&
+      (k == 1 || nb == 1) && (B + nb - 1) / nb <= 65535 && threads >= 32 &&
+      threads <= kBwdThreads && threads % 32 == 0 && (nb >= nw || nw % nb == 0) &&
+      smem <= kMaxSmem && alloc_rows(nb * rpb) / box_rows(nb * rpb) <= kMaxBoxes &&
+      static_cast<size_t>(smem) >= bwd_smem_bytes(nb, rpb, cb, esize, threads);
   return ok ? 0 : kErrPlan;
 }
 
@@ -647,19 +872,19 @@ template <typename T, bool SILU>
 int launch_bwd(const void* x, const void* g, const float* scale, const float* bias,
                const float* mean, const float* rstd, void* dx, float* dscale, float* dbias,
                float* sums, unsigned* counters, int B, int S, int C, int G, int cb, int k,
-               int threads, int smem, cudaStream_t st) {
+               int nb, int threads, int smem, cudaStream_t st) {
   cudaError_t e = prepare<T, SILU, true>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rpb = (S + k - 1) / k;
+  const int box = box_rows(nb * rpb);
   CUtensorMap tx, tg;
-  int err = encode_rows<T>(&tx, x, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
-  if (err == 0)
-    err = encode_rows<T>(&tg, g, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
+  int err = encode_rows<T>(&tx, x, static_cast<long long>(B) * S, C, cb, box);
+  if (err == 0) err = encode_rows<T>(&tg, g, static_cast<long long>(B) * S, C, cb, box);
   if (err != 0) return err;
-  ClusterLaunch l(B, C, cb, k, threads, smem, st);
+  ClusterLaunch l((B + nb - 1) / nb, C, cb, k, threads, smem, st);
   e = cudaLaunchKernelEx(&l.cfg, gn_bwd_cluster<T, SILU>, tx, tg, scale, bias, mean, rstd,
                          static_cast<T*>(dx), dscale, dbias, sums, counters, B, S, C, G, cb,
-                         rpb);
+                         rpb, nb);
   return static_cast<int>(e);
 }
 
@@ -753,11 +978,15 @@ __global__ void moments_combine(const float* __restrict__ psum,
 // against the bound's 1 + 1, so it reaches at most ~2/3 of the bound.  The
 // caller keeps the f32 partials small beside x (ops/gn_kernels.py
 // _stream_splits: at most one split per 256 bytes of a channel's column).
-// Backward, five launches: stream_bwd_sums (per (split, channel) sums of dz
-// and dz x^), stream_bwd_reduce (per (sample, channel): the splits -> A and
-// B), stream_bwd_coef (each group's a and b), stream_bwd_params (dbias,
-// dscale: the samples in order) and stream_bwd_dx (reads x and g again,
-// writes dx).
+// Backward, two launches: stream_bwd_sums (per (split, channel) sums of dz
+// and dz x, added over clusters of up to 8 splits through distributed shared
+// memory; the last block of each sample, by an atomic ticket, adds the
+// clusters' sums, computes the sample's A, B and its groups' a and b, and the
+// last sample's block adds dbias and dscale over the samples in order) and
+// stream_bwd_dx (reads x and g again, writes dx).  The three middle launches
+// of the earlier version (each a few microseconds of work on the f32 SD maps
+// that stream) are gone; 4 reads + 1 write against the bound's 2 + 1 cap it
+// at 60% of the bound, the honest limit for maps no cluster holds.
 // Every sum runs in a fixed order, so two calls give the same bits.  Threads
 // own 8 channels of a row, as in gn_stats: a block is (C/8) * R threads
 // working on R rows at once, the grid (nsplit, B), split i the rows
@@ -860,24 +1089,43 @@ __device__ __forceinline__ BwdCoef bwd_coef(const float* scale, const float* bia
   return k;
 }
 
-// pa, pb: f32 [B][nsplit][C], this split's sums of dz and dz x^ per channel.
+// Grid (nsplit, B), clusters of kc blocks along the splits, blockDim (C/8) R.
+// Each block sums dz and dz x per channel over its split's rows (z = x ka +
+// zb, as in gn_bwd_cluster); each cluster adds its blocks' sums in rank
+// order (rank r takes the r-th share of the 2C sums) into part: f32
+// [B][nsplit / kc][2][C].  The last block of a sample to post (an atomic
+// ticket, counters[b]) adds the clusters' sums in order, into sums: f32
+// [2][B][C] (A and B = rs sum dz x + nmr A of the sample), and its groups'
+// a and b, into coef: f32 [2][B][G]; the last sample to finish
+// (counters[B]) adds dbias and dscale over the samples in order.  counters:
+// B + 1 zeroed tickets, left zeroed.
 template <typename T, bool SILU>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 stream_bwd_sums(const T* __restrict__ x, const T* __restrict__ g,
                 const float* __restrict__ scale, const float* __restrict__ bias,
                 const float* __restrict__ mean, const float* __restrict__ rstd,
-                float* __restrict__ pa, float* __restrict__ pb, int S, int C, int G,
-                int rps) {
-  extern __shared__ float sh[];  // [2][R][C]
+                float* __restrict__ part, float* __restrict__ sums, float* __restrict__ coef,
+                float* __restrict__ dscale, float* __restrict__ dbias,
+                unsigned* __restrict__ counters, int B, int S, int C, int G, int rps) {
+  extern __shared__ float sh[];  // [2][R][C], then mine[2][C], then a ticket
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kc = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int cvn = C / 8, R = blockDim.x / cvn;
   const int cv = threadIdx.x % cvn, r = threadIdx.x / cvn;
-  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int split = blockIdx.x, nsplit = gridDim.x, ncl = nsplit / kc;
   const long long b = blockIdx.y;
   const int s0 = split * rps, s1 = min(S, s0 + rps);
-  const BwdCoef k = bwd_coef(scale, bias, mean, rstd, b, 8 * cv, G, C / G);
-  float A[8], Bs[8];
+  const int gw = C / G;
+  float ka[8], zb[8], A[8], Bs[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) A[i] = Bs[i] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * cv + i;
+    const float rs = SILU ? rstd[b * G + c / gw] : 0.f;
+    ka[i] = rs * (SILU ? scale[c] : 0.f);
+    zb[i] = SILU ? fmaf(-mean[b * G + c / gw] * rs, scale[c], bias[c]) : 0.f;
+    A[i] = Bs[i] = 0.f;
+  }
   const long long base = b * S * C + 8 * cv;
 #pragma unroll 2
   for (int s = s0 + r; s < s1; s += R) {
@@ -886,14 +1134,15 @@ stream_bwd_sums(const T* __restrict__ x, const T* __restrict__ g,
     load8(g + base + static_cast<long long>(s) * C, gv);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float xh = fmaf(f[i], k.rs[i], k.nmr[i]);
-      const float dz = grad_z<SILU>(gv[i], xh, k.sc[i], k.bi[i]);
+      const float dz = grad_of_z<SILU>(gv[i], fmaf(f[i], ka[i], zb[i]));
       A[i] += dz;
-      Bs[i] = fmaf(dz, xh, Bs[i]);
+      Bs[i] = fmaf(dz, f[i], Bs[i]);
     }
   }
   float* sa = sh;
   float* sb = sh + R * C;
+  float* mine = sh + 2 * R * C;
+  unsigned* ticket = reinterpret_cast<unsigned*>(mine + 2 * C);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     sa[r * C + 8 * cv + i] = A[i];
@@ -906,75 +1155,71 @@ stream_bwd_sums(const T* __restrict__ x, const T* __restrict__ g,
       a += sa[rr * C + c];
       q += sb[rr * C + c];
     }
-    const long long idx = (b * nsplit + split) * C + c;
-    pa[idx] = a;
-    pb[idx] = q;
+    mine[c] = a;
+    mine[C + c] = q;
   }
-}
-
-// grid (ceil(C / 32), B), block (32, 8): per (sample, channel) the splits'
-// sums of dz and dz x^, eight strided shares summed in order, into
-// sums: f32 [2][B][C].
-__global__ void __launch_bounds__(256)
-stream_bwd_reduce(const float* __restrict__ pa, const float* __restrict__ pb,
-                  float* __restrict__ sums, int nsplit, int B, int C) {
-  __shared__ float sa[8][32], sb[8][32];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * 32 + tx;
-  const long long b = blockIdx.y;
-  float a = 0.f, q = 0.f;
-  if (c < C) {
-    for (int sp = ty; sp < nsplit; sp += 8) {
-      const long long idx = (b * nsplit + sp) * C + c;
-      a += pa[idx];
-      q += pb[idx];
+  cluster.sync();
+  const int share = (2 * C + kc - 1) / kc, first = rank * share;
+  const int n = max(0, min(2 * C, first + share) - first);
+  float* dst = part + (b * ncl + split / kc) * 2 * C + first;
+  ordered_sum(
+      n, kc, sum_lanes(n, kc),
+      [&](int q, int t) { return cluster.map_shared_rank(mine, q)[first + t]; }, sh,
+      [&](int t, float acc) { dst[t] = acc; });
+  cluster_arrive();
+  if (take_ticket(&counters[b], ticket) == static_cast<unsigned>(nsplit - 1)) {
+    float* tot = sh;  // [2][C]: A and B of the sample
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      const float* src = part + b * ncl * 2 * C + c;
+      float a = 0.f, q = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < ncl; ++i) {
+        a += __ldcg(src + static_cast<long long>(i) * 2 * C);
+        q += __ldcg(src + static_cast<long long>(i) * 2 * C + C);
+      }
+      const float rs = rstd[b * G + c / gw];
+      q = fmaf(rs, q, -mean[b * G + c / gw] * rs * a);
+      tot[c] = a;
+      tot[C + c] = q;
+      sums[b * C + c] = a;
+      sums[(B + b) * C + c] = q;
+    }
+    if (threadIdx.x == 0) counters[b] = 0u;
+    __syncthreads();
+    // a whole warp a group (blockDim need not be a multiple of 32): the
+    // lanes' strided shares, then a butterfly
+    const float count = static_cast<float>(S) * gw;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, full_warps = blockDim.x >> 5;
+    for (int grp = warp; warp < full_warps && grp < G; grp += full_warps) {
+      float a = 0.f, q = 0.f;
+      for (int c = grp * gw + lane; c < (grp + 1) * gw; c += 32) {
+        a = fmaf(scale[c], tot[c], a);
+        q = fmaf(scale[c], tot[C + c], q);
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, d);
+        q += __shfl_xor_sync(0xffffffffu, q, d);
+      }
+      if (lane == 0) {
+        coef[b * G + grp] = a / count;
+        coef[(B + b) * G + grp] = q / count;
+      }
+    }
+    if (take_ticket(&counters[B], ticket) == static_cast<unsigned>(B - 1)) {
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        float da = 0.f, db = 0.f;
+        for (int bb = 0; bb < B; ++bb) {
+          da += __ldcg(&sums[static_cast<long long>(bb) * C + c]);
+          db += __ldcg(&sums[static_cast<long long>(B + bb) * C + c]);
+        }
+        dbias[c] = da;
+        dscale[c] = db;
+      }
+      if (threadIdx.x == 0) counters[B] = 0u;
     }
   }
-  sa[ty][tx] = a;
-  sb[ty][tx] = q;
-  __syncthreads();
-  if (ty == 0 && c < C) {
-    a = q = 0.f;
-    for (int r = 0; r < 8; ++r) {
-      a += sa[r][tx];
-      q += sb[r][tx];
-    }
-    sums[b * C + c] = a;
-    sums[(B + b) * C + c] = q;
-  }
-}
-
-// grid B: each group's a = sum_c scale A / N and b = sum_c scale B / N, the
-// group's channels in order, into coef: f32 [2][B][G].
-__global__ void stream_bwd_coef(const float* __restrict__ sums, const float* __restrict__ scale,
-                                float* __restrict__ coef, int B, int S, int C, int G) {
-  const long long b = blockIdx.x;
-  const int gw = C / G;
-  const float count = static_cast<float>(S) * gw;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float a = 0.f, q = 0.f;
-    for (int i = 0; i < gw; ++i) {
-      const int c = g * gw + i;
-      a = fmaf(scale[c], sums[b * C + c], a);
-      q = fmaf(scale[c], sums[(B + b) * C + c], q);
-    }
-    coef[b * G + g] = a / count;
-    coef[(B + b) * G + g] = q / count;
-  }
-}
-
-// dbias = sum_b A, dscale = sum_b B, the samples in order.
-__global__ void stream_bwd_params(const float* __restrict__ sums, float* __restrict__ dscale,
-                                  float* __restrict__ dbias, int B, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float da = 0.f, db = 0.f;
-  for (int bb = 0; bb < B; ++bb) {
-    da += sums[static_cast<long long>(bb) * C + c];
-    db += sums[static_cast<long long>(B + bb) * C + c];
-  }
-  dbias[c] = da;
-  dscale[c] = db;
+  cluster_wait();
 }
 
 // dx = rs (sc dz - a - x^ b) = ka dz + kb x^ + kc.
@@ -1022,6 +1267,17 @@ int check_stream(int B, int S, int C, int G, int nsplit) {
   return ok ? 0 : kErrPlan;
 }
 
+// The streaming backward's: splits in whole clusters of kc <= 8 blocks, R
+// rows a block pass of the sums, and the dx pass's splits.
+int check_stream_bwd(int B, int S, int C, int G, int nsplit, int kc, int R, int nsplit_dx) {
+  const bool ok = check_stream(B, S, C, G, nsplit) == 0 && kc >= 1 && kc <= 8 &&
+                  nsplit % kc == 0 && R >= 1 &&
+                  C / 8 * R <= kMaxThreads &&
+                  sizeof(float) * 2 * (R + 1) * C + sizeof(unsigned) <= kMaxSmem &&
+                  nsplit_dx >= 1 && nsplit_dx <= 65535;
+  return ok ? 0 : kErrPlan;
+}
+
 template <typename T, bool SILU>
 int launch_stream_fwd(const void* x, const float* scale, const float* bias, void* out,
                       float* mean, float* rstd, float* work, int B, int S, int C, int G,
@@ -1048,33 +1304,42 @@ int launch_stream_fwd(const void* x, const float* scale, const float* bias, void
 template <typename T, bool SILU>
 int launch_stream_bwd(const void* x, const void* g, const float* scale, const float* bias,
                       const float* mean, const float* rstd, void* dx, float* dscale,
-                      float* dbias, float* work, int B, int S, int C, int G, int nsplit,
-                      cudaStream_t st) {
-  const int R = stream_rows(C), threads = C / 8 * R;
-  const int rps = (S + nsplit - 1) / nsplit;
-  const dim3 grid(nsplit, B);
-  const long long part = static_cast<long long>(B) * nsplit * C;
-  float* pa = work;
-  float* pb = pa + part;
-  float* sums = pb + part;
+                      float* dbias, float* work, unsigned* counters, int B, int S, int C, int G,
+                      int nsplit, int kc, int R, int nsplit_dx, cudaStream_t st) {
+  static unsigned long long ready = 0;  // one bit per device: the shared memory allowed
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(ready & (1ull << (dev & 63)))) {
+    e = cudaFuncSetAttribute(stream_bwd_sums<T, SILU>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready |= 1ull << (dev & 63);
+  }
+  float* part = work;
+  float* sums = part + static_cast<long long>(B) * (nsplit / kc) * 2 * C;
   float* coef = sums + 2ll * B * C;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
-  stream_bwd_sums<T, SILU><<<grid, threads, 2 * sizeof(float) * R * C, st>>>(
-      xt, gt, scale, bias, mean, rstd, pa, pb, S, C, G, rps);
-  cudaError_t e = cudaGetLastError();
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(nsplit, B);
+  cfg.blockDim = dim3(C / 8 * R);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * (R + 1) * C + sizeof(unsigned);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, stream_bwd_sums<T, SILU>, xt, gt, scale, bias, mean, rstd, part,
+                         sums, coef, dscale, dbias, counters, B, S, C, G,
+                         (S + nsplit - 1) / nsplit);
   if (e != cudaSuccess) return static_cast<int>(e);
-  stream_bwd_reduce<<<dim3((C + 31) / 32, B), dim3(32, 8), 0, st>>>(pa, pb, sums, nsplit, B, C);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  stream_bwd_coef<<<B, 128, 0, st>>>(sums, scale, coef, B, S, C, G);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  stream_bwd_params<<<(C + 255) / 256, 256, 0, st>>>(sums, dscale, dbias, B, C);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  stream_bwd_dx<T, SILU><<<grid, threads, 0, st>>>(xt, gt, scale, bias, mean, rstd, coef,
-                                                    static_cast<T*>(dx), B, S, C, G, rps);
+  stream_bwd_dx<T, SILU><<<dim3(nsplit_dx, B), C / 8 * stream_rows(C), 0, st>>>(
+      xt, gt, scale, bias, mean, rstd, coef, static_cast<T*>(dx), B, S, C, G,
+      (S + nsplit_dx - 1) / nsplit_dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1091,7 +1356,7 @@ extern "C" int phd_gn_fwd(const void* x, int dtype, const float* scale, const fl
                           float eps, int silu, int cb, int k, int threads, int smem,
                           void* stream) {
   const int esize = dtype == 1 ? 2 : 4;
-  const int err = check_plan(1, esize, B, S, C, G, cb, k, threads, smem);
+  const int err = check_plan(esize, B, S, C, G, cb, k, threads, smem);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
@@ -1104,23 +1369,24 @@ extern "C" int phd_gn_fwd(const void* x, int dtype, const float* scale, const fl
 
 // Backward.  x, g: [B, S, C] contiguous in one dtype (code as above); mean,
 // rstd: the forward's [B, G]; dx: [B, S, C] in x's dtype; dscale, dbias:
-// f32 [C]; sums: f32 workspace of 2 * B * C; counters: C / cb zeroed
-// unsigned tickets, left zeroed.  Same plan and return convention.
+// f32 [C]; sums: f32 workspace of 2 * ceil(B / nb) * C; counters: C / cb
+// zeroed unsigned tickets, left zeroed.  (cb, k, nb, threads, smem) is the
+// plan; same return convention.
 extern "C" int phd_gn_bwd(const void* x, const void* g, int dtype, const float* scale,
                           const float* bias, const float* mean, const float* rstd, void* dx,
                           float* dscale, float* dbias, float* sums, unsigned* counters, int B,
-                          int S, int C, int G, int silu, int cb, int k, int threads, int smem,
-                          void* stream) {
+                          int S, int C, int G, int silu, int cb, int k, int nb, int threads,
+                          int smem, void* stream) {
   const int esize = dtype == 1 ? 2 : 4;
-  const int err = check_plan(2, esize, B, S, C, G, cb, k, threads, smem);
+  const int err = check_bwd_plan(esize, B, S, C, G, cb, k, nb, threads, smem);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == 1)
-    return silu ? launch_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st)
-                : launch_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st);
-  return silu ? launch_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st)
-              : launch_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, threads, smem, st);
+    return silu ? launch_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, nb, threads, smem, st)
+                : launch_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, nb, threads, smem, st);
+  return silu ? launch_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, nb, threads, smem, st)
+              : launch_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, sums, counters, B, S, C, G, cb, k, nb, threads, smem, st);
 }
 
 // How many clusters of a plan the card holds at once
@@ -1187,21 +1453,25 @@ extern "C" int phd_gn_stream_fwd(const void* x, int dtype, const float* scale,
               : launch_stream_fwd<float, false>(x, scale, bias, out, mean, rstd, workspace, B, S, C, G, eps, nsplit, st);
 }
 
-// Streaming backward.  x, g, mean, rstd, dx, dscale, dbias as in phd_gn_bwd;
-// workspace: f32, 2 * B * nsplit * C + 2 * B * C + 2 * B * G elements.  Same
-// constraints and return convention as phd_gn_stream_fwd.
+// Streaming backward, two launches.  x, g, mean, rstd, dx, dscale, dbias as
+// in phd_gn_bwd; workspace: f32, 2 * B * (nsplit / kc) * C +
+// 2 * B * C + 2 * B * G elements; counters: B + 1 zeroed unsigned tickets,
+// left zeroed.  nsplit: splits of S a sample in the sums pass, in clusters
+// of kc <= 8 blocks (nsplit a multiple of kc); R: rows a block of it takes
+// at once ((C / 8) R threads); nsplit_dx: the dx pass's splits.  Same return
+// convention as phd_gn_stream_fwd.
 extern "C" int phd_gn_stream_bwd(const void* x, const void* g, int dtype, const float* scale,
                                  const float* bias, const float* mean, const float* rstd,
                                  void* dx, float* dscale, float* dbias, float* workspace,
-                                 int B, int S, int C, int G, int silu, int nsplit,
-                                 void* stream) {
-  const int err = check_stream(B, S, C, G, nsplit);
+                                 unsigned* counters, int B, int S, int C, int G, int silu,
+                                 int nsplit, int kc, int R, int nsplit_dx, void* stream) {
+  const int err = check_stream_bwd(B, S, C, G, nsplit, kc, R, nsplit_dx);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == 1)
-    return silu ? launch_stream_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st)
-                : launch_stream_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st);
-  return silu ? launch_stream_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st)
-              : launch_stream_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, B, S, C, G, nsplit, st);
+    return silu ? launch_stream_bwd<bf16, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, counters, B, S, C, G, nsplit, kc, R, nsplit_dx, st)
+                : launch_stream_bwd<bf16, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, counters, B, S, C, G, nsplit, kc, R, nsplit_dx, st);
+  return silu ? launch_stream_bwd<float, true>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, counters, B, S, C, G, nsplit, kc, R, nsplit_dx, st)
+              : launch_stream_bwd<float, false>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, workspace, counters, B, S, C, G, nsplit, kc, R, nsplit_dx, st);
 }

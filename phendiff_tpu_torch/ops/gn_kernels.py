@@ -12,8 +12,9 @@ picks the launch shape.  Where it has none (a tile whose rows do not fit 16
 blocks' shared memory, such as the SD VAE's 512 px maps, or a group wider
 than 256 channels), the call takes the streaming variant of the same
 source: a split statistics pass, a fixed-order combine, and a second read
-of x that normalises (the backward: split sums, a combine, a second read
-of x and g for dx).  ``gn_route`` says which a shape takes.
+of x that normalises (the backward: split sums whose last block per sample
+combines them, then a second read of x and g for dx).  ``gn_route`` says
+which a shape takes.
 
 ``fused_group_norm`` launches the forward kernel for CUDA tensors (which
 writes its output in the input's dtype, as every UNet call asks) and uses
@@ -24,8 +25,8 @@ mean and rstd, and the backward is the backward kernel
 states in plain PyTorch.  The TPU package has no backward kernel (its
 ``_fused_gn_bwd`` recomputes the XLA reference under ``jax.vjp``).
 ``fused_group_norm.launches`` and ``fused_group_norm_bwd.launches`` count
-cluster-kernel launches, ``.stream_launches`` the streaming variant's calls
-(three kernels a forward call, five a backward call).
+cluster-kernel launches (one a call), ``.stream_launches`` the streaming
+variant's calls (three kernels a forward call, two a backward call).
 
 ``channel_moments`` is the counterpart of ``m_pallas`` in
 ``tools/bench_gn_moments.py``: per-channel f32 sum x and sum x^2 of a
@@ -58,32 +59,76 @@ MAX_CLUSTER = 16  # blocks a cluster; above 8 is non-portable (H100 allows 16)
 MAX_TILE_CHANNELS = 256
 
 
-# Threads a block of either cluster kernel.
+# Threads a block of the forward cluster kernel.
 THREADS = 256
 
 
+# The backward's blocks: threads, the narrowest tile row in bytes, at most
+# this many bytes of x and g a block, and the samples a block takes chosen
+# so that a call's blocks fit one wave of this many (three blocks an SM on
+# the H100's 132 SMs).
+_BWD_THREADS = 256
+_BWD_ROW_BYTES = 32
+_BWD_BLOCK_BYTES = 96 * 1024
+_BWD_WAVE = 3 * 132
+# A cluster of this many blocks, each taking more than a third of an SM's
+# shared memory, splits again into twice as many blocks of half the threads
+# (measured on the SD UNet's [8, 4096, 320] and [8, 4096, 640] maps, PERF.md;
+# at 2 and 4 blocks the split was slower).
+_BWD_SPLIT_AGAIN = 8
+
+
 class GnPlan(NamedTuple):
-    """Launch shape of the cluster kernels for one (S, C, G, dtype)."""
+    """Launch shape of the cluster kernels for one (S, C, G, dtype) and, in
+    the backward, batch."""
 
     cb: int  # channels a tile: whole groups, a multiple of 8 dividing C
     k: int  # blocks a cluster; the tile's S rows split k ways
-    rows: int  # rows a block holds (the last block may hold fewer)
+    rows: int  # rows of a sample a block holds (the last block may hold fewer)
     threads: int
     smem: int  # dynamic shared memory a block, bytes
+    nb: int = 1  # samples a block holds (the backward, k = 1 only)
 
 
-def _smem_bytes(arrays: int, rows: int, cb: int, itemsize: int, threads: int) -> int:
-    """Shared memory of one block, as the kernels lay it out: ``arrays``
-    tiles with room for whole TMA boxes of up to 256 rows x cb, each
-    128-byte aligned, then the f32 reduction scratch, a ticket and 64
-    mbarriers."""
+def _tile_bytes(rows: int, cb: int, itemsize: int) -> int:
+    """Bytes of one tile of ``rows`` x ``cb``: whole TMA boxes of up to 256
+    rows, 128-byte aligned (csrc ``tile_bytes``)."""
     box = min(rows, 256)
-    tile = -(-(-(-rows // box) * box * cb * itemsize) // 128) * 128
-    return arrays * tile + 4 * (2 * (threads // 32) * cb + 6 * cb) + 16 + 8 * 64
+    return -(-(-(-rows // box) * box * cb * itemsize) // 128) * 128
 
 
-@functools.lru_cache(maxsize=256)
-def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) -> GnPlan:
+def _smem_bytes(rows: int, cb: int, itemsize: int, threads: int) -> int:
+    """Shared memory of one forward block, as the kernel lays it out: its
+    tile, then the f32 reduction scratch, a ticket and 64 mbarriers."""
+    return _tile_bytes(rows, cb, itemsize) + 4 * (2 * (threads // 32) * cb + 6 * cb) + 16 + 8 * 64
+
+
+def _bwd_smem_bytes(nb: int, rows: int, cb: int, itemsize: int, threads: int) -> int:
+    """Shared memory of one backward block holding ``nb`` samples of
+    ``rows`` rows: the x and g tiles, then the f32 reduction scratch, scale
+    and per-(sample, channel) sums and coefficients, a ticket and 64
+    mbarriers (csrc ``bwd_smem_bytes``)."""
+    return (2 * _tile_bytes(nb * rows, cb, itemsize)
+            + 4 * (2 * (threads // 32) * cb + 3 * cb + 6 * nb * cb) + 16 + 8 * 64)
+
+
+def _samples_per_block(batch: int, slices: int, sample_bytes: int) -> int:
+    """Samples a backward block holds where one sample's tile fits a block:
+    the fewest that bring the call's blocks within ``_BWD_WAVE``, as many
+    as ``_BWD_BLOCK_BYTES`` allows; below the 8 warps of a block, a power of
+    two, so the warps split evenly over them."""
+    most = max(1, min(batch, _BWD_BLOCK_BYTES // sample_bytes))
+    nb = min(most, -(-batch * slices // _BWD_WAVE))
+    if nb < _BWD_THREADS // 32:
+        nb = 1 << (nb - 1).bit_length()
+        while nb > most:
+            nb //= 2
+    return nb
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False,
+            batch: int = 1) -> GnPlan:
     """The forward's (or, with ``backward``, the backward's) launch shape.
 
     A tile is one sample x ``cb`` channels: the fewest whole groups that
@@ -94,9 +139,12 @@ def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) 
     until a block holds about 64 KB in the forward, 96 KB in the backward,
     so a few blocks share an SM; ``k`` stops at 16, where a block's share
     may exceed that.  Wider rows suit the forward, larger blocks the
-    backward (PERF.md, section 6).  Raises ValueError where no plan fits (a
-    tile wider than 256 channels, or rows that do not fit 16 blocks' shared
-    memory).
+    backward (PERF.md, section 6).  Where a sample's tile fits one backward
+    block (``k`` = 1), a block holds ``nb`` samples of ``batch``
+    (``_samples_per_block``), so small maps run in one wave of blocks; the
+    route (``gn_route``) does not depend on ``batch``.  Raises ValueError
+    where no plan fits (a tile wider than 256 channels, or rows that do not
+    fit 16 blocks' shared memory).
     """
     if c % groups or c % 8:
         raise ValueError(
@@ -106,7 +154,8 @@ def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) 
     if not widths:
         raise ValueError(f"group_norm kernels hold at most {MAX_TILE_CHANNELS} channels a tile; "
                          f"C={c}, G={groups} needs {unit}")
-    block_bytes, row_bytes = (96 * 1024, 32) if backward else (64 * 1024, 64)
+    block_bytes, row_bytes = ((_BWD_BLOCK_BYTES, _BWD_ROW_BYTES) if backward
+                              else (64 * 1024, 64))
     first = next((i for i, m in enumerate(widths) if m * itemsize >= row_bytes),
                  len(widths) - 1)
     arrays = 2 if backward else 1
@@ -117,9 +166,25 @@ def gn_plan(s: int, c: int, groups: int, itemsize: int, backward: bool = False) 
             k *= 2
         rows = -(-s // k)
         k = -(-s // rows)  # no empty block
-        smem = _smem_bytes(arrays, rows, cb, itemsize, THREADS)
+        if not backward:
+            smem = _smem_bytes(rows, cb, itemsize, THREADS)
+            if smem <= SMEM_LIMIT:
+                return GnPlan(cb, k, rows, THREADS, smem)
+            continue
+        nb = 1
+        threads = _BWD_THREADS
+        if (k == _BWD_SPLIT_AGAIN and 2 * k <= s
+                and _bwd_smem_bytes(1, rows, cb, itemsize, threads) > SMEM_LIMIT // 3):
+            k, threads = 2 * k, threads // 2
+            rows = -(-s // k)
+            k = -(-s // rows)
+        if k == 1 and _bwd_smem_bytes(1, rows, cb, itemsize, threads) <= SMEM_LIMIT:
+            nb = _samples_per_block(batch, c // cb, tile + 24 * cb)
+            while _bwd_smem_bytes(nb, rows, cb, itemsize, threads) > SMEM_LIMIT:
+                nb = nb - 1 if nb > threads // 32 else nb // 2
+        smem = _bwd_smem_bytes(nb, rows, cb, itemsize, threads)
         if smem <= SMEM_LIMIT:
-            return GnPlan(cb, k, rows, THREADS, smem)
+            return GnPlan(cb, k, rows, threads, smem, nb)
     raise ValueError(f"group_norm kernels: S={s} rows of {widths[0]} channels do not fit "
                      f"{MAX_CLUSTER} blocks' shared memory ({smem} > {SMEM_LIMIT} bytes)")
 
@@ -233,7 +298,7 @@ def _bwd_entry():
     fn = _build.load("group_norm_silu").phd_gn_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
         + [ctypes.c_void_p]
     )
     return fn
@@ -255,7 +320,7 @@ def _stream_bwd_entry():
     fn = _build.load("group_norm_silu").phd_gn_stream_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
         + [ctypes.c_void_p]
     )
     return fn
@@ -280,11 +345,17 @@ def _moments_entry():
     return fn
 
 
+# Tickets the backward kernels take: one a channel slice in the cluster
+# kernel (at most C / 8), one a sample and one more in the streaming variant
+# (B + 1, B < 65536).
+_TICKETS = 1 << 16
+
+
 @functools.cache
 def _tickets(device: torch.device) -> torch.Tensor:
-    """The backward's per-channel-slice tickets: zeroed once, and left
-    zeroed by every launch."""
-    return torch.zeros(_MAX_CHANNELS // 8, dtype=torch.int32, device=device)
+    """The backward kernels' tickets: zeroed once, and left zeroed by every
+    launch."""
+    return torch.zeros(_TICKETS, dtype=torch.int32, device=device)
 
 
 def _check_input(x: torch.Tensor, num_groups: int = 1) -> torch.Tensor:
@@ -310,9 +381,9 @@ def _stream(x: torch.Tensor):
 def max_active_clusters(b, s, c, num_groups, dtype, act=None, backward=False) -> int:
     """How many clusters of the plan for this call the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
-    plan = gn_plan(s, c, num_groups, dtype.itemsize, backward)
-    n = _occupancy_entry()(int(backward), _DTYPE_CODES[dtype], int(act == "silu"), b, c,
-                           plan.cb, plan.k, plan.threads, plan.smem)
+    plan = gn_plan(s, c, num_groups, dtype.itemsize, backward, b if backward else 1)
+    n = _occupancy_entry()(int(backward), _DTYPE_CODES[dtype], int(act == "silu"),
+                           -(-b // plan.nb), c, plan.cb, plan.k, plan.threads, plan.smem)
     if n < 0:
         _build.check(-n, "group_norm occupancy query")
     return n
@@ -360,9 +431,11 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
 
 def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None):
     """(dx in x's dtype, dscale, dbias in f32) from the backward kernel (the
-    cluster one or the streaming variant, as ``gn_route`` says), for CUDA
-    inputs: x as the forward took it, the output gradient ``g``, and the
-    forward's mean and rstd ([B, G], ``_launch``).  Deterministic."""
+    cluster one, with ``gn_plan``'s launch shape for this batch, or the
+    streaming variant, as ``gn_route`` says), for CUDA inputs: x as the
+    forward took it, the output gradient ``g``, and the forward's mean and
+    rstd ([B, G], ``_launch``).  Deterministic; allocates only outputs and
+    workspace, and never synchronises the host."""
     b, s, c = x.shape
     if act not in (None, "silu"):
         raise ValueError(f"unknown activation: {act}")
@@ -380,26 +453,27 @@ def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None)
     dx = torch.empty_like(x)
     dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
     if gn_route(s, c, num_groups, x.element_size(), backward=True) == "stream":
-        nsplit = _stream_splits(b, s, c, x.element_size())
-        work = torch.empty(2 * b * nsplit * c + 2 * b * c + 2 * b * num_groups,
+        nsplit, kc, rows, nsplit_dx = _stream_bwd_plan(b, s, c, x.element_size())
+        work = torch.empty(2 * b * (nsplit // kc) * c + 2 * b * c + 2 * b * num_groups,
                            dtype=torch.float32, device=x.device)
         err = _stream_bwd_entry()(
             x.data_ptr(), g.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(),
             bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
             dparams[0].data_ptr(), dparams[1].data_ptr(), work.data_ptr(),
-            b, s, c, num_groups, int(act == "silu"), nsplit, _stream(x),
+            _tickets(x.device).data_ptr(), b, s, c, num_groups, int(act == "silu"), nsplit, kc,
+            rows, nsplit_dx, _stream(x),
         )
         _build.check(err, "group_norm_silu_bwd stream launch")
         fused_group_norm_bwd.stream_launches += 1
         return dx, dparams[0], dparams[1]
-    plan = gn_plan(s, c, num_groups, x.element_size(), backward=True)
-    sums = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    plan = gn_plan(s, c, num_groups, x.element_size(), backward=True, batch=b)
+    sums = torch.empty((2, -(-b // plan.nb), c), dtype=torch.float32, device=x.device)
     err = _bwd_entry()(
         x.data_ptr(), g.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dparams[0].data_ptr(),
         dparams[1].data_ptr(), sums.data_ptr(), _tickets(x.device).data_ptr(),
-        b, s, c, num_groups, int(act == "silu"), plan.cb, plan.k, plan.threads, plan.smem,
-        _stream(x),
+        b, s, c, num_groups, int(act == "silu"), plan.cb, plan.k, plan.nb, plan.threads,
+        plan.smem, _stream(x),
     )
     _build.check(err, "group_norm_silu_bwd launch")
     fused_group_norm_bwd.launches += 1
@@ -465,6 +539,38 @@ def _stream_splits(b: int, s: int, c: int, itemsize: int) -> int:
     count, but at most one per 256 bytes of a channel's column, so the f32
     partial sums (8 bytes a channel a split) stay within 1/32 of x."""
     return max(1, min(_num_splits(b, s, c), s * itemsize // 256))
+
+
+# The streaming backward: a sums grid of at most _STREAM_SMALL_GRID blocks
+# (fewer than the H100's SMs, as at batch 1) takes blocks of 512 threads,
+# more loads in flight where there are few blocks, and a larger one keeps
+# 256, two blocks an SM.  A grid within two such waves first adds its sums
+# over clusters of 8 blocks, so the last block of a sample reads 8 times
+# fewer partial sums; a larger grid does without (co-scheduling clusters
+# cost it more than the last blocks' reads).  Such a grid also takes at
+# most _STREAM_SMALL_SPLITS splits a sample (measured best at batch 1 on
+# the SD maps, PERF.md): fewer, wider blocks and a shorter last block.
+_STREAM_SMALL_GRID = 132
+_STREAM_SMALL_SPLITS = 64
+
+
+def _stream_bwd_plan(b: int, s: int, c: int, itemsize: int):
+    """(nsplit, kc, R, nsplit_dx) of the streaming backward: the sums pass's
+    splits of S a sample (``_stream_splits``, a multiple of 8 from 8 on),
+    the clusters of kc blocks that first add their sums, rows a block pass
+    of it (R rows of C/8 threads), and the dx pass's splits (as many as the
+    sums pass's, more at small batch: up to 256 blocks of at least 16
+    rows)."""
+    nsplit = _stream_splits(b, s, c, itemsize)
+    if b * nsplit <= 2 * _STREAM_SMALL_GRID:
+        nsplit = min(nsplit, _STREAM_SMALL_SPLITS)
+    if nsplit > 8:
+        nsplit -= nsplit % 8
+    grid = b * nsplit
+    rows = max(1, (512 if grid <= _STREAM_SMALL_GRID else 256) // (c // 8))
+    kc = min(nsplit, 8) if grid <= 2 * _STREAM_SMALL_GRID else 1
+    nsplit_dx = max(nsplit, min(-(-s // 16), -(-256 // b)))
+    return nsplit, kc, rows, nsplit_dx
 
 
 def channel_moments_plain(x: torch.Tensor, tile: int = 512):

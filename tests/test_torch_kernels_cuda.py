@@ -214,6 +214,73 @@ def test_group_norm_bwd_kernel_matches_plain(cuda, s, c, groups, act):
             assert _rel_l2(a, want) <= GN_BWD_PARAM_REL_L2
 
 
+# (B, S, C, G) of the batched regimes: blocks that hold many samples of a
+# small map (SD-2.1's inner levels at batch 64), the batch reduction across
+# sample groups and across clusters, and a ragged batch.
+GN_BWD_BATCH_SHAPES = [(64, 4, 1280, 32), (64, 16, 2560, 32), (64, 256, 960, 32),
+                       (33, 4, 1280, 32), (33, 256, 320, 32), (33, 4096, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,groups", GN_BWD_BATCH_SHAPES)
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_bwd_kernel_matches_plain_across_the_batch(cuda, b, s, c, groups, act):
+    from phendiff_tpu_torch.ops.gn_kernels import gn_plan, gn_route
+
+    g = torch.Generator(device=cuda).manual_seed(b + s + c)
+    x32 = torch.randn(b, s, c, generator=g, device=cuda) * 2 + 0.5
+    g32 = torch.randn(b, s, c, generator=g, device=cuda)
+    scale = torch.randn(c, generator=g, device=cuda)
+    bias = torch.randn(c, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        isz = torch.finfo(dtype).bits // 8
+        assert gn_route(s, c, groups, isz, backward=True) == "cluster"
+        if dtype == torch.bfloat16 and s <= 16:  # blocks of several whole samples
+            assert gn_plan(s, c, groups, isz, True, b).nb > 1
+        x, gout = x32.to(dtype), g32.to(dtype)
+        mean, rstd = group_stats_plain(x, groups, 1e-5)
+        kw = dict(num_groups=groups, act=act)
+        before = fused_group_norm_bwd.launches
+        got = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **kw)
+        again = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **kw)
+        torch.cuda.synchronize()
+        assert fused_group_norm_bwd.launches == before + 2  # one launch a call
+        ref = group_norm_bwd_plain(x, gout, scale, bias, mean, rstd, **kw)
+        assert all(torch.equal(a, b2) for a, b2 in zip(got, again))  # deterministic
+        assert _rel_l2(got[0], ref[0]) <= GN_BWD_DX_REL_L2[dtype]
+        for a, want in zip(got[1:], ref[1:]):
+            assert _rel_l2(a, want) <= GN_BWD_PARAM_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_stream_bwd_at_the_f32_sd_map(cuda, act):
+    """The f32 SD UNet map that no cluster holds ([1, 4096, 960]) takes the
+    streaming backward on its own: one count a call, bit-equal calls, the
+    plain version's values."""
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+
+    assert gn_route(4096, 960, 32, 4, backward=True) == "stream"
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(1, 4096, 960, generator=g, device=cuda) * 2 + 0.5
+    gout = torch.randn(1, 4096, 960, generator=g, device=cuda)
+    scale = torch.randn(960, generator=g, device=cuda)
+    bias = torch.randn(960, generator=g, device=cuda)
+    mean, rstd = group_stats_plain(x, 32, 1e-6)
+    kw = dict(num_groups=32, act=act)
+    before = (fused_group_norm_bwd.launches, fused_group_norm_bwd.stream_launches)
+    got = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **kw)
+    again = fused_group_norm_bwd(x, gout, scale, bias, mean, rstd, **kw)
+    torch.cuda.synchronize()
+    assert (fused_group_norm_bwd.launches, fused_group_norm_bwd.stream_launches) == (
+        before[0], before[1] + 2)
+    ref = group_norm_bwd_plain(x, gout, scale, bias, mean, rstd, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_l2(got[0], ref[0]) <= GN_BWD_DX_REL_L2[torch.float32]
+    for a, want in zip(got[1:], ref[1:]):
+        assert _rel_l2(a, want) <= GN_BWD_PARAM_REL_L2
+
+
 # (S, C, G, streamed by gn_route itself): the SD VAE's 512 px maps stream
 # on their own; smaller maps are sent down the streaming variant by hand.
 GN_STREAM_SHAPES = [(262144, 128, 32, True), (4096, 960, 32, False), (300, 2560, 32, False),

@@ -326,26 +326,85 @@ def test_group_norm_bwd_plain_matches_jax_vjp_and_autograd(c, groups, near_const
         np.testing.assert_allclose(a.float().numpy(), leaf.grad.float().numpy(), **tol)
 
 
+def _check_gn_plan(p, s, c, groups, itemsize, backward, batch=1):
+    """A launch plan's invariants, as csrc/group_norm_silu.cu checks them:
+    whole groups in a tile, S and the batch covered, shared memory within
+    the limit and as the kernel lays it out, tickets within the buffer."""
+    from phendiff_tpu_torch.ops.gn_kernels import (
+        _TICKETS, MAX_CLUSTER, SMEM_LIMIT, _bwd_smem_bytes, _smem_bytes)
+
+    assert p.cb % 8 == 0 and p.cb % (c // groups) == 0 and c % p.cb == 0  # whole groups
+    assert 1 <= p.k <= MAX_CLUSTER and (p.k - 1) * p.rows < s <= p.k * p.rows  # covers S
+    assert p.threads % 32 == 0 and p.threads <= (256 if backward else 512)
+    assert p.smem <= SMEM_LIMIT
+    if not backward:
+        assert p.nb == 1 and _smem_bytes(p.rows, p.cb, itemsize, p.threads) == p.smem
+        return
+    assert _bwd_smem_bytes(p.nb, p.rows, p.cb, itemsize, p.threads) == p.smem
+    nw = p.threads // 32
+    assert 1 <= p.nb <= batch and (p.k == 1 or p.nb == 1)  # covers the batch
+    assert p.nb >= nw or nw % p.nb == 0  # the warps split evenly over the samples
+    assert -(-p.nb * p.rows // 256) <= 64  # TMA boxes of 256 rows, 64 mbarriers
+    assert c // p.cb <= _TICKETS  # one ticket a channel slice
+
+
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_gn_plan_fits_every_main_path_call(itemsize, backward):
     from phendiff_tpu_torch.obs.forward_profile import group_norm_calls
-    from phendiff_tpu_torch.ops.gn_kernels import MAX_CLUSTER, SMEM_LIMIT, _smem_bytes
 
     calls = group_norm_calls()
     assert sum(calls.values()) == 41 and len({(s, c) for s, c, _, _ in calls}) == 12
     for s, c, groups, _ in calls:
-        p = gn_plan(s, c, groups, itemsize, backward)
-        assert p.cb % 8 == 0 and p.cb % (c // groups) == 0 and c % p.cb == 0  # whole groups
-        assert p.cb * itemsize >= 32  # a row is at least one sector
-        assert 1 <= p.k <= MAX_CLUSTER and (p.k - 1) * p.rows < s <= p.k * p.rows  # covers S
-        assert p.threads % 32 == 0 and p.threads <= 512
-        assert _smem_bytes(2 if backward else 1, p.rows, p.cb, itemsize, p.threads) == p.smem
-        assert p.smem <= SMEM_LIMIT
+        for batch in (1, 4, 32):
+            p = gn_plan(s, c, groups, itemsize, backward, batch)
+            _check_gn_plan(p, s, c, groups, itemsize, backward, batch)
+            assert p.cb * itemsize >= 32  # a row is at least one sector
+            # the route, and the tile's width and split, do not depend on the batch
+            assert p[:3] == gn_plan(s, c, groups, itemsize, backward)[:3]
     with pytest.raises(ValueError):  # rows beyond 16 blocks' shared memory
         gn_plan(1 << 20, 192, 32, itemsize, backward)
     with pytest.raises(ValueError):  # a tile wider than 256 channels
         gn_plan(64, 1024, 2, itemsize, backward)
+
+
+@pytest.mark.parametrize("batch", [8, 32, 64])
+@pytest.mark.parametrize("latent", [16, 64])
+def test_gn_backward_plan_fits_every_sd_unet_call(latent, batch):
+    """SD-2.1's UNet backward calls (the guided step and the fine-tune step
+    differentiate them) at the paths' batches: a plan whose blocks hold
+    whole samples where a sample's tile fits one block, the batch covered
+    once, and no more blocks than one wave where one wave can hold them."""
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls
+    from phendiff_tpu_torch.ops.gn_kernels import _BWD_BLOCK_BYTES, _BWD_WAVE, gn_route
+
+    calls = sd_unet_calls(SDUNetConfig(), latent, torch.bfloat16)["group_norm"]
+    assert sum(calls.values()) == 61
+    for s, c, groups, _, isz in calls:
+        if gn_route(s, c, groups, isz, backward=True) != "cluster":
+            continue
+        p = gn_plan(s, c, groups, isz, True, batch)
+        _check_gn_plan(p, s, c, groups, isz, True, batch)
+        groups_of_samples = -(-batch // p.nb)
+        assert (groups_of_samples - 1) * p.nb < batch  # no empty block
+        blocks = p.k * (c // p.cb) * groups_of_samples
+        more = p.nb + 1 if p.nb >= 8 else 2 * p.nb  # the next count the warps split over
+        room = more <= batch and more * (2 * s * p.cb * isz + 24 * p.cb) <= _BWD_BLOCK_BYTES
+        if p.k == 1 and room:  # a block could take more samples: the call fits one wave
+            assert blocks <= _BWD_WAVE, (s, c, batch, p)
+
+
+def test_gn_stream_backward_plan_takes_two_launches_in_whole_clusters():
+    from phendiff_tpu_torch.ops.gn_kernels import _stream_bwd_plan
+
+    for b, s, c, isz in [(1, 4096, 960, 4), (1, 4096, 1920, 4), (8, 262144, 128, 2),
+                         (8, 262144, 256, 4), (1, 16384, 960, 2), (2, 100, 48, 4),
+                         (3, 37, 2560, 2)]:
+        nsplit, kc, rows, nsplit_dx = _stream_bwd_plan(b, s, c, isz)
+        assert 1 <= kc <= 8 and nsplit % kc == 0 and 1 <= nsplit <= s  # whole clusters
+        assert 1 <= c // 8 * rows <= 512 and 4 * 2 * (rows + 1) * c <= 232448
+        assert 1 <= nsplit_dx <= s and nsplit_dx * b <= 2048 + b
 
 
 def _preset_records(dtype):
@@ -374,7 +433,7 @@ def _preset_records(dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_every_preset_call_has_a_kernel_plan_the_stream_variant_or_the_counted_route(dtype):
     from phendiff_tpu_torch.ops import attention
-    from phendiff_tpu_torch.ops.gn_kernels import MAX_CLUSTER, SMEM_LIMIT, _smem_bytes, gn_route
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
 
     itemsize = torch.finfo(getattr(torch, dtype)).bits // 8
     records = _preset_records(getattr(torch, dtype))
@@ -385,11 +444,9 @@ def test_every_preset_call_has_a_kernel_plan_the_stream_variant_or_the_counted_r
             assert isz == itemsize, name
             for backward in (False, True):
                 if gn_route(s, c, groups, isz, backward) == "cluster":
-                    p = gn_plan(s, c, groups, isz, backward)
-                    assert 1 <= p.k <= MAX_CLUSTER and (p.k - 1) * p.rows < s <= p.k * p.rows
-                    assert c % p.cb == 0 and p.cb % (c // groups) == 0
-                    assert _smem_bytes(2 if backward else 1, p.rows, p.cb, isz,
-                                       p.threads) == p.smem <= SMEM_LIMIT
+                    for batch in (1, 8, 64):
+                        p = gn_plan(s, c, groups, isz, backward, batch)
+                        _check_gn_plan(p, s, c, groups, isz, backward, batch)
                 else:  # the streaming variant's constraints (csrc check_stream)
                     assert c % 8 == 0 and c % groups == 0 and c // 8 <= 512, (name, s, c)
                     streamed.add((name, s, c, backward))
