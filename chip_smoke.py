@@ -61,7 +61,17 @@ failure exits non-zero before the final line:
     one eval (one batch of 32 per class, 10 steps), best model saved;
 15. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
     kernel against its plain version at [32, 8192, 128] bf16;
-16. sd_kernel_check: full-width SD-2.1's self-attention shapes (heads of
+16. serving: ``phendiff_tpu_torch.serving.InferenceEngine`` over a copy of
+    the transfer path's pipeline, ``max_batch`` 32, 50 steps: one CUDA graph
+    captured per op (generate, transfer, invert) in ``warmup()``, each full
+    request bit-equal to the eager op on the same inputs (replayed after
+    other work has allocated and freed memory), a 5-image request equal to
+    the full one's rows, each capture's launches exact (600 attention and
+    4100 GroupNorm a transfer, half that a generate or invert), requests/s
+    and a replay's device time, peak memory, and ``swap_params`` to the
+    seed-1 pipeline bit-equal to the eager transfer with its weights, with
+    no new capture;
+17. sd_kernel_check: full-width SD-2.1's self-attention shapes (heads of
     64) at 128 px, batch 64 and 512 px, batch 8, and the train step's at 128
     px, batch 32, both attention kernels against their plain versions and
     SDPA; the cluster GroupNorm kernels at the SD UNet's and the VAE's
@@ -69,40 +79,47 @@ failure exits non-zero before the final line:
     forward and backward, against the plain versions at every (S, C, act)
     of the CPU fault test's list (calls no cluster plan fits: the SD VAE's
     512 px maps among them);
-17. sd_forward_check: one full-width SD UNet forward (latent 16, batch 2)
+18. sd_forward_check: one full-width SD UNet forward (latent 16, batch 2)
     and VAE encode + decode at 128 px (batch 2) and 512 px (batch 1),
     kernels against plain versions in float32, and in bf16 against the
     float32 plain output no further than the bf16 plain path;
-18. sd_path and sd_path_512: ``SDImg2ImgPipeline.init_random`` (full-width
+19. sd_path and sd_path_512: ``SDImg2ImgPipeline.init_random`` (full-width
     SD-2.1, seed 0, bf16) and a 50-step DDIB class transfer from images
     through the VAE at 128 px, batch 64 and 512 px, batch 8
     (``bench.py::bench_sd(16, 64)`` and ``bench_sd(64, 8)``'s shapes), with
     exact launches per kernel, streaming variant and plain-attention route
     against what the recorded calls predict, and no call of a kernel's plain
     version on the card;
-19. sd_guided_check: one guided step at latent 16, batch 4 in bf16, and at
+20. sd_guided_check: one guided step at latent 16, batch 4 in bf16, and at
     latent 64, batch 1 in float32 (its one streaming backward), model output
     and input gradient against the plain path;
-20. sd_comparison: the SD pipeline saved with ``save_pretrained`` and run
+21. sd_comparison: the SD pipeline saved with ``save_pretrained`` and run
     by ``ComparisonExperiment`` over 2 x 32 random 128 px PNGs, all four
     methods, 10 steps, batch 32; ISC and KID (FID off: its host ``sqrtm``
     already takes most of the DDIM comparison phase);
-21. sd_train_check: one full-width SD fine-tune step (``for_sd_pipeline``'s:
+22. sd_serving: the engine over the full-width SD pipeline at sd_path's
+    shape (128 px, ``max_batch`` 64) and sd_path_512's (512 px, 8; its
+    graphs hold the streaming GroupNorm launches of the VAE): the same
+    checks, the transfer held bit-equal to that phase's output, launches
+    against the recorded calls (the UNet's per step, the VAE's encode and
+    decode), ``swap_params`` to seed 1 (and at 128 px back to seed 0,
+    which restores sd_path's output);
+23. sd_train_check: one full-width SD fine-tune step (``for_sd_pipeline``'s:
     frozen bf16 VAE encode, f32 master weights, bf16 compute) at latent 16,
     batch 4, on the kernels and on the plain versions, each held against
     the same step in f32: loss, gradient norm and the UNet's and class
     embedding's gradients; the same step with remat against without; one
     step with the VAE's encoder trained (its gradients finite and nonzero,
     the decoder's zero);
-22. sd_train_path: SD fine-tune steps at 128 px, batch 32
+24. sd_train_path: SD fine-tune steps at 128 px, batch 32
     (``bench.py::bench_sd_train``'s shape, plus the frozen VAE encode): 10
     timed steps without remat and 3 with it, samples/s, peak memory, device
     time against wall time, and exact launches against the recorded calls
     of one step (``obs.forward_profile.sd_train_calls``: the blocks'
     recomputed forwards under remat);
-23. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
+25. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
     DDIM with ``examples/launch_train_ddim.sh``'s flags and ``--debug``,
-    and an SD fine-tune of the folder phase 20 saved (3 steps, one eval);
+    and an SD fine-tune of the folder phase 21 saved (3 steps, one eval);
     each exits 0 with finite losses, a checkpoint and a save that reloads.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
@@ -240,6 +257,12 @@ SD_BF16_VS_PLAIN = 1.25
 # and its gradients are held as the kernel path's.
 SD_TRAIN_FLOOR = 1e-3
 SD_REMAT_LOSS_REL = 1e-6
+# The serving engine: a partial request's rows, and timed full requests per
+# op after the checked one.  A replay runs the eager op's kernels on the
+# same inputs and every kernel is deterministic, so replays are held
+# bit-equal to eager runs.
+SERVE_PARTIAL = 5
+SERVE_KEYS = ("flash_attn_fwd", "group_norm_silu", "group_norm_silu_stream")
 
 
 def emit(obj) -> None:
@@ -1412,7 +1435,8 @@ def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res
     b, res = SD_RUNS[name]
     lat_res = res // 8
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    images = torch.rand(b, res, res, 3, generator=gen, device="cuda") * 2 - 1
+    images01 = torch.rand(b, res, res, 3, generator=gen, device="cuda")
+    images = images01 * 2 - 1
     src = pipe.encode_class(torch.zeros(b, dtype=torch.long))
     tgt = pipe.encode_class(torch.ones(b, dtype=torch.long))
     den = pipe.denoiser_fn()
@@ -1452,7 +1476,9 @@ def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res
         fail(f"{name}: output not finite or of the wrong shape")
     if launches != want or plain:
         fail(f"{name}: launches {launches} != expected {want}, or plain calls {dict(plain)}")
-    return rec
+    # the transfer's inputs (source class 0, target 1) and its [0, 1] images,
+    # which the sd_serving phase's engine must reproduce
+    return rec, (images01.cpu().numpy(), ((img.float() / 2 + 0.5).clamp(0, 1)).cpu().numpy())
 
 
 def phase_sd_guided_check(torch, pipe, pipe32, unet_calls_by_latent, unet32_calls_latent64):
@@ -1805,6 +1831,232 @@ def phase_train_cli(torch, sd_folder, data):
     return rec
 
 
+def serving_run(torch, name, eng, inputs, refs, want_launches, env, swap=None, timed=2):
+    """Drive an engine's ops as a client would: ``warmup()`` (a capture per
+    op, with no call of a kernel's plain version), the eager op on the same
+    inputs (``refs[op]()``: other work allocating and freeing memory between
+    capture and replay), a full request held bit-equal to it, a partial
+    request held to the full one's rows, each capture's launches against
+    ``want_launches[op]``, then ``timed`` full requests (wall) and one bare
+    replay between CUDA events (device).  With ``swap = (pipeline, ref)``:
+    ``swap_params`` and a transfer held bit-equal to ``ref()``, with no new
+    capture."""
+    import numpy as np
+
+    images, src, labels, seed = inputs
+    b = eng.config.max_batch
+    requests = {"transfer": lambda k: eng.transfer(images[:k], src[:k]),
+                "generate": lambda k: eng.generate(labels[:k], seed=seed),
+                "invert": lambda k: eng.invert(images[:k], src[:k])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_plain_calls() as plain:
+        warm = eng.warmup()
+    rec = {"phase": name, "max_batch": b, "steps": eng.config.num_inference_steps,
+           "warmup_s": warm, "plain_version_calls": dict(plain), "ops": {}}
+    for op in eng.config.ops:
+        want = refs[op]()
+        full = requests[op](b)
+        part = requests[op](SERVE_PARTIAL)
+        walls = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            requests[op](b)
+            walls.append(time.perf_counter() - t0)
+        graph = eng._ops[op].graph
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        request_s = sum(walls) / len(walls)
+        rec["ops"][op] = {
+            "bit_equal": bool(np.array_equal(full, want)),
+            "max_abs_err": float(np.abs(full - want).max()),
+            "partial_bit_equal": bool(np.array_equal(part, full[:SERVE_PARTIAL])),
+            "finite": bool(np.isfinite(full).all()), "shape": list(full.shape),
+            "request_s": walls, "images_per_s": b / request_s,
+            "replay_device_ms": start.elapsed_time(end),
+            "host_ms_per_request": 1e3 * request_s - start.elapsed_time(end),
+            "launches_per_replay": eng.stats()["launches_per_replay"][op],
+            "launches_expected": want_launches[op],
+        }
+    if swap is not None:
+        new, ref = swap
+        captures = eng.stats()["captures"]
+        eng.swap_params(new)
+        want = ref()
+        got = requests["transfer"](b)
+        rec["swap"] = {"bit_equal": bool(np.array_equal(got, want)),
+                       "max_abs_err": float(np.abs(got - want).max()),
+                       "recaptures": eng.stats()["captures"] - captures}
+    stats = eng.stats()
+    replays = {op: n + 1 for op, n in stats["replays"].items()}  # and the bare replay
+    rec.update({
+        "captures": stats["captures"], "replays": replays,
+        "launches": {k: sum(stats["launches_per_replay"][op][k] * n for op, n in replays.items())
+                     for k in SERVE_KEYS},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "device": env["device"], "nvidia_smi": env["nvidia_smi"],
+    })
+    emit(rec)
+    for op, r in rec["ops"].items():
+        if not (r["bit_equal"] and r["partial_bit_equal"] and r["finite"]):
+            fail(f"{name}: {op} replay differs from the eager op or its padding: {r}")
+        if r["launches_per_replay"] != r["launches_expected"]:
+            fail(f"{name}: {op} captured {r['launches_per_replay']} launches, expected "
+                 f"{r['launches_expected']}")
+    if plain or rec["captures"] != len(eng.config.ops):
+        fail(f"{name}: plain calls {dict(plain)} or captures {rec['captures']}")
+    if swap is not None and not (rec["swap"]["bit_equal"] and rec["swap"]["recaptures"] == 0):
+        fail(f"{name}: swap_params: {rec['swap']}")
+    return rec
+
+
+def phase_serving(torch, pipe, ucfg, sched_cfg, env):
+    """The serving engine over a copy of the main path's pipeline
+    (``super_small``, bf16), ``max_batch`` 32, 50 steps: each op against
+    the eager op (the main path's ``ddib``, the pipeline's ``generate`` and
+    ``invert``), then ``swap_params`` to the seed-1 pipeline."""
+    import copy
+
+    import numpy as np
+
+    from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.pipelines.transfer import ddib
+    from phendiff_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    rng = np.random.default_rng(SEED + 31)
+    images = rng.random((BATCH, RES, RES, 3), dtype=np.float32)
+    src, labels = rng.integers(0, 2, BATCH), rng.integers(0, 2, BATCH)
+    seed = SEED + 32
+
+    def refs(p):
+        x = torch.as_tensor(images * 2.0 - 1.0, device="cuda")
+        s, lab = torch.as_tensor(src, device="cuda"), torch.as_tensor(labels, device="cuda")
+        return {
+            "transfer": lambda: to_images(ddib(
+                p.denoiser_fn(), p.schedule, x, p.class_embeddings(s),
+                p.class_embeddings(1 - s), num_inference_steps=STEPS)).cpu().numpy(),
+            "generate": lambda: to_images(p.generate(
+                lab, torch.Generator(device="cuda").manual_seed(seed),
+                num_inference_steps=STEPS)).cpu().numpy(),
+            "invert": lambda: p.invert(x, s, num_inference_steps=STEPS).float().cpu().numpy(),
+        }
+
+    def fwd(forwards):
+        return {**{k: launches_for(forwards, 0)[k] for k in SERVE_KEYS[:2]},
+                "group_norm_silu_stream": 0}
+
+    pipe1 = ConditionalDDIMPipeline.init_random(
+        ucfg, sched_cfg, seed=SEED + 1, dtype=torch.bfloat16, device="cuda"
+    ).cast_params(torch.bfloat16)
+    eng = InferenceEngine(copy.deepcopy(pipe), EngineConfig(max_batch=BATCH,
+                                                            num_inference_steps=STEPS))
+    rec = serving_run(torch, "serving", eng, (images, src, labels, seed), refs(pipe),
+                      {"transfer": fwd(2 * STEPS), "generate": fwd(STEPS),
+                       "invert": fwd(STEPS)}, env, swap=(pipe1, refs(pipe1)["transfer"]),
+                      timed=3)
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vae_part_calls(torch, res: int, part: str) -> dict:
+    """The recorded calls of the full-width VAE's encode or decode alone."""
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+    from phendiff_tpu_torch.obs.forward_profile import record_calls
+
+    cfg = AutoencoderKLConfig()
+
+    def run():
+        with torch.device("meta"):
+            vae = AutoencoderKL(cfg, dtype=torch.bfloat16)
+            if part == "encode":
+                vae.encode(torch.zeros(1, res, res, cfg.in_channels))
+            else:
+                vae.decode(torch.zeros(1, res // 8, res // 8, cfg.latent_channels))
+
+    return record_calls(run)
+
+
+def phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res):
+    """The serving engine over the full-width SD pipeline (bf16) at each SD
+    run's batch and size: the transfer held bit-equal to that run's output
+    (sd_path, sd_path_512), generate and invert to the pipeline's eager
+    ops; at 128 px ``swap_params`` to the seed-1 pipeline and back, at 512
+    px to the seed-1 pipeline.  The modules of ``sd`` hold seed 1's weights
+    afterwards."""
+    import dataclasses
+
+    import numpy as np
+
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline
+    from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
+    from phendiff_tpu_torch.pipelines.transfer import ddib
+    from phendiff_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    def at_latent(p, lat):
+        return dataclasses.replace(p, unet_config=dataclasses.replace(p.unet_config,
+                                                                      sample_size=lat))
+
+    sd1 = sd_pipeline(torch.bfloat16, SEED + 1)
+    recs = {}
+    for run, (b, res) in SD_RUNS.items():
+        lat = res // 8
+        images, sd_path_out = sd_outputs[run]
+        rng = np.random.default_rng(SEED + 41)
+        src, labels, seed = np.zeros(b, np.int64), rng.integers(0, 2, b), SEED + 42
+
+        def refs(p):
+            x = torch.as_tensor(images * 2.0 - 1.0, device="cuda")
+            s, lab = torch.as_tensor(src, device="cuda"), torch.as_tensor(labels, device="cuda")
+
+            def transfer():
+                out = ddib(p.denoiser_fn(), p.schedule, p.encode_images(x), p.encode_class(s),
+                           p.encode_class(1 - s), num_inference_steps=STEPS)
+                return to_images(p.decode_latents(out).float()).cpu().numpy()
+
+            return {
+                "transfer": transfer,
+                "generate": lambda: to_images(p.generate(
+                    lab, torch.Generator(device="cuda").manual_seed(seed),
+                    num_inference_steps=STEPS)).cpu().numpy(),
+                "invert": lambda: p.invert(x, s, num_inference_steps=STEPS).float().cpu().numpy(),
+            }
+
+        unet = predicted_launches(unet_by_lat[lat])
+        enc, dec = (predicted_launches(vae_part_calls(torch, res, part))
+                    for part in ("encode", "decode"))
+        if add_launches((1, enc), (1, dec)) != predicted_launches(vae_by_res[res]):
+            fail(f"sd_serving: the VAE's encode and decode calls at {res} px do not add up")
+        want = {op: {k: add_launches(*terms)[k] for k in SERVE_KEYS} for op, terms in (
+            ("transfer", ((2 * STEPS, unet), (1, enc), (1, dec))),
+            ("generate", ((STEPS, unet), (1, dec))), ("invert", ((STEPS, unet), (1, enc))))}
+        served = at_latent(sd, lat)
+        eng = InferenceEngine(served, EngineConfig(max_batch=b, num_inference_steps=STEPS))
+        ref = refs(served)
+        ref["transfer"] = lambda: sd_path_out  # the sd_path run's images
+        name = {"sd_path": "sd_serving", "sd_path_512": "sd_serving_512"}[run]
+        recs[name] = serving_run(torch, name, eng, (images, src, labels, seed), ref, want, env,
+                                 swap=(at_latent(sd1, lat), refs(at_latent(sd1, lat))["transfer"]),
+                                 timed=1)
+        if run == "sd_path":  # swap back: the 512 px engine serves seed 0 again
+            sd0 = at_latent(sd_pipeline(torch.bfloat16, SEED), lat)
+            eng.swap_params(sd0)
+            back = eng.transfer(images, src)
+            del sd0
+            recs[name]["swap_back_bit_equal"] = bool(np.array_equal(back, sd_path_out))
+            emit({"phase": name + "_swap_back", "bit_equal": recs[name]["swap_back_bit_equal"],
+                  "recaptures": eng.stats()["captures"] - len(eng.config.ops)})
+            if not recs[name]["swap_back_bit_equal"] or eng.stats()["captures"] != 3:
+                fail(f"{name}: swapping seed 0 back does not restore the sd_path output")
+        del eng
+        torch.cuda.empty_cache()
+    return recs
+
+
 def main() -> None:
     try:
         import torch
@@ -1966,7 +2218,10 @@ def main() -> None:
     evaluator = phase_evaluator(torch, train_pipe, cmp_data)
     moments = phase_moments()
 
-    # -- 16-20. SD-2.1 class transfer ----------------------------------------
+    # -- 16. the serving engine ---------------------------------------------
+    serving = {"serving": phase_serving(torch, pipe, ucfg, sched_cfg, env)}
+
+    # -- 17-22. SD-2.1 class transfer and its serving engine ------------------
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
     from phendiff_tpu_torch.obs.forward_profile import (
@@ -1993,14 +2248,17 @@ def main() -> None:
           "vae_params": sum(p.numel() for p in sd.vae.parameters()),
           "gib_allocated": torch.cuda.memory_allocated() / 2**30})
     phase_sd_forward_check(torch, sd, sd32)
-    sd_runs = {name: phase_sd_path(torch, sd, name, env, unet_by_lat, vae_by_res)
-               for name in SD_RUNS}
+    sd_runs, sd_outputs = {}, {}
+    for name in SD_RUNS:
+        sd_runs[name], sd_outputs[name] = phase_sd_path(torch, sd, name, env, unet_by_lat,
+                                                        vae_by_res)
     sd_guided = phase_sd_guided_check(torch, sd, sd32, unet_by_lat, unet32_64)
     sd_cmp, sd_folder, sd_data = phase_sd_comparison(torch, sd32, env, unet_by_lat, vae_by_res)
-    del sd, sd32
+    serving.update(phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res))
+    del sd, sd32, sd_outputs
     torch.cuda.empty_cache()
 
-    # -- 21-23. SD-2.1 fine-tuning and the training CLI -----------------------
+    # -- 23-25. SD-2.1 fine-tuning and the training CLI -----------------------
     phase_sd_train_check(torch)
     sd_train = phase_sd_train_path(torch, env, train_calls)
     phase_train_cli(torch, sd_folder, sd_data)
@@ -2016,11 +2274,17 @@ def main() -> None:
                 "sd_train_path": sd_train["no_remat"]["launches"][name],
                 "sd_train_path_remat": sd_train["remat"]["launches"][name]}
 
+    def serving_by_path(name):
+        """Launches at capture times replays, per serving path (serving runs
+        no backward)."""
+        return {path: rec["launches"].get(name, 0) for path, rec in serving.items()}
+
     by_path = {
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
                "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
                "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
-               "evaluator": evaluator["launches"][name], **sd_by_path(name)}
+               "evaluator": evaluator["launches"][name], **sd_by_path(name),
+               **serving_by_path(name)}
         for name in KERNEL_NAMES
     }
 
@@ -2132,8 +2396,9 @@ def main() -> None:
             **{k: stream_sum(stream_fwd_calls, False, k)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "bytes",
-            "launches_by_path": {run: sd_runs[run]["launches"]["group_norm_silu_stream"]
-                                 for run in SD_RUNS},
+            "launches_by_path": {**{run: sd_runs[run]["launches"]["group_norm_silu_stream"]
+                                    for run in SD_RUNS},
+                                 **serving_by_path("group_norm_silu_stream")},
             "design": DESIGN["group_norm_silu_stream"],
         },
         {

@@ -8,9 +8,8 @@ downscaling of ``modify_args_for_debug``.
 Flags that exist for the TPU's compile transport or for the JAX package's
 parallelism keep their names and choices; ``cli/train_cli.py`` maps them:
 ``--segmented_sd auto|off`` take the one-program step (eager PyTorch has no
-transport limit), while ``--segmented_sd on``, ``--model_parallel > 1``,
-``--dataset_name``, ``--tracker wandb`` and ``--adam_moment_dtype
-bfloat16`` raise ``NotImplementedError``.  ``--device`` is the port's own:
+transport limit), while ``--segmented_sd on``, ``--model_parallel > 1``
+and ``--adam_moment_dtype bfloat16`` raise ``NotImplementedError``.  ``--device`` is the port's own:
 the torch device to train on (the card unless it names another).
 """
 

@@ -10,8 +10,10 @@ pretrained folder (``for_sd_pipeline``).
 What the JAX package runs elsewhere and the port does not: ``--segmented_sd
 on`` (its per-stage route for the TPU's compile transport; ``auto`` and
 ``off`` take the one-program step, which eager PyTorch always can),
-``--model_parallel > 1``, ``--dataset_name``, ``--tracker wandb`` and
-``--adam_moment_dtype bfloat16`` raise ``NotImplementedError``.
+``--model_parallel > 1`` and ``--adam_moment_dtype bfloat16`` raise
+``NotImplementedError``.  ``--dataset_name`` trains from an HF dataset
+(``data/hf_datasets.py``); ``--tracker wandb`` logs to wandb, or to JSONL
+where ``wandb`` is not installed.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def banner(args, warnings, device: torch.device):
     print("=" * 70)
     print(f" phendiff-tpu-torch train :: {args.run_name}")
     print(f"   model_type={args.model_type} components={args.components_to_train}")
-    print(f"   data={args.train_data_dir} definition={args.definition} "
+    print(f"   data={args.dataset_name or args.train_data_dir} definition={args.definition} "
           f"perc={args.perc_samples}%")
     print(f"   batch={args.train_batch_size} epochs={args.num_epochs} "
           f"lr={args.learning_rate} precision={args.mixed_precision} remat={args.remat}")
@@ -66,17 +68,17 @@ def banner(args, warnings, device: torch.device):
 
 
 def trainer_config_from_args(args) -> TrainerConfig:
-    if args.dataset_name is not None:
-        raise not_ported("--dataset_name", "data/hf_datasets.py, item 5")
     if args.model_parallel > 1:
         raise not_ported("--model_parallel > 1", "the parallelism layers, item 6")
-    if args.tracker == "wandb":
-        raise not_ported("--tracker wandb", "obs/trackers.py::WandbTracker, item 5")
     if args.adam_moment_dtype != "float32":
         raise NotImplementedError("--adam_moment_dtype bfloat16: the port keeps Adam's "
                                   "moments in float32")
     return TrainerConfig(
         train_data_dir=args.train_data_dir,
+        dataset_name=args.dataset_name,
+        dataset_config_name=args.dataset_config_name,
+        split=args.split,
+        cache_dir=args.cache_dir,
         definition=tuple(args.definition),
         perc_samples=args.perc_samples,
         compute_metrics_full_dataset=args.compute_metrics_full_dataset,

@@ -1,2 +1,19 @@
-"""Observability: trackers, step timing, and device-time profiles of the
-port on the card."""
+"""Observability: trackers, images, logging, profiling hooks and step
+timing, and device-time profiles of the port on the card
+(``obs/forward_profile.py``, imported from its module)."""
+
+from phendiff_tpu_torch.obs.images import side_by_side, to_pil  # noqa: F401
+from phendiff_tpu_torch.obs.logging_utils import setup_logger  # noqa: F401
+from phendiff_tpu_torch.obs.profiling import (  # noqa: F401
+    StepTimer,
+    annotate,
+    force_sync,
+    trace_if,
+)
+from phendiff_tpu_torch.obs.trackers import (  # noqa: F401
+    JSONLTracker,
+    NullTracker,
+    Tracker,
+    WandbTracker,
+    make_tracker,
+)

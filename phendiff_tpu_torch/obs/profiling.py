@@ -1,15 +1,79 @@
-"""Per-step wall-clock statistics for the training loop.
+"""Profiling hooks: profiler trace capture, named spans, a timing barrier
+and per-step wall-clock statistics.
 
-Counterpart of ``StepTimer`` in ``phendiff_tpu/obs/profiling.py``.  The
-ticks are host times of step dispatch: the loop synchronises with the card
-only when it reads metrics, so a mean over many steps is the step time.
+Counterpart of ``phendiff_tpu/obs/profiling.py``:
+
+    with trace_if("/tmp/traces", step, capture_steps=(10, 12)):
+        state, metrics = step_fn(...)
+
+``trace_if`` records ``torch.profiler`` traces (host, and the card's
+kernels where CUDA is present) in the Chrome/TensorBoard format;
+``annotate`` opens a named span that shows in those traces and, on the
+card, as an NVTX range; ``force_sync`` waits for the devices holding
+the given tensors.  ``StepTimer``'s ticks are host times of step
+dispatch: the training loop synchronises with the card only when it reads
+metrics, so a mean over many steps is the step time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace_if(trace_dir: Optional[str], step: int, capture_steps=(10,)):
+    """Record a profiler trace of the block into ``trace_dir`` (one
+    ``*.pt.trace.json`` per capture) when ``step`` is a capture step."""
+    if not trace_dir or step not in capture_steps:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named span: a ``record_function`` range in profiler traces and,
+    where CUDA is present, an NVTX range."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_available():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def force_sync(*tensors) -> None:
+    """Execution barrier for timing code: wait until every CUDA device
+    holding one of the tensors (nested in lists, tuples and dicts) has
+    finished its queued work.  CPU tensors need no barrier."""
+    devices = {t.device for t in _tensors(tensors) if t.device.type == "cuda"}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
 
 
 class StepTimer:

@@ -4,8 +4,10 @@ Counterpart of ``phendiff_tpu/obs/trackers.py``: a small ``Tracker``
 interface with a ``JSONLTracker`` (metrics to ``metrics.jsonl``, alerts
 with a 6 h cooldown per title to ``alerts.log``, the run id kept in
 ``run_id.txt`` for resume, image panels as PNG files under
-``images/step_<step>/``) and a ``NullTracker``.  The wandb backend is not
-ported yet.
+``images/step_<step>/``), a ``WandbTracker`` (the same calls on a wandb
+run; ``wandb`` is imported only when one is made) and a ``NullTracker``.
+``make_tracker("wandb", ...)`` falls back to the JSONL tracker where
+``wandb`` cannot be imported, as offline machines have it.
 """
 
 from __future__ import annotations
@@ -98,10 +100,42 @@ class JSONLTracker(Tracker):
         self._metrics_f.close()
 
 
-def make_tracker(kind: str, run_dir: str) -> Tracker:
-    """``"jsonl"`` or ``"none"``/``"no"``."""
+class WandbTracker(Tracker):
+    """A wandb run in ``run_dir`` (resumed when ``run_id`` is given)."""
+
+    def __init__(self, project: str, run_dir: str, config: dict,
+                 run_id: Optional[str] = None):
+        import wandb  # optional: imported only for this tracker
+
+        self._run = wandb.init(project=project, dir=run_dir, config=config, id=run_id,
+                               resume="must" if run_id else None)
+        self.run_id = self._run.id
+        self._wandb = wandb
+
+    def log(self, metrics, step):
+        self._run.log(metrics, step=step)
+
+    def log_images(self, name, images01, step):
+        self._run.log({name: [self._wandb.Image(np.asarray(i)) for i in images01]}, step=step)
+
+    def alert(self, title, text):
+        self._wandb.alert(title=title, text=text, wait_duration=JSONLTracker.ALERT_COOLDOWN_S)
+
+    def finish(self):
+        self._run.finish()
+
+
+def make_tracker(kind: str, run_dir: str, project: str = "phendiff-tpu",
+                 config: Optional[dict] = None) -> Tracker:
+    """``"jsonl"``, ``"wandb"`` (JSONL where ``wandb`` cannot be imported)
+    or ``"none"``/``"no"``."""
     if kind in ("none", "no"):
         return NullTracker()
+    if kind == "wandb":
+        try:
+            return WandbTracker(project, run_dir, config or {})
+        except ImportError:
+            return JSONLTracker(run_dir)
     if kind == "jsonl":
         return JSONLTracker(run_dir)
-    raise ValueError(f"unknown tracker {kind!r}: this port has 'jsonl' and 'none'")
+    raise ValueError(f"unknown tracker {kind!r}: this port has 'jsonl', 'wandb' and 'none'")

@@ -14,8 +14,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import json
 import os
-from typing import Optional, Union
+from typing import Mapping, Optional, Union
 
 import torch
 
@@ -138,6 +139,33 @@ class ConditionalDDIMPipeline:
         for inference; GroupNorm params and the class table stay float32."""
         model = cast_matmul_weights(copy.deepcopy(self.model), dtype)
         return dataclasses.replace(self, model=model)
+
+    # -- checkpoint-as-data ------------------------------------------------
+    @property
+    def params_tree(self) -> dict:
+        """The served tensors: the model's state dict, whose tensors share
+        storage with the module (a serving engine copies a new checkpoint
+        into them in place)."""
+        return dict(self.model.state_dict())
+
+    def replace_params(self, params: Mapping[str, torch.Tensor]) -> "ConditionalDDIMPipeline":
+        """A pipeline whose model loads this state dict (a copy; this
+        pipeline is unchanged)."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(params)
+        return dataclasses.replace(self, model=model)
+
+    def arch_fingerprint(self) -> str:
+        """Architecture identity (configs and compute dtype, not weights):
+        pipelines with equal fingerprints can be served by one engine's
+        captured programs.  The JAX package's ``lane_pack`` key is a TPU
+        layout switch this port does not have, so it is left out."""
+        return json.dumps({
+            "kind": "ConditionalDDIMPipeline",
+            "unet": self.unet_config.to_json_dict(),
+            "scheduler": self.scheduler_config.to_json_dict(),
+            "dtype": str(self.dtype),
+        }, sort_keys=True)
 
     # -- sampling ----------------------------------------------------------
     def generate(

@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import json
 import os
 from typing import Mapping, Optional
 
@@ -173,6 +174,28 @@ class SDImg2ImgPipeline:
         return dataclasses.replace(
             self, unet=cast_matmul_weights(copy.deepcopy(self.unet), dtype),
             vae=cast_matmul_weights(copy.deepcopy(self.vae), dtype))
+
+    # -- checkpoint-as-data ---------------------------------------------------
+    @property
+    def params_tree(self) -> dict:
+        """Every served tensor, by component: the state dicts of the UNet,
+        the VAE and the class embedding, sharing storage with the modules."""
+        return {"unet": dict(self.unet.state_dict()), "vae": dict(self.vae.state_dict()),
+                "class_embedding": dict(self.class_embedding.state_dict())}
+
+    def arch_fingerprint(self) -> str:
+        """Architecture identity (configs and compute dtype, not weights):
+        pipelines with equal fingerprints can be served by one engine's
+        captured programs."""
+        return json.dumps({
+            "kind": "SDImg2ImgPipeline",
+            "unet": self.unet_config.to_json_dict(),
+            "vae": self.vae_config.to_json_dict(),
+            "scheduler": self.scheduler_config.to_json_dict(),
+            "num_classes": self.num_classes,
+            "class_embedding_dim": self.class_embedding_dim,
+            "dtype": str(self.dtype),
+        }, sort_keys=True)
 
     # -- components ---------------------------------------------------------
     @property

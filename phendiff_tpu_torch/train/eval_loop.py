@@ -66,7 +66,7 @@ class Evaluator:
     def __init__(
         self,
         config: EvalConfig,
-        raw_index: DatasetIndex,  # the reference set
+        raw_index,  # the reference set: a DatasetIndex or an HFDatasetAdapter
         definition,
         cache_root: Optional[str] = None,
         extractor: Optional[InceptionExtractor] = None,
@@ -98,23 +98,33 @@ class Evaluator:
     # -- reference features (cached per class) -----------------------------
     def _cache_key(self, class_label: int, class_name: str) -> str:
         """Tied to the reference set's identity (definition and the class's
-        file list): one shared ``.fidelity_cache`` serves runs with other
-        definitions or subsets without handing them the wrong features."""
+        file list, or an HF dataset's fingerprint and the class): one shared
+        ``.fidelity_cache`` serves runs with other definitions, subsets or
+        sources without handing them the wrong features.  An HF adapter's
+        ``for_class`` scans the whole dataset, so the key does without it."""
         h = hashlib.md5()
         h.update(repr(self.definition).encode())
-        for p in self.raw_index.for_class(class_label).paths:
-            h.update(p.encode())
+        if isinstance(self.raw_index, DatasetIndex):
+            for p in self.raw_index.for_class(class_label).paths:
+                h.update(p.encode())
+        else:
+            ds = self.raw_index.dataset
+            h.update(str(getattr(ds, "_fingerprint", len(ds))).encode())
+            h.update(str(class_label).encode())
         return f"{class_name}_{h.hexdigest()[:10]}"
 
     def _reference_features(self, class_label: int, class_name: str) -> np.ndarray:
         def compute():
-            loader = ImageFolderLoader(
-                self.raw_index.for_class(class_label),
-                LoaderConfig(batch_size=self.config.eval_batch_size,
-                             definition=self.definition, normalize=False),
-            )
+            src = self.raw_index.for_class(class_label)
+            if isinstance(src, DatasetIndex):
+                stream = ImageFolderLoader(
+                    src, LoaderConfig(batch_size=self.config.eval_batch_size,
+                                      definition=self.definition, normalize=False),
+                ).all_images()
+            else:  # HFDatasetAdapter
+                stream = src.raw_images(self.config.eval_batch_size, self.definition)
             feats, _ = self.extractor.features_for(
-                batch.astype(np.float32) / 255.0 for batch, _ in loader.all_images())
+                batch.astype(np.float32) / 255.0 for batch, _ in stream)
             return {"features": feats}
 
         if self.cache is not None:

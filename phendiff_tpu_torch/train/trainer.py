@@ -41,6 +41,7 @@ from torch.func import functional_call
 
 from phendiff_tpu_torch.core.device import DeviceLike, resolve_device
 from phendiff_tpu_torch.core.precision import Policy
+from phendiff_tpu_torch.data.hf_datasets import load_hf_dataset
 from phendiff_tpu_torch.data.imagefolder import (
     ImageFolderLoader,
     LoaderConfig,
@@ -101,8 +102,13 @@ class RunPaths:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    # data
+    # data: an image folder, or an HF dataset (the reference's
+    # --dataset_name / --dataset_config_name / --split / --cache_dir)
     train_data_dir: str = ""
+    dataset_name: Optional[str] = None
+    dataset_config_name: Optional[str] = None
+    split: str = "train"
+    cache_dir: Optional[str] = None
     definition: Tuple[int, int] = (128, 128)
     perc_samples: float = 100.0
     # the metrics' reference set: the full dataset (the reference's default)
@@ -141,8 +147,9 @@ class TrainerConfig:
 
 
 def build_data(config: TrainerConfig):
-    """``(index, loader, eval_index)`` for the image-folder route;
-    ``eval_index`` is the metrics' reference set."""
+    """``(index, loader, eval_index)``; ``eval_index`` is the metrics'
+    reference set.  With ``dataset_name`` all three are one
+    ``HFDatasetAdapter``."""
     loader_cfg = LoaderConfig(
         batch_size=config.train_batch_size,
         definition=config.definition,
@@ -151,6 +158,15 @@ def build_data(config: TrainerConfig):
         seed=config.seed,
         prefetch=config.loader_prefetch,
     )
+    if config.dataset_name is not None:
+        if config.perc_samples < 100:
+            raise NotImplementedError(
+                "perc_samples subsampling is not supported on the HF-datasets route; "
+                "use an image folder")
+        adapter = load_hf_dataset(config.dataset_name, loader_cfg, split=config.split,
+                                  config_name=config.dataset_config_name,
+                                  cache_dir=config.cache_dir)
+        return adapter, adapter, adapter
     full_index = scan_imagefolder(config.train_data_dir)
     index = full_index
     if config.perc_samples < 100:

@@ -187,9 +187,7 @@ def test_trainer_config_from_args_matches_jax(extra):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dataset_name", "/some/hf"], "hf_datasets"),
     (["--model_parallel", "2"], "parallelism"),
-    (["--tracker", "wandb"], "WandbTracker"),
     (["--adam_moment_dtype", "bfloat16"], "float32"),
 ])
 def test_flags_the_port_does_not_run_raise(extra, match):
@@ -197,6 +195,19 @@ def test_flags_the_port_does_not_run_raise(extra, match):
     A.check_args(args)
     with pytest.raises(NotImplementedError, match=match):
         train_cli.trainer_config_from_args(args)
+
+
+@pytest.mark.parametrize("extra,field,value", [
+    (["--dataset_name", "/some/hf", "--split", "test", "--cache_dir", "/c"],
+     ("dataset_name", "split", "cache_dir"), ("/some/hf", "test", "/c")),
+    (["--tracker", "wandb"], ("tracker",), ("wandb",)),
+])
+def test_hf_dataset_and_wandb_flags_reach_the_trainer_config_as_in_jax(extra, field, value):
+    jargs, targs = _parse_both(BASE + extra)
+    got = train_cli.trainer_config_from_args(targs)
+    want = jax_train_cli.trainer_config_from_args(jargs)
+    for f, v in zip(field, value):
+        assert getattr(got, f) == getattr(want, f) == v
 
 
 def test_segmented_sd_on_raises_and_auto_or_off_take_the_one_program_step(tmp_path):

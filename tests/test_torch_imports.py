@@ -30,7 +30,7 @@ _FORBIDDEN_CHECK = textwrap.dedent("""
     print("missing", missing)
     sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """)
-# The training, comparison and SD slices' modules, each checked by name above.
+# The training, comparison, SD and serving slices' modules, each checked by name above.
 NEW_MODULES = [
     "phendiff_tpu_torch.train.train_loop", "phendiff_tpu_torch.train.ema",
     "phendiff_tpu_torch.train.checkpoints", "phendiff_tpu_torch.train.trainer",
@@ -42,6 +42,7 @@ NEW_MODULES = [
     "phendiff_tpu_torch.train.eval_loop", "phendiff_tpu_torch.obs.images",
     "phendiff_tpu_torch.models.sd_unet", "phendiff_tpu_torch.models.autoencoder_kl",
     "phendiff_tpu_torch.models.hf_import", "phendiff_tpu_torch.pipelines.sd_img2img",
+    "phendiff_tpu_torch.serving.engine", "phendiff_tpu_torch.data.hf_datasets",
 ]
 
 

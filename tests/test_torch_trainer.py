@@ -274,7 +274,7 @@ def test_trackers(tmp_path):
         assert f.read().count("[NaN]") == 1
     assert isinstance(make_tracker("none", run_dir), NullTracker)
     with pytest.raises(ValueError):
-        make_tracker("wandb", run_dir)
+        make_tracker("tensorboard", run_dir)
 
 
 def test_compute_metrics_default_matches_the_jax_package():
