@@ -120,7 +120,22 @@ failure exits non-zero before the final line:
 25. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
     DDIM with ``examples/launch_train_ddim.sh``'s flags and ``--debug``,
     and an SD fine-tune of the folder phase 21 saved (3 steps, one eval);
-    each exits 0 with finite losses, a checkpoint and a save that reloads.
+    each exits 0 with finite losses, a checkpoint and a save that reloads;
+26. dp: data parallelism (``phendiff_tpu_torch.parallel``).  (a) World 1
+    over NCCL in this process: ``Trainer.run`` for 3 DDIM steps at batch 32
+    and one full-width SD fine-tune step at 128 px, batch 32 (frozen bf16
+    VAE), each bit-equal to the same run without a process group, with the
+    NCCL version and the all-reduce's ms a step.  (b) World 2 over gloo, two
+    processes of this script (``--dp-worker``) on ``cuda:0`` (NCCL refuses two
+    ranks on one card): 3 DDIM steps at local batch 16 (global 32) on their
+    rows of the global draws against this process's batch-32 steps (the first
+    step's loss and gradients, the parameters after 3 steps by grad_check's
+    rule), exact launches a rank a step, an Evaluator pass (32 images a
+    class, 10 steps, f32) whose gathered features match world 1's, and the
+    DDIB comparison over 2 x 32 PNGs at 10 steps in f32, images within 1e-3
+    of world 1's at the ranks' batch of 16 and FID computed on rank 0 alone.  (c) Per-rank and global
+    samples/s and the gloo all-reduce's ms a step: two ranks share one card,
+    so these are not scaling figures.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -263,6 +278,26 @@ SD_REMAT_LOSS_REL = 1e-6
 # bit-equal to eager runs.
 SERVE_PARTIAL = 5
 SERVE_KEYS = ("flash_attn_fwd", "group_norm_silu", "group_norm_silu_stream")
+# Data parallelism: two ranks of one card over gloo, 3 train steps.  World 2
+# against world 1 runs other batch sizes, so cuDNN may pick other convolution
+# algorithms: bf16 train steps are held by grad_check's rule (GRAD_REL_L2_TOL
+# per gradient; parameters at most 2.01 lr apart, at most 1% of elements by
+# more than lr / 10), and the f32 paths (TF32 off) by f32 rounding through
+# 10 sampler steps: Evaluator features by relative L2, comparison images by
+# max abs on [0, 1].  The comparison's images are held against world 1 at
+# the ranks' batch (16: the same calls on the same rows), not at 32: DDIB
+# grows a denoiser call's f32 rounding (6e-6 between batch 16 and 32) 3-4x
+# a generation call, to ~0.1 on [0, 1], as much as it grows a one-ulp
+# nudge of the images at one batch, under deterministic cuDNN too and on
+# the CPU (phendiff_tpu_torch/tools/ddib_batch_gap.py, run on an H100 80GB
+# HBM3 at 700.00 W).  grad_check's 2.01 lr
+# holds one step; an Adam step moves an element by at most ~1.01 lr
+# (|m_hat| / sqrt(v_hat) <= 1.0013 at step 2 with the default betas), so
+# after DP_STEPS steps two runs are at most DP_STEPS x 2.01 lr apart.
+DP_WORLD, DP_STEPS = 2, 3
+DP_FEATURES_REL_L2_TOL = 1e-4
+DP_IMAGES_MAX_ABS_TOL = 1e-3
+DP_WORKER_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -2057,6 +2092,412 @@ def phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res):
     return recs
 
 
+def dp_train(torch):
+    """``DP_STEPS`` DDIM train steps (``train_parts``: super_small, 128 px,
+    bf16 compute) on this rank's rows of the batch-32 batch and of each
+    step's global draws; world 1 without a process group.  Returns the
+    record, the first step's gradients as the optimizer got them (averaged
+    over the ranks) and the parameters after the first step and after the
+    last."""
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.parallel.mesh import data_size, local_rows, replicate, shard_batch
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.train import train_loop as TL
+
+    pipe = ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
+                                               dtype=torch.bfloat16, device="cuda")
+    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    checksum = sum(float(p.detach().double().sum()) for p in params.values())
+    replicate(params)
+    opt = TL.make_optimizer(cfg.optimizer)
+    state = TL.init_train_state(params, opt)
+    step = TL.make_train_step(model_apply, embed_fn, schedule, cfg, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    images = torch.randn(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 0.5
+    labels = torch.tensor([0, 1], device="cuda").repeat(TRAIN_BATCH // 2)
+    batch, rows = shard_batch((images, labels)), local_rows(TRAIN_BATCH)
+    first_grads, update, reduce_events = {}, opt.update, []
+
+    def capture(g, opt_state, p):
+        if not first_grads:
+            first_grads.update({n: t.detach().clone() for n, t in g.items()})
+        update(g, opt_state, p)
+
+    inner = TL.all_reduce_mean_
+
+    def timed_all_reduce(tensors):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        inner(tensors)
+        ev[1].record()
+        reduce_events.append(ev)
+
+    opt.update, TL.all_reduce_mean_ = capture, timed_all_reduce
+    times, losses, first_params = [], [], {}
+    try:
+        reset_launches()
+        with counting_plain_calls() as plain:
+            for i in range(DP_STEPS):
+                t0 = time.perf_counter()
+                draws = TL.make_draws(SEED, state.step, tuple(images.shape),
+                                      schedule.num_train_timesteps, cfg.proba_uncond, "cuda")
+                state, m = step(state, batch, draws.rows(rows))
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if i == 0:
+                    first_params = {n: p.detach().clone() for n, p in state.params.items()}
+        launches = read_launches()
+    finally:
+        TL.all_reduce_mean_ = inner
+        del opt.update
+    local = rows.stop - rows.start
+    steady = sum(times[1:]) / len(times[1:])
+    rec = {"world": data_size(), "local_batch": local, "init_checksum": checksum,
+           "losses": losses, "loss_finite": all(map(math.isfinite, losses)),
+           "step_seconds": times, "samples_per_s_rank": local / steady,
+           "samples_per_s_global": TRAIN_BATCH / steady,
+           "all_reduce_ms_per_step": [a.elapsed_time(b) for a, b in reduce_events],
+           "launches": launches, "launches_expected": launches_for(DP_STEPS, DP_STEPS),
+           "plain_version_calls": dict(plain)}
+    return rec, first_grads, (first_params, {n: p.detach() for n, p in state.params.items()})
+
+
+def dp_evaluator(torch, pipe, data):
+    """The Evaluator over ``pipe`` (f32): each class's gathered features (32
+    images, 10 steps), then a whole pass (ISC and KID, FID off)."""
+    from phendiff_tpu_torch.data.imagefolder import scan_imagefolder
+    from phendiff_tpu_torch.metrics.fidelity import MetricsConfig
+    from phendiff_tpu_torch.train.eval_loop import EvalConfig, Evaluator
+
+    ev = Evaluator(EvalConfig(nb_generated_images=BATCH, eval_batch_size=BATCH,
+                              num_inference_steps=CMP_STEPS,
+                              metrics=MetricsConfig(fid=False, isc=True, kid=True,
+                                                    kid_subset_size=16)),
+                   scan_imagefolder(data), (RES, RES), device="cuda")
+
+    def generate(labels, generator, steps):
+        return pipe.generate(labels, generator, num_inference_steps=steps)
+
+    t0 = time.perf_counter()
+    features = [ev._generate_class(generate, c)[0] for c in (0, 1)]
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    return {"features": features, "generate_seconds": t_gen,
+            "metrics": ev.evaluate(generate, 0)}
+
+
+def dp_comparison(torch, pipe_dir, data, out_dir, fid, batch=BATCH):
+    """The DDIB comparison over the saved f32 pipeline (2 x 32 PNGs, 10 steps,
+    f32, batches of ``batch``): the [0, 1] images rank 0 saved, the PNGs,
+    the metrics and how many FIDs this rank computed."""
+    import numpy as np
+
+    from phendiff_tpu_torch.experiments import comparison as C
+    from phendiff_tpu_torch.metrics import fidelity
+
+    cfg = C.ComparisonConfig.from_dict({
+        "output_dir": out_dir, "pipelines": {"ddim": pipe_dir}, "dataset_train": data,
+        "definition": [RES, RES], "methods": ["ddib"],
+        "method_params": {"ddib": {"batch_size": batch}}, "num_inference_steps": CMP_STEPS,
+        "metrics": {"fid": fid, "isc": True, "kid": True, "kid_subset_size": 16},
+        "inference_param_dtype": None,
+    })
+    saved, fids = [], []
+    save, frechet = C._save_batch, fidelity.frechet_distance
+
+    def recording_save(images01, *args):
+        saved.append(images01.copy())
+        save(images01, *args)
+
+    def counting_frechet(*args, **kw):
+        fids.append(1)
+        return frechet(*args, **kw)
+
+    C._save_batch, fidelity.frechet_distance = recording_save, counting_frechet
+    try:
+        exp = C.ComparisonExperiment(cfg, device="cuda")
+        t0 = time.perf_counter()
+        exp.run_transfers()
+        torch.cuda.synchronize()
+        t_transfers = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = exp.compute_metrics()
+        t_metrics = time.perf_counter() - t0
+    finally:
+        C._save_batch, fidelity.frechet_distance = save, frechet
+    pngs = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                  for d, _, fs in os.walk(out_dir) for f in fs if "_to_" in f)
+    return {"images01": np.concatenate(saved) if saved else None, "pngs": pngs,
+            "metrics": metrics, "fid_calls": len(fids), "transfer_seconds": t_transfers,
+            "metrics_seconds": t_metrics}
+
+
+def dp_worker(argv) -> None:
+    """One rank of the dp phase's world-2 run: gloo on ``cuda:0``, file://
+    rendezvous; saves what it saw to ``<out_dir>/rank<r>.pt``."""
+    rank, init_file, out_dir, pipe_dir, data = argv
+    import torch
+
+    from phendiff_tpu_torch.parallel import mesh
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(WORLD_SIZE=str(DP_WORLD), RANK=rank, LOCAL_RANK="0")
+    device = mesh.init_distributed("cuda", backend="gloo", init_method=f"file://{init_file}")
+    train, grads, params = dp_train(torch)
+    pipe = ConditionalDDIMPipeline.from_pretrained(pipe_dir, device="cuda")
+    result = {"rank": mesh.data_rank(), "world": mesh.data_size(), "device": str(device),
+              "backend": torch.distributed.get_backend(), "train": train,
+              "grads": grads if rank == "0" else None, "params": params,
+              "evaluator": dp_evaluator(torch, pipe, data),
+              "comparison": dp_comparison(torch, pipe_dir, data, os.path.join(out_dir, "cmp"),
+                                          fid=True)}
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.destroy()
+
+
+def dp_grad_rule(torch, got_grads, want_grads, got_params, want_params, lr):
+    """grad_check's rule between two runs of the same steps: the first
+    step's gradients, and the parameters after the first step (2.01 lr
+    apart at most) and after DP_STEPS steps (DP_STEPS x 2.01 lr), at most 1%
+    of elements by more than lr / 10."""
+    errs = {n: rel_l2(got_grads[n], want_grads[n]) for n in want_grads}
+    rec = {"grad_rel_l2_max": max(errs.values()),
+           "grad_rel_l2_worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "lr": lr}
+    ok = rec["grad_rel_l2_max"] <= GRAD_REL_L2_TOL
+    for tag, got, want, steps in (("step_1", got_params[0], want_params[0], 1),
+                                  (f"step_{DP_STEPS}", got_params[1], want_params[1], DP_STEPS)):
+        moved = {n: (got[n] - want[n]).abs() for n in want}
+        param_max = max(float(m.max()) for m in moved.values())
+        share = (sum(int((m > 0.1 * lr).sum()) for m in moved.values())
+                 / sum(m.numel() for m in moved.values()))
+        rec[tag] = {"param_max_abs_diff": param_max, "bound": 2.01 * lr * steps,
+                    "param_share_differing_by_lr_over_10": share}
+        ok &= param_max <= 2.01 * lr * steps and share <= 1e-2
+    rec["ok"] = bool(ok)
+    return rec
+
+
+def phase_dp(torch, env, data):
+    """Data parallelism: (a) world 1 over NCCL bit-equal to no group, (b)
+    world 2 over gloo on this card against world 1, (c) the times."""
+    import shutil
+
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step
+    from phendiff_tpu_torch.parallel import mesh
+    from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+    from phendiff_tpu_torch.train import train_loop as TL
+    from phendiff_tpu_torch.train.train_loop import TrainConfig
+    from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phd_dp_")
+    rec = {"phase": "dp", "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    ok = True
+
+    # -- (a) world 1 over NCCL against no group -----------------------------
+    ddim = ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
+                                               dtype=torch.bfloat16, device="cuda")
+    sd = sd_pipeline(torch.bfloat16, SEED, cast=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    sd_images = torch.rand(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 2 - 1
+    sd_labels = torch.tensor([0, 1], device="cuda").repeat(TRAIN_BATCH // 2)
+    reduce_events = []
+    inner = TL.all_reduce_mean_
+
+    def timed_all_reduce(tensors):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        inner(tensors)
+        ev[1].record()
+        reduce_events.append(ev)
+
+    def trainer_run(tag):
+        cfg = TrainerConfig(train_data_dir=data, definition=(RES, RES),
+                            train_batch_size=TRAIN_BATCH, num_epochs=2, max_train_steps=DP_STEPS,
+                            eval_every_epochs=None, checkpointing_steps=1000,
+                            mixed_precision="bf16", metrics_flush_every=DP_STEPS,
+                            compute_metrics=False, train=TrainConfig(proba_uncond=0.1))
+        trainer = for_ddim_pipeline(ddim, cfg, RunPaths.create(root, "exp", tag))
+        reduce_events.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return ({"params": {n: p.detach() for n, p in state.params.items()},
+                 "ema": state.ema_params},
+                {"seconds": dt, "launches": read_launches(), "lr_scale":
+                 trainer.train_cfg.optimizer.lr_scale,
+                 "all_reduce_ms_per_step": [a.elapsed_time(b) for a, b in reduce_events]})
+
+    def sd_step():
+        step, state, kw, _ = sd_train_step(sd)
+        draws = TL.make_draws(SEED, 0, kw["diffusion_shape"](tuple(sd_images.shape)),
+                              sd.schedule.num_train_timesteps, 0.1, "cuda", posterior=True)
+        reduce_events.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, (sd_images, sd_labels), draws)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        params = {n: p.detach().clone() for n, p in state.params.items()}
+        return params, {"seconds": dt, "loss": float(m["loss"]),
+                        "all_reduce_ms": [a.elapsed_time(b) for a, b in reduce_events]}
+
+    # the same arithmetic run after run: deterministic cuDNN algorithms and
+    # index-add backward (the class embedding's), on both sides
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    TL.all_reduce_mean_ = timed_all_reduce
+    try:
+        ddim_ref, _ = trainer_run("no_group")
+        sd_ref, sd_ref_rec = sd_step()
+        device = mesh.init_distributed("cuda", init_method=f"file://{os.path.join(root, 'nccl')}")
+        nccl = {"backend": torch.distributed.get_backend(), "world": mesh.data_size(),
+                "device": str(device),
+                "nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+        ddim_got, ddim_rec = trainer_run("nccl_world1")
+        sd_got, sd_rec = sd_step()
+        mesh.destroy()
+    finally:
+        TL.all_reduce_mean_ = inner
+        torch.backends.cudnn.deterministic = deterministic[0]
+        torch.use_deterministic_algorithms(deterministic[1])
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    ddim_equal = all(torch.equal(ddim_got[k][n], ddim_ref[k][n])
+                     for k in ("params", "ema") for n in ddim_ref[k])
+    sd_equal = all(torch.equal(sd_got[n], sd_ref[n]) for n in sd_ref)
+    rec["world1_nccl"] = {
+        **nccl, "ddim_trainer": ddim_rec, "ddim_trainer_bit_equal_to_no_group": ddim_equal,
+        "ddim_max_abs_diff": max(max_abs(ddim_got[k][n], ddim_ref[k][n])
+                                 for k in ("params", "ema") for n in ddim_ref[k]),
+        "sd_step": sd_rec, "sd_step_no_group": sd_ref_rec, "sd_step_bit_equal_to_no_group":
+        sd_equal, "sd_max_abs_diff": max(max_abs(sd_got[n], sd_ref[n]) for n in sd_ref)}
+    dp_launches = {"dp_world1_trainer": ddim_rec["launches"]}
+    ok &= (ddim_equal and sd_equal and nccl["world"] == 1 and nccl["backend"] == "nccl"
+           and ddim_rec["launches"] == launches_for(DP_STEPS, DP_STEPS)
+           and ddim_rec["lr_scale"] == 1.0)
+    del ddim_ref, ddim_got, sd_ref, sd_got, sd, sd_images
+    torch.cuda.empty_cache()
+
+    # -- (b) world 2 over gloo on this card against world 1 ------------------
+    ref_train, ref_grads, ref_params = dp_train(torch)
+    pipe32 = ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
+                                                 device="cuda")
+    pipe_dir = os.path.join(root, "pipe32")
+    pipe32.save_pretrained(pipe_dir)
+    ref_eval = dp_evaluator(torch, pipe32, data)
+    ref_cmp = dp_comparison(torch, pipe_dir, data, os.path.join(root, "cmp_world1"), fid=False,
+                            batch=BATCH // DP_WORLD)
+    out_dir = os.path.join(root, "world2")
+    os.makedirs(out_dir)
+    worker_env = {k: v for k, v in os.environ.items()
+                  if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         os.path.join(root, "gloo"), out_dir, pipe_dir, data],
+        env=worker_env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        codes = [p.wait(timeout=DP_WORKER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_world2 = time.perf_counter() - t0
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    if any(codes):
+        fail(f"dp: a world-2 rank failed (exit codes {codes}):\n" + "\n---\n".join(tails))
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_WORLD)]
+    lr = TrainConfig().optimizer.learning_rate
+    train_rule = dp_grad_rule(torch, got[0]["grads"], ref_grads, got[0]["params"], ref_params,
+                              lr)
+    replicas_equal = all(torch.equal(got[1]["params"][1][n], got[0]["params"][1][n])
+                         for n in ref_params[1])
+    feat_err = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+                for g in got for a, b in zip(g["evaluator"]["features"],
+                                             ref_eval["features"])]
+    w2_cmp = got[0]["comparison"]
+    img_err = float(abs(w2_cmp["images01"] - ref_cmp["images01"]).max())
+    loss_rel = abs(got[0]["train"]["losses"][0] - ref_train["losses"][0]) / abs(
+        ref_train["losses"][0])
+    world2 = {
+        "ranks": [{k: g[k] for k in ("rank", "world", "device", "backend")} for g in got],
+        "seconds": t_world2, "train_rank0": got[0]["train"], "train_rank1": got[1]["train"],
+        "train_world1": ref_train, "first_step_loss_rel_err": loss_rel, "grad_rule": train_rule,
+        "replicas_bit_equal": replicas_equal,
+        "evaluator_features_rel_l2": feat_err, "tol_features_rel_l2": DP_FEATURES_REL_L2_TOL,
+        "evaluator_metrics_equal_on_ranks": got[0]["evaluator"]["metrics"]
+        == got[1]["evaluator"]["metrics"], "evaluator_metrics": got[0]["evaluator"]["metrics"],
+        "comparison_pngs_equal_world1": w2_cmp["pngs"] == ref_cmp["pngs"],
+        "comparison_pngs": len(w2_cmp["pngs"]),
+        "comparison_images_max_abs_vs_world1_batch16": img_err,
+        "tol_images_max_abs": DP_IMAGES_MAX_ABS_TOL,
+        "comparison_fid_calls_by_rank": [g["comparison"]["fid_calls"] for g in got],
+        "comparison_metrics_equal_on_ranks": w2_cmp["metrics"] == got[1]["comparison"]["metrics"],
+        "comparison_seconds": {k: w2_cmp[k] for k in ("transfer_seconds", "metrics_seconds")},
+    }
+    rec["world2_gloo"] = world2
+    want = launches_for(DP_STEPS, DP_STEPS)
+    dp_launches["dp_world2_train_per_rank"] = got[0]["train"]["launches"]
+    ok &= (all(g["world"] == DP_WORLD and g["backend"] == "gloo" and g["device"] == "cuda:0"
+               for g in got)
+           and all(g["train"]["launches"] == want and not g["train"]["plain_version_calls"]
+                   and g["train"]["loss_finite"] for g in got)
+           and got[0]["train"]["init_checksum"] == ref_train["init_checksum"]
+           and loss_rel <= 1e-2 and train_rule["ok"] and replicas_equal
+           and max(feat_err) <= DP_FEATURES_REL_L2_TOL
+           and world2["evaluator_metrics_equal_on_ranks"]
+           and world2["comparison_pngs_equal_world1"] and len(w2_cmp["pngs"]) == 2 * CMP_PER_CLASS
+           and img_err <= DP_IMAGES_MAX_ABS_TOL
+           and world2["comparison_fid_calls_by_rank"] == [3, 0]
+           and world2["comparison_metrics_equal_on_ranks"]
+           and all(math.isfinite(v) for v in w2_cmp["metrics"].values()))
+
+    # -- (c) times -------------------------------------------------------------
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else float("nan")
+
+    rec["times"] = {
+        "note": "two ranks share one card: not a scaling figure",
+        "world2_samples_per_s_by_rank": [g["train"]["samples_per_s_rank"] for g in got],
+        "world2_samples_per_s_global": mean([g["train"]["samples_per_s_global"] for g in got]),
+        "world1_samples_per_s": ref_train["samples_per_s_global"],
+        "gloo_all_reduce_ms_per_step": mean([x for g in got
+                                            for x in g["train"]["all_reduce_ms_per_step"]]),
+        "nccl_world1_all_reduce_ms_per_step_ddim": mean(ddim_rec["all_reduce_ms_per_step"]),
+        "nccl_world1_all_reduce_ms_sd_step": mean(sd_rec["all_reduce_ms"]),
+        "nvidia_smi": env["nvidia_smi"],
+    }
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(ok)
+    emit(rec)
+    print(f"dp times ({env['nvidia_smi']}; two ranks share one card, not a scaling figure): "
+          f"world 2 over gloo {rec['times']['world2_samples_per_s_global']:.2f} samples/s "
+          f"global, {rec['times']['gloo_all_reduce_ms_per_step']:.2f} ms gloo all-reduce a "
+          f"step; world 1 {rec['times']['world1_samples_per_s']:.2f} samples/s", flush=True)
+    if not ok:
+        fail(f"dp: {json.dumps(rec, default=str)[:4000]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return rec, dp_launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2263,6 +2704,9 @@ def main() -> None:
     sd_train = phase_sd_train_path(torch, env, train_calls)
     phase_train_cli(torch, sd_folder, sd_data)
 
+    # -- 26. data parallelism ------------------------------------------------
+    dp, dp_launches = phase_dp(torch, env, cmp_data)
+
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
     # GroupNorm backward's 41 calls have the forward's shapes).
@@ -2284,7 +2728,7 @@ def main() -> None:
                "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
                "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
                "evaluator": evaluator["launches"][name], **sd_by_path(name),
-               **serving_by_path(name)}
+               **serving_by_path(name), **{p: n[name] for p, n in dp_launches.items()}}
         for name in KERNEL_NAMES
     }
 
@@ -2431,4 +2875,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+    else:
+        main()

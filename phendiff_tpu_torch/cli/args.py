@@ -9,18 +9,36 @@ Flags that exist for the TPU's compile transport or for the JAX package's
 parallelism keep their names and choices; ``cli/train_cli.py`` maps them:
 ``--segmented_sd auto|off`` take the one-program step (eager PyTorch has no
 transport limit), while ``--segmented_sd on``, ``--model_parallel > 1``
-and ``--adam_moment_dtype bfloat16`` raise ``NotImplementedError``.  ``--device`` is the port's own:
-the torch device to train on (the card unless it names another).
+and ``--adam_moment_dtype bfloat16`` raise ``NotImplementedError``.
+``--device`` is the port's own: the torch device to train on (the card
+unless it names another); under ``torchrun`` (``WORLD_SIZE > 1``)
+``process_device`` joins the process group and ``cuda`` means
+``cuda:{LOCAL_RANK}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
+
+import torch
+
+from phendiff_tpu_torch.core.device import resolve_device
+from phendiff_tpu_torch.parallel.mesh import init_distributed
 
 MODEL_TYPES = ("DDIM", "StableDiffusion")
 COMPONENTS = ("denoiser", "autoencoder", "class_embedding")
 PREDICTION_TYPES = ("epsilon", "sample", "v_prediction")
+
+
+def process_device(device: Optional[str]) -> torch.device:
+    """The device of this process: under ``torchrun`` (``WORLD_SIZE > 1``)
+    it joins the data-parallel group (``parallel.mesh.init_distributed``:
+    ``cuda`` is ``cuda:{LOCAL_RANK}``), else ``device`` as given."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return init_distributed(device)
+    return resolve_device(device)
 
 
 def parse_definition(value: str):

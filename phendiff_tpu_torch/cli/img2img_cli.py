@@ -6,7 +6,10 @@ pipelines, dataset splits, transfer methods, per-method parameters and
 metrics; the config file is copied into the output folder before the run
 (``frozen_config.yaml``, with the resolved config beside it), so a queued
 job sees the config it was given.  Runs on the card unless ``--device``
-names another.
+names another; under ``torchrun`` (``WORLD_SIZE > 1``, the launcher's
+prefix with more than one visible card) each process joins the process
+group, runs its rows of every batch on ``cuda:{LOCAL_RANK}``, and rank 0
+writes the outputs.
 
 Usage:
     python -m phendiff_tpu_torch.cli.img2img_cli --config conf.yaml \\
@@ -27,8 +30,10 @@ import os
 import shutil
 import sys
 
+from phendiff_tpu_torch.cli.args import process_device
 from phendiff_tpu_torch.experiments.comparison import ComparisonConfig, ComparisonExperiment
 from phendiff_tpu_torch.obs.trackers import make_tracker
+from phendiff_tpu_torch.parallel.mesh import is_main
 
 
 def apply_overrides(config: ComparisonConfig, overrides) -> ComparisonConfig:
@@ -74,18 +79,21 @@ def main(argv=None) -> int:
             metrics=dataclasses.replace(config.metrics, kid_subset_size=1),
         )
 
+    device = process_device(args.device)
     os.makedirs(config.output_dir, exist_ok=True)
-    shutil.copy(args.config, os.path.join(config.output_dir, "frozen_config.yaml"))
-    with open(os.path.join(config.output_dir, "resolved_config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+    if is_main():
+        shutil.copy(args.config, os.path.join(config.output_dir, "frozen_config.yaml"))
+        with open(os.path.join(config.output_dir, "resolved_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(config), f, indent=2, default=str)
 
     tracker = make_tracker("jsonl", config.output_dir)
     try:
-        results = ComparisonExperiment(config, tracker=tracker, device=args.device).run()
+        results = ComparisonExperiment(config, tracker=tracker, device=device).run()
     finally:
         tracker.finish()
-    for k in sorted(results):
-        print(f"{k}: {results[k]:.4f}")
+    if is_main():
+        for k in sorted(results):
+            print(f"{k}: {results[k]:.4f}")
     return 0
 
 

@@ -4,7 +4,12 @@ Counterpart of ``phendiff_tpu/cli/launcher.py``, launching the port's
 comparison app (``python -m phendiff_tpu_torch.cli.img2img_cli``):
 
 * freezes the config into the experiment folder, then launches the
-  comparison app on the frozen copy, one subprocess per run;
+  comparison app on the frozen copy, one subprocess per run; with more
+  than one visible card (``CUDA_VISIBLE_DEVICES`` narrows them, as
+  ``devices=`` narrows the JAX mesh) the command is prefixed with
+  ``python -m torch.distributed.run --standalone --nproc_per_node=<cards>``:
+  one process a card, the counterpart of the JAX package's one process
+  driving its whole mesh;
 * offline environment (``WANDB_MODE=offline``, ``HF_DATASETS_OFFLINE=1``);
 * sweep mode: a YAML grid ``{param: [values...]}`` expands into sequential
   runs, one ``--override`` set each;
@@ -26,6 +31,8 @@ import subprocess
 import sys
 from typing import Dict, List, Optional
 
+import torch
+
 
 def expand_sweep(sweep: Dict[str, List[str]]) -> List[List[str]]:
     """{param: [v1, v2], ...} -> list of override lists (cartesian)."""
@@ -35,10 +42,11 @@ def expand_sweep(sweep: Dict[str, List[str]]) -> List[List[str]]:
 
 
 def build_command(config_path: str, overrides: List[str], debug: bool) -> List[str]:
-    cmd = [
-        sys.executable, "-m", "phendiff_tpu_torch.cli.img2img_cli",
-        "--config", config_path,
-    ]
+    cmd = [sys.executable]
+    cards = torch.cuda.device_count()
+    if cards > 1:  # data parallelism: one process a visible card
+        cmd += ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={cards}"]
+    cmd += ["-m", "phendiff_tpu_torch.cli.img2img_cli", "--config", config_path]
     if overrides:
         cmd += ["--override", *overrides]
     if debug:

@@ -2,18 +2,22 @@
 
 Counterpart of ``phendiff_tpu/cli/train_cli.py``: parse args -> debug
 downscaling -> validate -> run-dir structure -> pipeline factory -> trainer
--> epoch loop with eval and checkpoints, on one device (the card unless
-``--device`` names another).  Both families: DDIM from JSON configs or a
-pretrained folder (``for_ddim_pipeline``), StableDiffusion fine-tuned from a
-pretrained folder (``for_sd_pipeline``).
+-> epoch loop with eval and checkpoints, on the card unless ``--device``
+names another.  Under ``torchrun`` (``WORLD_SIZE > 1``) each process joins
+the process group and trains data-parallel on ``cuda:{LOCAL_RANK}``
+(``parallel/mesh.py``); ``--train_batch_size`` is the global batch.  Both
+families: DDIM from JSON configs or a pretrained folder
+(``for_ddim_pipeline``), StableDiffusion fine-tuned from a pretrained
+folder (``for_sd_pipeline``).
 
-What the JAX package runs elsewhere and the port does not: ``--segmented_sd
-on`` (its per-stage route for the TPU's compile transport; ``auto`` and
-``off`` take the one-program step, which eager PyTorch always can),
-``--model_parallel > 1`` and ``--adam_moment_dtype bfloat16`` raise
-``NotImplementedError``.  ``--dataset_name`` trains from an HF dataset
-(``data/hf_datasets.py``); ``--tracker wandb`` logs to wandb, or to JSONL
-where ``wandb`` is not installed.
+What the JAX package runs and the port does not yet: ``--segmented_sd on``
+(its per-stage route, a later slice; ``auto`` and ``off`` take the
+one-program step, which eager PyTorch always can) and ``--model_parallel >
+1`` (tensor parallelism, a later slice) raise ``NotImplementedError``
+naming their slice, as ``--adam_moment_dtype bfloat16`` does.
+``--dataset_name`` trains from an HF dataset (``data/hf_datasets.py``);
+``--tracker wandb`` logs to wandb, or to JSONL where ``wandb`` is not
+installed.
 """
 
 from __future__ import annotations
@@ -27,12 +31,13 @@ from phendiff_tpu_torch.cli.args import (
     build_parser,
     check_args,
     modify_args_for_debug,
+    process_device,
 )
 from phendiff_tpu_torch.cli.factory import load_initial_pipeline
-from phendiff_tpu_torch.core.device import resolve_device
 from phendiff_tpu_torch.core.precision import Policy
 from phendiff_tpu_torch.metrics.fidelity import MetricsConfig
 from phendiff_tpu_torch.obs.logging_utils import setup_logger
+from phendiff_tpu_torch.parallel.mesh import data_size, is_main
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 from phendiff_tpu_torch.train.ema import EMAConfig
 from phendiff_tpu_torch.train.eval_loop import EvalConfig
@@ -53,7 +58,6 @@ def not_ported(flag: str, item: str) -> NotImplementedError:
 def banner(args, warnings, device: torch.device):
     """Run-start summary."""
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
     print("=" * 70)
     print(f" phendiff-tpu-torch train :: {args.run_name}")
     print(f"   model_type={args.model_type} components={args.components_to_train}")
@@ -61,7 +65,7 @@ def banner(args, warnings, device: torch.device):
           f"perc={args.perc_samples}%")
     print(f"   batch={args.train_batch_size} epochs={args.num_epochs} "
           f"lr={args.learning_rate} precision={args.mixed_precision} remat={args.remat}")
-    print(f"   devices={count} ({name})")
+    print(f"   devices={data_size()} ({name})")  # one process a card
     for w in warnings:
         print(f"   WARNING: {w}")
     print("=" * 70)
@@ -69,7 +73,7 @@ def banner(args, warnings, device: torch.device):
 
 def trainer_config_from_args(args) -> TrainerConfig:
     if args.model_parallel > 1:
-        raise not_ported("--model_parallel > 1", "the parallelism layers, item 6")
+        raise not_ported("--model_parallel > 1", "item 6, slice 1: tensor parallelism")
     if args.adam_moment_dtype != "float32":
         raise NotImplementedError("--adam_moment_dtype bfloat16: the port keeps Adam's "
                                   "moments in float32")
@@ -145,10 +149,11 @@ def main(argv=None) -> int:
     warnings = check_args(args)
     config = trainer_config_from_args(args)
     if args.model_type == "StableDiffusion" and args.segmented_sd == "on":
-        raise not_ported("--segmented_sd on", "the SD stage-per-device route, item 6")
-    device = resolve_device(args.device)
+        raise not_ported("--segmented_sd on", "item 6, slice 2: the stage-per-device SD route")
+    device = process_device(args.device)
     setup_logger("phendiff_tpu_torch", main_process_only=True)
-    banner(args, warnings, device)
+    if is_main():
+        banner(args, warnings, device)
 
     policy = Policy.from_mixed_precision(args.mixed_precision)
     pipeline = load_initial_pipeline(args, dtype=policy.compute_torch, device=device)
@@ -163,7 +168,9 @@ def main(argv=None) -> int:
                                   attention_fine_tuning=args.attention_fine_tuning)
     state = trainer.run()
     trainer.tracker.finish()
-    print(f"done: {state.step} steps; best {config.eval.main_metric} = {trainer.best_metric}")
+    if is_main():
+        print(f"done: {state.step} steps; best {config.eval.main_metric} = "
+              f"{trainer.best_metric}")
     return 0
 
 

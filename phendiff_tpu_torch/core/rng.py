@@ -10,6 +10,8 @@ same numpy noise into both.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -42,3 +44,20 @@ class KeyStream:
         """A CPU generator determined by the root seed and ``data`` only
         (the samplers draw on the generator's device and move the noise)."""
         return torch.Generator().manual_seed(derive_seed(self._seed, int(data)))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsOf:
+    """A generator standing for rows ``rows`` of a batch of ``batch`` rows:
+    the samplers draw each noise tensor for the whole batch from
+    ``generator`` and keep those rows.  Under data parallelism a process
+    computes its share of a batch with it, and gets the numbers the whole
+    batch would have had in one process."""
+
+    generator: torch.Generator
+    batch: int
+    rows: torch.Tensor  # int64 indices into the batch
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device

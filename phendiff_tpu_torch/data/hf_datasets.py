@@ -6,9 +6,10 @@ or any dataset with an image and a label column) feeds the same batches as
 ``ImageFolderLoader``: decoded to uint8 RGB, then resized, scaled to
 [-1, 1] and flipped by the port's native library (``data/native.py``).
 
-The epoch order and the flips come from the same ``np.random.default_rng``
-seeds as the JAX adapter's with its defaults on one process (shuffled,
-full batches only), so both packages' adapters yield equal batches.
+The epoch order, its data-parallel shards and the flips come from the same
+``np.random.default_rng`` seeds as the JAX adapter's with its defaults
+(shuffled, full batches only), so both packages' adapters yield equal
+batches, shard for shard.
 ``datasets`` is imported only by the loaders; the adapter takes any object
 with the ``datasets.Dataset`` calls it makes.
 """
@@ -22,7 +23,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from phendiff_tpu_torch.data import native
-from phendiff_tpu_torch.data.imagefolder import LoaderConfig
+from phendiff_tpu_torch.data.imagefolder import LoaderConfig, shard_order
 
 
 def _to_uint8_rgb(img) -> np.ndarray:
@@ -71,17 +72,15 @@ class HFDatasetAdapter:
             return np.asarray(values, dtype=np.int32)
         return np.asarray([self._label_map[v] for v in values], dtype=np.int32)
 
-    def __len__(self) -> int:  # full batches per epoch
-        return len(self.dataset) // self.config.batch_size
+    def __len__(self) -> int:  # full batches per epoch of this shard
+        return len(self.dataset) // self.config.num_shards // self.config.batch_size
 
     @property
     def nb_classes(self) -> int:
         return len(self.classes)
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
-        order = np.arange(len(self.dataset))
-        np.random.default_rng((self.config.seed, epoch)).shuffle(order)
-        return order
+        return shard_order(len(self.dataset), self.config, epoch)
 
     def _rows(self, idxs):
         """(decoded uint8 images, dense labels) of the given rows."""
@@ -94,7 +93,7 @@ class HFDatasetAdapter:
         """The batches of ``epoch`` from ``skip_batches`` on."""
         cfg = self.config
         order = self._epoch_order(epoch)
-        rng = np.random.default_rng((cfg.seed, epoch, 0, 1))
+        rng = np.random.default_rng((cfg.seed, epoch, cfg.shard_index, 1))
         for b in range(skip_batches, len(self)):
             raws, labels = self._rows(order[b * cfg.batch_size:(b + 1) * cfg.batch_size])
             if cfg.normalize:

@@ -12,6 +12,10 @@ semantics:
 * an epoch order fixed by ``(seed, epoch)``, so a resumed run skips the
   batches it already consumed exactly, and a background thread that
   prefetches batches as numpy NHWC arrays;
+* data-parallel shards (``num_shards``, ``shard_index``): each takes a
+  contiguous part of the epoch's shared permutation, ``len`` counts one
+  shard's batches and a shard's flips come from ``(seed, epoch,
+  shard_index, 1)``;
 * a "raw" view (resize only, uint8, ``normalize=False``) read in file
   order by ``all_images``: the metrics' reference set and the comparison
   engine's inputs.
@@ -131,6 +135,18 @@ class LoaderConfig:
     random_flip: bool = False  # H and V flips, each with p = 0.5
     seed: int = 0
     prefetch: int = 2
+    num_shards: int = 1  # data-parallel process count
+    shard_index: int = 0
+
+
+def shard_order(n: int, config: LoaderConfig, epoch: int) -> np.ndarray:
+    """This shard's part of epoch ``epoch``'s order of ``n`` samples: the
+    permutation every shard draws from ``(seed, epoch)``, split into
+    ``num_shards`` contiguous parts."""
+    order = np.arange(n)
+    np.random.default_rng((config.seed, epoch)).shuffle(order)
+    per = n // config.num_shards
+    return order[config.shard_index * per:(config.shard_index + 1) * per]
 
 
 class ImageFolderLoader:
@@ -141,13 +157,11 @@ class ImageFolderLoader:
         self.index = index
         self.config = config
 
-    def __len__(self) -> int:  # batches per epoch
-        return len(self.index) // self.config.batch_size
+    def __len__(self) -> int:  # batches per epoch of this shard
+        return len(self.index) // self.config.num_shards // self.config.batch_size
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
-        order = np.arange(len(self.index))
-        np.random.default_rng((self.config.seed, epoch)).shuffle(order)
-        return order
+        return shard_order(len(self.index), self.config, epoch)
 
     def _make_batch(self, idxs: np.ndarray, rng: np.random.Generator):
         from phendiff_tpu_torch.data import native
@@ -171,7 +185,7 @@ class ImageFolderLoader:
         cfg = self.config
         order = self._epoch_order(epoch)
         nb = len(self)
-        rng = np.random.default_rng((cfg.seed, epoch, 0, 1))
+        rng = np.random.default_rng((cfg.seed, epoch, cfg.shard_index, 1))
 
         def producer(q: queue.Queue):
             try:

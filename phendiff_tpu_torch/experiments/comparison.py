@@ -23,9 +23,18 @@ An SD pipeline's transfer runs in its VAE's latent space: the images are
 encoded to their posterior means (times ``scaling_factor``), the method
 runs on the latents with the SD denoiser and ``encode_class``'s
 sequences, and the result is decoded.  The JAX engine's segmented and
-pipeline-parallel SD routes exist for the TPU's compile transport and have
-no counterpart here: a config that asks for them (``segmented_sd: true``,
-``pipeline_parallel: true``) raises.  One device runs the whole batch.
+pipeline-parallel SD routes (stages placed on devices) are a later slice: a
+config that asks for them (``segmented_sd: true``, ``pipeline_parallel:
+true``) raises.
+
+Under data parallelism (``parallel/mesh.py``, one process a card) each
+transfer batch is padded to a multiple of the data size by repeating its
+last row and split over the ranks, as the JAX engine shards it over its
+mesh's data axis; the cfg method's noise is each rank's rows of the whole
+batch's draw (``core.rng.RowsOf``), the numbers world 1 draws.  The
+outputs are all-gathered and trimmed to the real rows, and rank 0 alone
+writes the PNGs, the panels, ``timings.json`` and the metrics (one host
+FID pass), which it hands to every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import numpy as np
 import torch
 
 from phendiff_tpu_torch.core.device import DeviceLike, resolve_device
-from phendiff_tpu_torch.core.rng import KeyStream
+from phendiff_tpu_torch.core.rng import KeyStream, RowsOf
 from phendiff_tpu_torch.data.imagefolder import (
     DatasetIndex,
     ImageFolderLoader,
@@ -51,6 +60,12 @@ from phendiff_tpu_torch.data.imagefolder import (
 )
 from phendiff_tpu_torch.metrics.fidelity import MetricsConfig, calculate_metrics
 from phendiff_tpu_torch.metrics.inception import InceptionExtractor
+from phendiff_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    broadcast_object,
+    is_main,
+    padded_rows,
+)
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 from phendiff_tpu_torch.pipelines.io import load_model_index
@@ -92,8 +107,9 @@ class ComparisonConfig:
     # autocast, and the JAX engine's f32 matmuls over bf16 weights run as
     # bf16 passes on the TPU.  None: float32, weights as stored.
     inference_param_dtype: Optional[str] = "bfloat16"
-    # The JAX engine's segmented and pipeline-parallel SD routes (the TPU's
-    # compile transport); None and False are the only values the port takes.
+    # The JAX engine's segmented and pipeline-parallel SD routes (SD stages
+    # placed on devices): a later slice, so None and False are the only
+    # values the port takes.
     segmented_sd: Optional[bool] = None
     pipeline_parallel: bool = False
 
@@ -174,9 +190,11 @@ class ComparisonExperiment:
         self.device = resolve_device(device)
         if config.segmented_sd or config.pipeline_parallel:
             raise NotImplementedError(
-                "segmented_sd and pipeline_parallel select the JAX engine's SD routes for the "
-                "TPU's compile transport; the port runs every SD pipeline whole on one device: "
-                "set segmented_sd to null or false and pipeline_parallel to false")
+                "segmented_sd and pipeline_parallel select the JAX engine's stage-per-device SD "
+                "routes (written for the TPU's compile transport), not ported to "
+                "phendiff_tpu_torch yet (ROADMAP.md Queue 1 item 6, slice 2: the "
+                "stage-per-device SD route); set segmented_sd to null or false and "
+                "pipeline_parallel to false")
         self.pipes = {name: self._load_pipeline(path) for name, path in config.pipelines.items()}
         self.splits: Dict[str, DatasetIndex] = {"train": scan_imagefolder(config.dataset_train)}
         if config.dataset_test:
@@ -222,14 +240,13 @@ class ComparisonExperiment:
                                            for i in idxs])
                         src = np.array([index.labels[i] for i in idxs], dtype=np.int64)
                         tgt = 1 - src  # binary-class flip
-                        out = fn(torch.from_numpy(images).to(self.device), torch.from_numpy(src),
-                                 torch.from_numpy(tgt), stream.next())
-                        out = out.float().cpu().numpy()
-                        _save_batch(out / 2.0 + 0.5, [index.paths[i] for i in idxs], tgt,
-                                    index.classes, out_dir)
-                        if start == 0:
-                            side_by_side(images[:8], out[:8]).save(
-                                os.path.join(out_dir, "_pairs.png"))
+                        out = self._transfer_rows(fn, images, src, tgt, stream.next())
+                        if is_main():
+                            _save_batch(out / 2.0 + 0.5, [index.paths[i] for i in idxs], tgt,
+                                        index.classes, out_dir)
+                            if start == 0:
+                                side_by_side(images[:8], out[:8]).save(
+                                    os.path.join(out_dir, "_pairs.png"))
                         n_images += len(idxs)
                         if cfg.debug:
                             break
@@ -241,8 +258,21 @@ class ComparisonExperiment:
                 }
                 logger.info("transfers %s/%s: %.1f s for %d images (%.3f img/s)",
                             method, pipe_name, wall, n_images, n_images / wall if wall else 0.0)
-        with open(os.path.join(cfg.output_dir, "timings.json"), "w") as f:
-            json.dump(self.transfer_timings, f, indent=2, sort_keys=True)
+        if is_main():
+            with open(os.path.join(cfg.output_dir, "timings.json"), "w") as f:
+                json.dump(self.transfer_timings, f, indent=2, sort_keys=True)
+
+    def _transfer_rows(self, fn: Callable, images: np.ndarray, src: np.ndarray,
+                       tgt: np.ndarray, generator: torch.Generator) -> np.ndarray:
+        """One batch through ``fn``, split over the data group: this rank
+        transfers its rows of the batch padded by repeating the last row,
+        and every rank gets the whole batch back, f32 on the host."""
+        n = len(images)
+        rows = padded_rows(n, "repeat_last")
+        images, src, tgt = images[rows], src[rows], tgt[rows]
+        out = fn(torch.from_numpy(images).to(self.device), torch.from_numpy(src),
+                 torch.from_numpy(tgt), RowsOf(generator, n, torch.from_numpy(rows)))
+        return all_gather_rows(out.float().contiguous())[:n].cpu().numpy()
 
     # -- metrics -----------------------------------------------------------
     def _features(self, index: DatasetIndex) -> Tuple[np.ndarray, np.ndarray]:
@@ -252,6 +282,12 @@ class ComparisonExperiment:
             b.astype(np.float32) / 255.0 for b, _ in loader.all_images())
 
     def compute_metrics(self) -> Dict[str, float]:
+        """Rank 0 computes the metrics from the PNGs it wrote; every rank
+        returns them."""
+        results = self._metrics() if is_main() else None
+        return broadcast_object(results)
+
+    def _metrics(self) -> Dict[str, float]:
         cfg = self.config
         results: Dict[str, float] = {}
         real: Dict[str, np.ndarray] = {}  # split -> features, extracted once

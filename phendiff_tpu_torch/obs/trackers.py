@@ -7,7 +7,8 @@ with a 6 h cooldown per title to ``alerts.log``, the run id kept in
 ``images/step_<step>/``), a ``WandbTracker`` (the same calls on a wandb
 run; ``wandb`` is imported only when one is made) and a ``NullTracker``.
 ``make_tracker("wandb", ...)`` falls back to the JSONL tracker where
-``wandb`` cannot be imported, as offline machines have it.
+``wandb`` cannot be imported, as offline machines have it.  Under data
+parallelism only rank 0 records: the other ranks get a ``NullTracker``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+
+from phendiff_tpu_torch.parallel.mesh import is_main
 
 
 class Tracker:
@@ -128,14 +131,14 @@ class WandbTracker(Tracker):
 def make_tracker(kind: str, run_dir: str, project: str = "phendiff-tpu",
                  config: Optional[dict] = None) -> Tracker:
     """``"jsonl"``, ``"wandb"`` (JSONL where ``wandb`` cannot be imported)
-    or ``"none"``/``"no"``."""
-    if kind in ("none", "no"):
+    or ``"none"``/``"no"``; a ``NullTracker`` on a rank other than 0."""
+    if kind not in ("none", "no", "wandb", "jsonl"):
+        raise ValueError(f"unknown tracker {kind!r}: this port has 'jsonl', 'wandb' and 'none'")
+    if kind in ("none", "no") or not is_main():
         return NullTracker()
     if kind == "wandb":
         try:
             return WandbTracker(project, run_dir, config or {})
         except ImportError:
-            return JSONLTracker(run_dir)
-    if kind == "jsonl":
-        return JSONLTracker(run_dir)
-    raise ValueError(f"unknown tracker {kind!r}: this port has 'jsonl', 'wandb' and 'none'")
+            pass
+    return JSONLTracker(run_dir)

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
@@ -127,3 +129,20 @@ def check(err: int, what: str) -> None:
     descriptor that could not be encoded, -1000 - its CUresult)."""
     if err != 0:
         raise RuntimeError(f"{what}: error {err}")
+
+
+def on_tensor_device(fn):
+    """Run ``fn(x, ...)`` with the current CUDA device set to ``x``'s (a
+    CPU tensor runs as it is).  The C entries launch on the current device
+    and do their once-per-device setup for it, so a call on another card
+    than the current one (a process of a data-parallel group, or any
+    multi-card caller) launches where its tensors are."""
+
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kw):
+        if x.device.type != "cuda":
+            return fn(x, *args, **kw)
+        with torch.cuda.device(x.device):
+            return fn(x, *args, **kw)
+
+    return wrapped

@@ -16,7 +16,8 @@ slices of the fused qkv projection need no copy.
 When a gradient is needed the forward also saves each row's log-sum-exp,
 and the backward (``flash_attention_bwd``) recomputes the probabilities
 from it.  ``flash_attention.launches`` and ``flash_attention_bwd.launches``
-count kernel launches.
+count kernel launches.  Every launch runs with the current device set to
+its input's (``_build.on_tensor_device``).
 
 The kernel is chosen by the input dtype, inside the C entries: bf16 runs
 the tensor-core kernels (``mma.sync``), f32 the CUDA-core FMA kernels,
@@ -135,6 +136,7 @@ def _bwd_entry():
     return fn
 
 
+@_build.on_tensor_device
 def _launch(q, k, v, scale: float, with_lse: bool = False):
     """Forward kernel on kernel-dim inputs: o, or (o, lse) with ``with_lse``."""
     _check_dtypes(q, k, v)
@@ -159,6 +161,7 @@ def _launch(q, k, v, scale: float, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
+@_build.on_tensor_device
 def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     """(dq, dk, dv) from the backward kernel, for kernel-dim CUDA inputs:
     q, k, v as the forward took them, its output ``o`` and row log-sum-exp

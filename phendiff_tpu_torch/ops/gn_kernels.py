@@ -27,6 +27,9 @@ states in plain PyTorch.  The TPU package has no backward kernel (its
 ``fused_group_norm.launches`` and ``fused_group_norm_bwd.launches`` count
 cluster-kernel launches (one a call), ``.stream_launches`` the streaming
 variant's calls (three kernels a forward call, two a backward call).
+Every launch runs with the current device set to its input's
+(``_build.on_tensor_device``), so a tensor on another card than the
+current one launches, and sets the kernels up, on its own card.
 
 ``channel_moments`` is the counterpart of ``m_pallas`` in
 ``tools/bench_gn_moments.py``: per-channel f32 sum x and sum x^2 of a
@@ -389,6 +392,7 @@ def max_active_clusters(b, s, c, num_groups, dtype, act=None, backward=False) ->
     return n
 
 
+@_build.on_tensor_device
 def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
     """Forward kernel, the cluster one or the streaming variant as
     ``gn_route`` says: (out, mean, rstd), mean and rstd f32 [B, G]."""
@@ -429,6 +433,7 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
     return out, stats[0], stats[1]
 
 
+@_build.on_tensor_device
 def fused_group_norm_bwd(x, g, scale, bias, mean, rstd, *, num_groups, act=None):
     """(dx in x's dtype, dscale, dbias in f32) from the backward kernel (the
     cluster one, with ``gn_plan``'s launch shape for this batch, or the
@@ -586,6 +591,7 @@ def channel_moments_plain(x: torch.Tensor, tile: int = 512):
     return s, q
 
 
+@_build.on_tensor_device
 def channel_moments(x: torch.Tensor):
     """Per-channel f32 (sum x, sum x^2), each [B, C], of a [B, S, C] map.
 

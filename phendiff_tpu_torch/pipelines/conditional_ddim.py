@@ -12,7 +12,8 @@ kept:
   ``uncond + w (cond - uncond)`` (active iff w > 1) and original CFG
   ``cond + w (cond - uncond)`` (active iff w > 0), a per-sample tensor w,
   and the cond and uncond passes batched into one forward;
-* eta > 0 draws its step noise from an explicit ``torch.Generator``;
+* eta > 0 draws its step noise from an explicit ``torch.Generator`` (or a
+  ``core.rng.RowsOf``: a process's rows of a batch's draws);
 * deterministic inversion with the source class.
 """
 
@@ -24,6 +25,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from phendiff_tpu_torch.core import scheduler as S
+from phendiff_tpu_torch.core.rng import RowsOf
 
 # denoiser(x[B,H,W,C] f32, t[B] int64, class_emb[B,D]) -> model_output[B,H,W,C] f32
 DenoiserFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -73,8 +75,13 @@ def truncate_pairs_by_strength(ts, t_prev, strength: float):
     return ts[start:], t_prev[start:]
 
 
-def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
+def _randn(shape, generator: Union[torch.Generator, RowsOf], device) -> torch.Tensor:
     # draw on the generator's device, then move: a CPU generator serves any device
+    if isinstance(generator, RowsOf):  # a share of a batch: its rows of the batch's draw
+        if len(generator.rows) != shape[0]:
+            raise ValueError(f"{len(generator.rows)} rows of the batch for a draw of {shape}")
+        full = _randn((generator.batch, *shape[1:]), generator.generator, generator.device)
+        return full[generator.rows.to(full.device)].to(device)
     return torch.randn(shape, generator=generator, device=generator.device,
                        dtype=torch.float32).to(device)
 

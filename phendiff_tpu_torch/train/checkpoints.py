@@ -8,7 +8,8 @@ is the port's own (the Orbax format cannot be read without orbax): each
 step directory holds ``state.pt``, a ``torch.save`` of
 ``TrainState.state_dict()`` (plus ``extra`` when given).  A step is
 written to a temporary directory and renamed into place, so a reader never
-sees half a checkpoint.
+sees half a checkpoint.  Under data parallelism (``parallel/mesh.py``) rank
+0 writes and every rank waits at a barrier after it; every rank restores.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import List, Optional
 
 import torch
 
+from phendiff_tpu_torch.parallel.mesh import barrier, is_main
 from phendiff_tpu_torch.train.train_loop import TrainState
 
 STATE_FILE = "state.pt"
@@ -34,6 +36,11 @@ class CheckpointManager:
         return os.path.join(self.directory, str(int(step)))
 
     def save(self, step: int, state: TrainState, extra: Optional[dict] = None) -> None:
+        if is_main():
+            self._write(step, state, extra)
+        barrier()
+
+    def _write(self, step: int, state: TrainState, extra: Optional[dict]) -> None:
         payload = {"state": state.state_dict()}
         if extra is not None:
             payload["extra"] = extra

@@ -15,8 +15,15 @@ Counterpart of ``phendiff_tpu/train/eval_loop.py``:
 * ``inception_pretrained`` (1.0 or 0.0) in every record.
 
 Generated images stay on the device through the Inception extractor; only
-features and the first batch's panel come back to the host.  The JAX
-package's multi-process gather waits for the parallelism slice.
+features and the first batch's panel come back to the host.
+
+Under data parallelism (``parallel/mesh.py``) each process generates its
+rows of every (class, batch), the batch padded by cycling to a multiple of
+the data size (the JAX Trainer's eval sharding); its start noise is its
+rows of the whole batch's draw (``core.rng.RowsOf``), the noise world 1
+draws.  Features, logits and the first batch's panel are all-gathered
+and trimmed to the real rows (the JAX Evaluator's ``_gather``); rank 0
+computes the metrics (one host FID a class) and hands them to every rank.
 """
 
 from __future__ import annotations
@@ -31,10 +38,16 @@ import numpy as np
 import torch
 
 from phendiff_tpu_torch.core.device import DeviceLike
-from phendiff_tpu_torch.core.rng import EVAL_SEED, derive_seed
+from phendiff_tpu_torch.core.rng import EVAL_SEED, RowsOf, derive_seed
 from phendiff_tpu_torch.data.imagefolder import DatasetIndex, ImageFolderLoader, LoaderConfig
 from phendiff_tpu_torch.metrics.fidelity import FeatureCache, MetricsConfig, calculate_metrics
 from phendiff_tpu_torch.metrics.inception import InceptionExtractor
+from phendiff_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    broadcast_object,
+    is_main,
+    padded_rows,
+)
 from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
 
 logger = logging.getLogger(__name__)
@@ -135,19 +148,23 @@ class Evaluator:
     # -- generation --------------------------------------------------------
     def _generate_class(self, generate_fn: Callable, class_label: int):
         """generate_fn(labels, generator, num_inference_steps) -> [-1, 1]
-        NHWC images on the device."""
+        NHWC images on the device, given this process's rows of each batch
+        (all of them at world 1) and a ``RowsOf`` generator."""
         cfg = self.config
         feats, logits, first_batch = [], [], None
         bs = cfg.eval_batch_size
+        rows = torch.from_numpy(padded_rows(bs, "cycle"))
         for i in range(-(-cfg.nb_generated_images // bs)):
-            generator = torch.Generator().manual_seed(derive_seed(EVAL_SEED, class_label, i))
-            labels = torch.full((bs,), class_label, dtype=torch.int64, device=self.device)
+            generator = RowsOf(torch.Generator().manual_seed(
+                derive_seed(EVAL_SEED, class_label, i)), bs, rows)
+            labels = torch.full((len(rows),), class_label, dtype=torch.int64, device=self.device)
             imgs01 = to_images(generate_fn(labels, generator, cfg.num_inference_steps))
             f, lg = self.extractor(imgs01)
-            feats.append(f.cpu().numpy())
-            logits.append(lg.cpu().numpy())
+            feats.append(all_gather_rows(f)[:bs].cpu().numpy())
+            logits.append(all_gather_rows(lg)[:bs].cpu().numpy())
             if first_batch is None:
-                first_batch = imgs01[:50].float().cpu().numpy()
+                panel = all_gather_rows(imgs01.contiguous())[:min(bs, 50)]
+                first_batch = panel.float().cpu().numpy()
         n = cfg.nb_generated_images
         return np.concatenate(feats)[:n], np.concatenate(logits)[:n], first_batch
 
@@ -163,6 +180,8 @@ class Evaluator:
         mains: List[float] = []
         for label, name in class_items:
             feats, logits, panel = self._generate_class(generate_fn, label)
+            if not is_main():  # rank 0 computes the metrics
+                continue
             real = None
             if cfg.metrics.fid or cfg.metrics.kid:
                 real = self._reference_features(label, name)
@@ -176,6 +195,7 @@ class Evaluator:
             all_metrics["main_metric_mean"] = float(np.mean(mains))
         # 1.0: pinned FID-Inception weights; 0.0: the random-init fallback
         all_metrics["inception_pretrained"] = float(self.extractor.pretrained)
+        all_metrics = broadcast_object(all_metrics)
         if tracker is not None:
             tracker.log(all_metrics, step)
         return all_metrics

@@ -28,7 +28,12 @@ are dicts of the same shapes.  The random draws of a step (noise,
 timesteps, coin flip, and for the SD family the VAE posterior's noise) are
 an explicit ``StepDraws`` argument, made by ``make_draws`` from a seed and
 the step number, so a test can inject the draws another implementation
-made.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
+made.  Under data parallelism (``parallel/mesh.py``) each process runs the
+step on its rows of the global batch with its rows of the global draws
+(``StepDraws.rows``); the gradients and the loss are averaged over the
+processes right after the backward, so the clip, the update and the
+``grad_norm`` metric see the global gradient and every replica takes the
+same update.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
 family's VAE encode), outside the gradient for a frozen VAE or inside it
 when the VAE trains.  Adam's first moment is always f32 (the
 JAX package's ``moment_dtype`` option measured slower and is not ported).
@@ -44,6 +49,7 @@ import torch
 
 from phendiff_tpu_torch.core import scheduler as S
 from phendiff_tpu_torch.core.rng import derive_seed
+from phendiff_tpu_torch.parallel.mesh import all_reduce_mean_
 from phendiff_tpu_torch.train.ema import EMAConfig, ema_update
 
 Params = Dict[str, torch.Tensor]
@@ -237,6 +243,13 @@ class StepDraws:
     uncond: bool  # the batch-level CFG coin flip
     enc_noise: Optional[torch.Tensor] = None  # [B, H, W, C] f32: the VAE posterior's sample
 
+    def rows(self, sl: slice) -> "StepDraws":
+        """The draws of rows ``sl`` of the batch (a process's share of the
+        global draws); the coin flip is the whole batch's."""
+        return dataclasses.replace(
+            self, noise=self.noise[sl], timesteps=self.timesteps[sl],
+            enc_noise=None if self.enc_noise is None else self.enc_noise[sl])
+
 
 def make_draws(seed: int, step: int, shape: Tuple[int, ...], num_train_timesteps: int,
                proba_uncond: float, device, posterior: bool = False) -> StepDraws:
@@ -334,12 +347,16 @@ def make_train_step(
         # Fourier weight is) has a zero gradient, as under jax.grad
         grads = {n: got[n] if got.get(n) is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        # the mean over the data group (a no-op in one process): one flat
+        # all-reduce of the computed gradients and the loss
+        loss = loss.detach()
+        all_reduce_mean_([grads[n] for n in names] + [loss])
         grad_norm = global_norm(list(grads.values()))
         opt.update(grads, state.opt_state, params)
         state.step += 1
         ema_update(config.ema, state.ema_params, params, state.step)
         metrics = {
-            "loss": loss.detach(),
+            "loss": loss,
             "grad_norm": grad_norm,
             "lr": lr_sched(state.step),
             "nonfinite": (~(torch.isfinite(loss) & torch.isfinite(grad_norm))).int(),

@@ -1,8 +1,8 @@
 """Training orchestrator: run-dir layout, epoch loop, checkpoint cadence,
 resume, pipeline save.
 
-Counterpart of ``phendiff_tpu/train/trainer.py`` for one device and the
-image-folder route:
+Counterpart of ``phendiff_tpu/train/trainer.py``, in one process or one
+process a card (``parallel/mesh.py``):
 
 * run dir ``exp_parent/experiment/run/{checkpoints, full_pipeline_save}``
   with a shared ``.fidelity_cache`` at the parent;
@@ -11,7 +11,12 @@ image-folder route:
   "latest" (or a step) with an exact skip of the batches already consumed;
 * metrics read back in one host fetch every ``metrics_flush_every`` steps,
   with a NaN alert on non-finite loss or gradient norm;
-* lr x sqrt(data-parallel size), which is 1 on one device;
+* data parallelism as the JAX Trainer's data axis: lr x sqrt(data size),
+  each process loading its shard of every global batch
+  (``train_batch_size // data size`` rows, ``num_shards``/``shard_index``
+  from its rank) and taking its rows of the global step draws; only rank 0
+  writes checkpoints, pipeline folders, tracker records and panels (the
+  others wait at a barrier), and every rank restores a checkpoint;
 * with ``compute_metrics=True`` (the default, as in the JAX package) an
   eval pass runs the ``Evaluator``
   (per-class FID/ISC/KID of EMA samples) and saves the EMA pipeline when
@@ -58,6 +63,15 @@ from phendiff_tpu_torch.models.sd_unet import SDUNet
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
 from phendiff_tpu_torch.obs.profiling import StepTimer
 from phendiff_tpu_torch.obs.trackers import make_tracker
+from phendiff_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    data_rank,
+    data_size,
+    is_main,
+    local_rows,
+    replicate,
+)
 from phendiff_tpu_torch.pipelines.conditional_ddim import GuidanceConfig, ddim_sample
 from phendiff_tpu_torch.train.checkpoints import CheckpointManager
 from phendiff_tpu_torch.train.eval_loop import (
@@ -148,15 +162,18 @@ class TrainerConfig:
 
 def build_data(config: TrainerConfig):
     """``(index, loader, eval_index)``; ``eval_index`` is the metrics'
-    reference set.  With ``dataset_name`` all three are one
+    reference set.  The loader yields this process's shard of every global
+    batch.  With ``dataset_name`` all three are one
     ``HFDatasetAdapter``."""
     loader_cfg = LoaderConfig(
-        batch_size=config.train_batch_size,
+        batch_size=config.train_batch_size // data_size(),
         definition=config.definition,
         transport="uint8" if config.upload_uint8 else "f32",
         random_flip=config.data_aug_on_the_fly,
         seed=config.seed,
         prefetch=config.loader_prefetch,
+        num_shards=data_size(),
+        shard_index=data_rank(),
     )
     if config.dataset_name is not None:
         if config.perc_samples < 100:
@@ -201,7 +218,8 @@ class Trainer:
         self.paths = paths
         self.device = resolve_device(device)
         # lr x sqrt(data-parallel size), as the reference scales across ranks
-        opt_cfg = dataclasses.replace(config.train.optimizer, lr_scale=math.sqrt(1))
+        opt_cfg = dataclasses.replace(config.train.optimizer,
+                                      lr_scale=math.sqrt(data_size()))
         self.train_cfg = dataclasses.replace(config.train, optimizer=opt_cfg)
         self.optimizer = make_optimizer(opt_cfg, trainable_mask)
         self.schedule = schedule
@@ -210,6 +228,8 @@ class Trainer:
         self.posterior = encode_fn is not None  # the step samples the VAE posterior
         self.diffusion_shape = diffusion_shape or (lambda shape: shape)
         self.state = init_train_state(trainable_params, self.optimizer)
+        # every replica starts from rank 0's weights, as DDP's constructor makes it
+        replicate((self.state.params, self.state.ema_params))
         self.ckpt = CheckpointManager(paths.checkpoints, config.checkpoints_total_limit)
         self.tracker = make_tracker(config.tracker, paths.run_dir)
         self.save_pipeline_fn = save_pipeline_fn
@@ -242,12 +262,15 @@ class Trainer:
                                               tracker=self.tracker)
             mean_main = metrics.get("main_metric_mean")
         save_dir = self.paths.full_pipeline_save
-        if mean_main is None:
-            if not (os.path.isdir(save_dir) and os.listdir(save_dir)):
-                self.save_pipeline_fn(self.state, save_dir)
+        save = False
+        if mean_main is None:  # rank 0's view: another rank may look while it writes
+            save = broadcast_object(not (os.path.isdir(save_dir) and os.listdir(save_dir)))
         elif is_it_best_model(mean_main, self.best_metric):
-            self.best_metric = mean_main
-            self.save_pipeline_fn(self.state, save_dir)
+            self.best_metric, save = mean_main, True
+        if save:
+            if is_main():
+                self.save_pipeline_fn(self.state, save_dir)
+            barrier()
 
     # -- main loop -----------------------------------------------------------
     def _flush_metrics(self, pending, timer: StepTimer) -> None:
@@ -294,9 +317,12 @@ class Trainer:
             for images, labels in self.loader.epoch(epoch, skip_batches):
                 t_data_end = time.perf_counter()
                 batch = self._to_device(images, labels)
-                draws = make_draws(cfg.seed, self.state.step,
-                                   self.diffusion_shape(tuple(images.shape)), t_count,
-                                   p_uncond, self.device, posterior=self.posterior)
+                # the global batch's draws, of which this process keeps its rows
+                b, *rest = self.diffusion_shape(tuple(images.shape))
+                world_shape = (b * data_size(), *rest)
+                draws = make_draws(cfg.seed, self.state.step, world_shape, t_count, p_uncond,
+                                   self.device, posterior=self.posterior
+                                   ).rows(local_rows(world_shape[0]))
                 self.state, metrics = self._step_fn(self.state, batch, draws)
                 global_step += 1
                 timer.tick()

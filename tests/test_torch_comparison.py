@@ -231,8 +231,10 @@ def test_evaluator_keys_panels_and_seeds(tiny_image_root, tmp_path, monkeypatch)
     seen = []
 
     def generate(labels, generator, num_inference_steps):
-        seen.append((labels.tolist(), generator.initial_seed(), num_inference_steps))
-        return torch.rand(len(labels), 16, 16, 3, generator=generator) * 2 - 1
+        # a RowsOf: this process's rows (all of them here) of the batch's draw
+        seen.append((labels.tolist(), generator.generator.initial_seed(), num_inference_steps))
+        full = torch.rand(generator.batch, 16, 16, 3, generator=generator.generator)
+        return full[generator.rows] * 2 - 1
 
     tracker = JSONLTracker(str(tmp_path / "run"))
     m = ev.evaluate(generate, step=7, tracker=tracker)

@@ -30,19 +30,21 @@ _FORBIDDEN_CHECK = textwrap.dedent("""
     print("missing", missing)
     sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """)
-# The training, comparison, SD and serving slices' modules, each checked by name above.
+# The training, comparison, SD, serving and data-parallel slices' modules, each checked by
+# name above.
 NEW_MODULES = [
     "phendiff_tpu_torch.train.train_loop", "phendiff_tpu_torch.train.ema",
     "phendiff_tpu_torch.train.checkpoints", "phendiff_tpu_torch.train.trainer",
     "phendiff_tpu_torch.data.native", "phendiff_tpu_torch.data.imagefolder",
     "phendiff_tpu_torch.obs.trackers", "phendiff_tpu_torch.obs.profiling",
-    "phendiff_tpu_torch.tools.bench_gn_moments",
+    "phendiff_tpu_torch.tools.bench_gn_moments", "phendiff_tpu_torch.tools.ddib_batch_gap",
     "phendiff_tpu_torch.metrics.fidelity", "phendiff_tpu_torch.metrics.inception",
     "phendiff_tpu_torch.experiments.comparison", "phendiff_tpu_torch.cli.img2img_cli",
     "phendiff_tpu_torch.train.eval_loop", "phendiff_tpu_torch.obs.images",
     "phendiff_tpu_torch.models.sd_unet", "phendiff_tpu_torch.models.autoencoder_kl",
     "phendiff_tpu_torch.models.hf_import", "phendiff_tpu_torch.pipelines.sd_img2img",
     "phendiff_tpu_torch.serving.engine", "phendiff_tpu_torch.data.hf_datasets",
+    "phendiff_tpu_torch.parallel", "phendiff_tpu_torch.parallel.mesh",
 ]
 
 

@@ -501,3 +501,42 @@ def test_channel_moments_kernel_matches_plain(cuda, shape, dtype):
         assert a.shape == (shape[0], shape[2]) and a.dtype == torch.float32
         assert torch.equal(a, b)  # fixed-order combine: deterministic
         torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_kernel_launches_on_its_tensors_card(cuda, dtype):
+    """With the current device set to card 0, each kernel called on card 1's
+    tensors runs there (``on_tensor_device``): its outputs live on card 1,
+    agree with the plain versions, and card 0 stays the current device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(2, 256, 4, 8, generator=g, device=dev).to(dtype).requires_grad_()
+               for _ in range(3))
+    out = flash_attention(q, k, v)
+    dq, dk, dv = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref = attention_plain(q32, k32, v32, scale=8 ** -0.5)
+    rq, rk, rv = torch.autograd.grad(ref.square().sum(), (q32, k32, v32))
+    x = torch.randn(2, 256, 64, generator=g, device=dev).to(dtype).requires_grad_()
+    scale = torch.ones(64, device=dev, requires_grad=True)
+    bias = torch.zeros(64, device=dev, requires_grad=True)
+    y = fused_group_norm(x, scale, bias, num_groups=8, eps=1e-5, act="silu", out_dtype=dtype)
+    dx, = torch.autograd.grad(y.float().sum(), (x,))
+    x32 = x.detach().float().requires_grad_()
+    y_ref = group_norm_plain(x32, scale.detach(), bias.detach(), num_groups=8, eps=1e-5,
+                             act="silu")
+    dx_ref, = torch.autograd.grad(y_ref.sum(), (x32,))
+    moments = channel_moments(x.detach())
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for t in (out, dq, dk, dv, y, dx, *moments):
+        assert t.device == dev
+    assert _rel_l2(out, ref) < 1e-2 and _rel_l2(y, y_ref) < 1e-2
+    for a, b in ((dq, rq), (dk, rk), (dv, rv), (dx, dx_ref)):
+        assert _rel_l2(a, b) < 2e-2
+    for a, b in zip(moments, channel_moments_plain(x.detach())):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2)
