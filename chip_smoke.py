@@ -131,11 +131,33 @@ failure exits non-zero before the final line:
     rows of the global draws against this process's batch-32 steps (the first
     step's loss and gradients, the parameters after 3 steps by grad_check's
     rule), exact launches a rank a step, an Evaluator pass (32 images a
-    class, 10 steps, f32) whose gathered features match world 1's, and the
+    class, 10 steps, f32) whose gathered features match world 1's, the
     DDIB comparison over 2 x 32 PNGs at 10 steps in f32, images within 1e-3
-    of world 1's at the ranks' batch of 16 and FID computed on rank 0 alone.  (c) Per-rank and global
-    samples/s and the gloo all-reduce's ms a step: two ranks share one card,
-    so these are not scaling figures.
+    of world 1's at the ranks' batch of 16, and a metric pass of one FID
+    (class 0 against class 1) computed on rank 0 alone.  (c) Per-rank and
+    global samples/s and the gloo all-reduce's ms a step: two ranks share
+    one card, so these are not scaling figures;
+27. reco: the trained-model round trip
+    (``phendiff_tpu_torch/tools/trained_round_trip.py``): ``super_small``
+    trained 100 steps at 64 px (bf16, batch 32) on a toy set this phase
+    writes, then a 50-step sample -> DDIM-invert -> regenerate at batch 16
+    in f32 (``tools/reco_err.py``'s ``round_trip``), gated on its threshold
+    (mean relative error under 0.05) and finite latents; exact launches of
+    the four kernels and each kernel first held against its plain version
+    at this path's shapes;
+28. tp: tensor parallelism (``phendiff_tpu_torch/parallel/tp.py``): each
+    kernel at the shards' shapes (16 of 32 heads, half the channels and
+    groups), then two processes of this script (``--tp-worker``, gloo on
+    ``cuda:0``, one replica over a model axis of 2): 3 DDIM train steps at
+    batch 32 against the dp phase's world-1 steps (grad_check's rule on the
+    gathered gradients and parameters), replicated leaves bit-equal on both
+    ranks and shards of half width, exact launches a rank a step with the
+    attention at 16 heads and 17 GroupNorms a forward at half the channels,
+    and one full-width SD-2.1 UNet forward at 128 px, batch 8: in float32
+    against world 1 to SD_F32_REL_L2_TOL, in bf16 the shards and world 1
+    each against world 1's float32 output to FORWARD_REL_L2_TOL; the step
+    times (two ranks share one card: not a
+    scaling figure).
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -146,6 +168,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -298,6 +321,16 @@ DP_WORLD, DP_STEPS = 2, 3
 DP_FEATURES_REL_L2_TOL = 1e-4
 DP_IMAGES_MAX_ABS_TOL = 1e-3
 DP_WORKER_TIMEOUT_S = 600
+# The trained-model round trip (phase 27): training steps at 64 px chosen
+# from tools/trained_round_trip.py --quick on the card (25 to 400 steps all
+# passed reco_err's 0.05; 100 steps took 10 s), and the phase's time budget.
+RECO_TRAIN_STEPS, RECO_BUDGET_S = 100, 60
+# Tensor parallelism (phase 28): one replica over a model axis of 2, both
+# ranks on the one card over gloo; the SD forward's batch and dtypes (f32
+# holds the shards to f32 rounding, bf16 is what SD trains in).
+TP_WORLD, TP_SD_BATCH = 2, 8
+TP_SD_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+TP_WORKER_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -478,17 +511,18 @@ def gn_plan_record(torch, b, s, c, groups, act, backward=False):
         b, s, c, groups, torch.bfloat16, act, backward), "registers": regs[0] if regs else None}
 
 
-def gn_check(torch, b, s, c, groups, act, iters=20):
+def gn_check(torch, b, s, c, groups, act, iters=20, dtype_name="bfloat16"):
     import torch.nn.functional as F
 
     from phendiff_tpu_torch.ops.gn_kernels import (
         _launch, fused_group_norm, group_norm_plain, group_stats_plain)
 
+    dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(s + c)
-    x = (torch.randn(b, s, c, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    x = (torch.randn(b, s, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
     scale = torch.randn(c, generator=g, device="cuda")
     bias = torch.randn(c, generator=g, device="cuda")
-    kw = dict(num_groups=groups, eps=1e-5, act=act, out_dtype=torch.bfloat16)
+    kw = dict(num_groups=groups, eps=1e-5, act=act, out_dtype=dtype)
     before = fused_group_norm.launches
     out = fused_group_norm(x, scale, bias, **kw)
     torch.cuda.synchronize()
@@ -497,7 +531,7 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
     one_launch = fused_group_norm.launches - before == 2
     ref = group_norm_plain(x, scale, bias, **kw)
     # the [B, G] mean and rstd the forward writes for the backward
-    stats = _launch(x, scale, bias, groups, 1e-5, act, torch.bfloat16)[1:]
+    stats = _launch(x, scale, bias, groups, 1e-5, act, dtype)[1:]
     stats_ref = group_stats_plain(x, groups, 1e-5)
     torch.cuda.synchronize()
     stats_ok = all(torch.allclose(a, r, **GN_STATS_TOL) for a, r in zip(stats, stats_ref))
@@ -509,7 +543,7 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
     ms = graph_ms(lambda: fused_group_norm(x, scale, bias, **kw), iters)
     call_ms = cuda_ms(lambda: fused_group_norm(x, scale, bias, **kw), iters=iters)
     plain_ms = cuda_ms(lambda: group_norm_plain(x, scale, bias, **kw), iters=max(iters // 2, 3))
-    sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    sb, bb = scale.to(dtype), bias.to(dtype)
 
     def library(xin):
         y = F.group_norm(xin, groups, sb, bb, 1e-5)
@@ -524,11 +558,11 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
     x_cl = x.view(b, hw, s // hw, c).permute(0, 3, 1, 2)
     library_ms = cuda_ms(lambda: library(xc), iters=iters)
     library_channels_last_ms = cuda_ms(lambda: library(x_cl), iters=iters)
-    n_bytes = b * s * c * (2 + 2) + 2 * c * 4
+    n_bytes = b * s * c * 2 * x.element_size() + 2 * c * 4
     flops = 10 * b * s * c
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     rec = {
-        "phase": "kernel_check", "kernel": "group_norm_silu",
+        "phase": "kernel_check", "kernel": "group_norm_silu", "dtype": dtype_name,
         "shape": {"B": b, "S": s, "C": c, "G": groups, "act": act}, "max_abs_err": err,
         "ok": bool(ok), "deterministic": bool(torch.equal(out, again)), "tol": GN_TOL,
         "one_launch_per_call": one_launch, "stats_ok": stats_ok,
@@ -538,7 +572,7 @@ def gn_check(torch, b, s, c, groups, act, iters=20):
         "library_channels_last_ms": library_channels_last_ms, "bytes": n_bytes,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        **gn_plan_record(torch, b, s, c, groups, act),
+        **(gn_plan_record(torch, b, s, c, groups, act) if dtype == torch.bfloat16 else {}),
     }
     emit(rec)
     return rec
@@ -710,7 +744,8 @@ def write_image_folder(root: str, per_class: int) -> str:
 def train_parts(torch, pipe, proba_uncond=0.1):
     """What ``bench.py``'s ``bench_train`` builds, in the port: the model
     apply (bf16 compute) and embedding functions over an f32 copy of the
-    pipeline's parameters, its schedule, and the train config."""
+    pipeline's parameters, its schedule, the train config, and the model
+    (built on the meta device) that ``model_apply`` calls."""
     from torch.func import functional_call
 
     from phendiff_tpu_torch.models.unet2d import CondUNet2D
@@ -728,7 +763,7 @@ def train_parts(torch, pipe, proba_uncond=0.1):
     params = {n: p.detach().float().requires_grad_(p.requires_grad)
               for n, p in pipe.model.named_parameters()}
     cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig())
-    return model_apply, embed_fn, params, pipe.schedule, cfg
+    return model_apply, embed_fn, params, pipe.schedule, cfg, model
 
 
 def phase_grad_check(torch, pipe):
@@ -736,7 +771,7 @@ def phase_grad_check(torch, pipe):
     from phendiff_tpu_torch.train.train_loop import (
         diffusion_loss, init_train_state, make_draws, make_optimizer, make_train_step)
 
-    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    model_apply, embed_fn, params, schedule, cfg, _ = train_parts(torch, pipe)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     images = torch.randn(4, RES, RES, 3, generator=gen, device="cuda") * 0.5
     labels = torch.tensor([0, 1, 0, 1], device="cuda")
@@ -793,7 +828,7 @@ def phase_train_path(torch, pipe, env):
     from phendiff_tpu_torch.train.train_loop import (
         init_train_state, make_draws, make_optimizer, make_train_step)
 
-    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    model_apply, embed_fn, params, schedule, cfg, _ = train_parts(torch, pipe)
     opt = make_optimizer(cfg.optimizer)
     state = init_train_state(params, opt)
     step = make_train_step(model_apply, embed_fn, schedule, cfg, opt)
@@ -2092,26 +2127,37 @@ def phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res):
     return recs
 
 
-def dp_train(torch):
+def dp_train(torch, model_parallel=1):
     """``DP_STEPS`` DDIM train steps (``train_parts``: super_small, 128 px,
-    bf16 compute) on this rank's rows of the batch-32 batch and of each
-    step's global draws; world 1 without a process group.  Returns the
-    record, the first step's gradients as the optimizer got them (averaged
-    over the ranks) and the parameters after the first step and after the
-    last."""
+    bf16 compute) on this data rank's rows of the batch-32 batch and of each
+    step's global draws; world 1 without a process group.  With
+    ``model_parallel`` > 1 the ranks of a replica hold their shards
+    (``parallel/tp.py``).  Returns the record, the first step's gradients
+    as the optimizer got them (averaged over the data ranks, gathered over
+    the model ranks) and the full parameters after the first step and after
+    the last; with a model axis the record also holds this rank's own
+    tensors and the widths its kernel calls took."""
+    import collections
+
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.models import unet2d
     from phendiff_tpu_torch.models.config import super_small
-    from phendiff_tpu_torch.parallel.mesh import data_size, local_rows, replicate, shard_batch
+    from phendiff_tpu_torch.ops import group_norm as GN
+    from phendiff_tpu_torch.parallel import tp
+    from phendiff_tpu_torch.parallel.mesh import (
+        data_size, local_rows, make_mesh, replicate, shard_batch)
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train import train_loop as TL
 
     pipe = ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
                                                dtype=torch.bfloat16, device="cuda")
-    model_apply, embed_fn, params, schedule, cfg = train_parts(torch, pipe)
+    model_apply, embed_fn, params, schedule, cfg, model = train_parts(torch, pipe)
     checksum = sum(float(p.detach().double().sum()) for p in params.values())
     replicate(params)
-    opt = TL.make_optimizer(cfg.optimizer)
-    state = TL.init_train_state(params, opt)
+    make_mesh(model_parallel)
+    plan = tp.shard_module(model)
+    opt = TL.make_optimizer(cfg.optimizer, sharded=plan)
+    state = TL.init_train_state(tp.shard_params(params, plan), opt)
     step = TL.make_train_step(model_apply, embed_fn, schedule, cfg, opt)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     images = torch.randn(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 0.5
@@ -2121,8 +2167,21 @@ def dp_train(torch):
 
     def capture(g, opt_state, p):
         if not first_grads:
-            first_grads.update({n: t.detach().clone() for n, t in g.items()})
+            first_grads.update({n: t.clone() for n, t in tp.gather_params(g, plan).items()})
         update(g, opt_state, p)
+
+    # the widths of the kernels' calls: channels and groups of each
+    # GroupNorm, heads of each attention
+    widths = {"group_norm": collections.Counter(), "attention_heads": collections.Counter()}
+    gn_fn, attn_fn = GN.fused_group_norm, unet2d.multi_head_attention
+
+    def gn_recording(x, *a, num_groups, **kw):
+        widths["group_norm"][(x.shape[-1], num_groups)] += 1
+        return gn_fn(x, *a, num_groups=num_groups, **kw)
+
+    def attn_recording(q, *a, **kw):
+        widths["attention_heads"][q.shape[2]] += 1
+        return attn_fn(q, *a, **kw)
 
     inner = TL.all_reduce_mean_
 
@@ -2134,6 +2193,7 @@ def dp_train(torch):
         reduce_events.append(ev)
 
     opt.update, TL.all_reduce_mean_ = capture, timed_all_reduce
+    GN.fused_group_norm, unet2d.multi_head_attention = gn_recording, attn_recording
     times, losses, first_params = [], [], {}
     try:
         reset_launches()
@@ -2147,10 +2207,12 @@ def dp_train(torch):
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 if i == 0:
-                    first_params = {n: p.detach().clone() for n, p in state.params.items()}
+                    first_params = {n: p.clone() for n, p in
+                                    tp.gather_params(state.params, plan).items()}
         launches = read_launches()
     finally:
         TL.all_reduce_mean_ = inner
+        GN.fused_group_norm, unet2d.multi_head_attention = gn_fn, attn_fn
         del opt.update
     local = rows.stop - rows.start
     steady = sum(times[1:]) / len(times[1:])
@@ -2160,8 +2222,12 @@ def dp_train(torch):
            "samples_per_s_global": TRAIN_BATCH / steady,
            "all_reduce_ms_per_step": [a.elapsed_time(b) for a, b in reduce_events],
            "launches": launches, "launches_expected": launches_for(DP_STEPS, DP_STEPS),
-           "plain_version_calls": dict(plain)}
-    return rec, first_grads, (first_params, {n: p.detach() for n, p in state.params.items()})
+           "plain_version_calls": dict(plain),
+           "widths": {k: {str(w): n for w, n in v.items()} for k, v in widths.items()}}
+    if plan:
+        rec.update(model_parallel=model_parallel, sharded_leaves=len(plan),
+                   local_params={n: p.detach() for n, p in state.params.items()})
+    return rec, first_grads, (first_params, tp.gather_params(state.params, plan))
 
 
 def dp_evaluator(torch, pipe, data):
@@ -2234,6 +2300,42 @@ def dp_comparison(torch, pipe_dir, data, out_dir, fid, batch=BATCH):
             "metrics_seconds": t_metrics}
 
 
+def dp_fid_calls(torch, pipe_dir, data, out_dir):
+    """The comparison's metric pass (``compute_metrics``: rank 0 computes,
+    the others wait for its broadcast) over one FID, of the folder's class 0
+    against its class 1 in Inception features: how many FIDs this rank
+    computed, and the metrics it got."""
+    import numpy as np
+
+    from phendiff_tpu_torch.experiments import comparison as C
+    from phendiff_tpu_torch.metrics import fidelity
+
+    cfg = C.ComparisonConfig.from_dict({
+        "output_dir": out_dir, "pipelines": {"ddim": pipe_dir}, "dataset_train": data,
+        "definition": [RES, RES], "methods": ["ddib"], "inference_param_dtype": None})
+    exp = C.ComparisonExperiment(cfg, device="cuda")
+    fids, frechet = [], fidelity.frechet_distance
+
+    def one_class_pass():
+        index = exp.splits["train"]
+        feats, labels = exp._features(index)[0], np.array(index.labels)
+        return {"fid_class0_vs_class1": fidelity.fid_from_features(feats[labels == 0],
+                                                                  feats[labels == 1])}
+
+    def counting_frechet(*args, **kw):
+        fids.append(1)
+        return frechet(*args, **kw)
+
+    exp._metrics, fidelity.frechet_distance = one_class_pass, counting_frechet
+    t0 = time.perf_counter()
+    try:
+        metrics = exp.compute_metrics()
+    finally:
+        fidelity.frechet_distance = frechet
+    return {"fid_calls": len(fids), "fid_metrics": metrics,
+            "fid_seconds": time.perf_counter() - t0}
+
+
 def dp_worker(argv) -> None:
     """One rank of the dp phase's world-2 run: gloo on ``cuda:0``, file://
     rendezvous; saves what it saw to ``<out_dir>/rank<r>.pt``."""
@@ -2254,7 +2356,8 @@ def dp_worker(argv) -> None:
               "grads": grads if rank == "0" else None, "params": params,
               "evaluator": dp_evaluator(torch, pipe, data),
               "comparison": dp_comparison(torch, pipe_dir, data, os.path.join(out_dir, "cmp"),
-                                          fid=True)}
+                                          fid=False)}
+    result["comparison"].update(dp_fid_calls(torch, pipe_dir, data, os.path.join(out_dir, "fid")))
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     mesh.destroy()
 
@@ -2451,7 +2554,9 @@ def phase_dp(torch, env, data):
         "tol_images_max_abs": DP_IMAGES_MAX_ABS_TOL,
         "comparison_fid_calls_by_rank": [g["comparison"]["fid_calls"] for g in got],
         "comparison_metrics_equal_on_ranks": w2_cmp["metrics"] == got[1]["comparison"]["metrics"],
-        "comparison_seconds": {k: w2_cmp[k] for k in ("transfer_seconds", "metrics_seconds")},
+        "comparison_seconds": {k: w2_cmp[k] for k in ("transfer_seconds", "metrics_seconds",
+                                                     "fid_seconds")},
+        "comparison_fid_metrics_by_rank": [g["comparison"]["fid_metrics"] for g in got],
     }
     rec["world2_gloo"] = world2
     want = launches_for(DP_STEPS, DP_STEPS)
@@ -2466,23 +2571,22 @@ def phase_dp(torch, env, data):
            and world2["evaluator_metrics_equal_on_ranks"]
            and world2["comparison_pngs_equal_world1"] and len(w2_cmp["pngs"]) == 2 * CMP_PER_CLASS
            and img_err <= DP_IMAGES_MAX_ABS_TOL
-           and world2["comparison_fid_calls_by_rank"] == [3, 0]
+           and world2["comparison_fid_calls_by_rank"] == [1, 0]
+           and got[0]["comparison"]["fid_metrics"] == got[1]["comparison"]["fid_metrics"]
+           and all(map(math.isfinite, got[0]["comparison"]["fid_metrics"].values()))
            and world2["comparison_metrics_equal_on_ranks"]
            and all(math.isfinite(v) for v in w2_cmp["metrics"].values()))
 
     # -- (c) times -------------------------------------------------------------
-    def mean(xs):
-        return sum(xs) / len(xs) if xs else float("nan")
-
     rec["times"] = {
         "note": "two ranks share one card: not a scaling figure",
         "world2_samples_per_s_by_rank": [g["train"]["samples_per_s_rank"] for g in got],
-        "world2_samples_per_s_global": mean([g["train"]["samples_per_s_global"] for g in got]),
+        "world2_samples_per_s_global": mean_of([g["train"]["samples_per_s_global"] for g in got]),
         "world1_samples_per_s": ref_train["samples_per_s_global"],
-        "gloo_all_reduce_ms_per_step": mean([x for g in got
+        "gloo_all_reduce_ms_per_step": mean_of([x for g in got
                                             for x in g["train"]["all_reduce_ms_per_step"]]),
-        "nccl_world1_all_reduce_ms_per_step_ddim": mean(ddim_rec["all_reduce_ms_per_step"]),
-        "nccl_world1_all_reduce_ms_sd_step": mean(sd_rec["all_reduce_ms"]),
+        "nccl_world1_all_reduce_ms_per_step_ddim": mean_of(ddim_rec["all_reduce_ms_per_step"]),
+        "nccl_world1_all_reduce_ms_sd_step": mean_of(sd_rec["all_reduce_ms"]),
         "nvidia_smi": env["nvidia_smi"],
     }
     rec["seconds"] = time.perf_counter() - t_phase
@@ -2495,7 +2599,260 @@ def phase_dp(torch, env, data):
     if not ok:
         fail(f"dp: {json.dumps(rec, default=str)[:4000]}")
     shutil.rmtree(root, ignore_errors=True)
-    return rec, dp_launches
+    return rec, dp_launches, (ref_train, ref_grads, ref_params)
+
+def phase_reco(torch, env, sfu_rate):
+    """The trained-model round trip (``tools/trained_round_trip.py``'s
+    ``quick_round_trip``): ``super_small`` trained ``RECO_TRAIN_STEPS`` steps
+    at 64 px on a toy set, then a 50-step sample -> invert -> regenerate at
+    batch 16 in f32, gated on ``reco_err``'s threshold; first each kernel at
+    the shapes this path gives it."""
+    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls
+    from phendiff_tpu_torch.tools import trained_round_trip as R
+
+    res, b_train, b_rt = R.QUICK_RES, R.QUICK_BATCH, R.RT_BATCH
+    ok = True
+    ok &= attention_check(torch, b_rt, (res // 4) ** 2, 32, 8, sfu_rate, "float32")["ok"]
+    ok &= attention_check(torch, b_train, (res // 4) ** 2, 32, 8, sfu_rate)["ok"]
+    ok &= attention_bwd_check(torch, b_train, (res // 4) ** 2, 32, 8, sfu_rate)["ok"]
+    for s, c, g, act in sorted(group_norm_calls(res), key=str):
+        ok &= gn_check(torch, b_rt, s, c, g, act, iters=3, dtype_name="float32")["ok"]
+        ok &= gn_check(torch, b_train, s, c, g, act, iters=3)["ok"]
+        ok &= gn_bwd_check(torch, b_train, s, c, g, act, sfu_rate, iters=3)["ok"]
+    if not ok:
+        fail("reco: a kernel disagrees with its plain version at the round trip's shapes")
+    root = tempfile.mkdtemp(prefix="phd_reco_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_launches()
+    with counting_plain_calls() as plain:
+        run = R.quick_round_trip(root, RECO_TRAIN_STEPS, "cuda")
+    launches = read_launches()
+    dt = time.perf_counter() - t0
+    want = launches_for(RECO_TRAIN_STEPS + 3 * R.RT_STEPS, RECO_TRAIN_STEPS)
+    rec = {"phase": "reco", **run, "seconds": dt, "budget_s": RECO_BUDGET_S,
+           "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+           "threshold": 0.05, "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    emit(rec)
+    if not (run["finite"] and run["summary"]["pass"] and launches == want and not plain):
+        fail(f"reco: {json.dumps(rec, default=str)[:3000]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def tp_sd_forward(torch, dtype_name):
+    """One full-width SD-2.1 UNet forward at 128 px (latent 16), batch
+    ``TP_SD_BATCH``, in ``dtype_name`` (TF32 off), on this rank's shards under the
+    layout ``make_mesh`` made (whole at model size 1), after one warm-up
+    forward: its launches, seconds and output (on the host).  The inputs
+    and the weights (before the bf16 cast) are the same in both dtypes."""
+    from torch.func import functional_call
+
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline
+    from phendiff_tpu_torch.parallel import tp
+
+    unet = sd_pipeline(getattr(torch, dtype_name), SEED).unet
+    plan = tp.shard_module(unet)
+    params = tp.shard_params(dict(unet.named_parameters()), plan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    lat = RES // 8
+    x = torch.randn(TP_SD_BATCH, lat, lat, 4, generator=gen, device="cuda")
+    ctx = torch.randn(TP_SD_BATCH, 77, 1024, generator=gen, device="cuda")
+    t = torch.full((TP_SD_BATCH,), 500, device="cuda")
+    with torch.no_grad():
+        functional_call(unet, params, (x, t, ctx))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = functional_call(unet, params, (x, t, ctx)).float()
+        torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "launches": read_launches(),
+           "sharded_leaves": len(plan), "finite": bool(torch.isfinite(out).all())}
+    return rec, out.cpu()
+
+
+def tp_worker(argv) -> None:
+    """One rank of the tp phase: gloo on ``cuda:0``, world ``TP_WORLD``, all
+    of it one model axis; saves what it saw to ``<out_dir>/rank<r>.pt``."""
+    rank, init_file, out_dir = argv
+    import torch
+
+    from phendiff_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(WORLD_SIZE=str(TP_WORLD), RANK=rank, LOCAL_RANK="0")
+    device = mesh.init_distributed("cuda", backend="gloo", init_method=f"file://{init_file}")
+    train, grads, params = dp_train(torch, model_parallel=TP_WORLD)
+    sd = {k: tp_sd_forward(torch, dt) for k, dt in TP_SD_DTYPES.items()}
+    result = {"rank": int(rank), "layout": mesh.make_mesh(TP_WORLD),
+              "model_rank": mesh.model_rank(), "data_rank": mesh.data_rank(),
+              "device": str(device), "backend": torch.distributed.get_backend(),
+              "train": train, "grads": grads if rank == "0" else None, "params": params,
+              "sd": {k: rec for k, (rec, _) in sd.items()},
+              "sd_out": {k: out for k, (_, out) in sd.items()}}
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.destroy()
+
+
+def phase_tp(torch, env, sfu_rate, dp_ref):
+    """Tensor parallelism (``parallel/tp.py``): each kernel at the shards'
+    shapes, then two processes of this script (``--tp-worker``, gloo on
+    ``cuda:0``, one replica over a model axis of 2): ``DP_STEPS`` DDIM train
+    steps at batch 32 against the dp phase's world-1 steps, and one
+    full-width SD UNet forward at 128 px, batch 8, in f32 and in bf16,
+    against world 1."""
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, sd_unet_calls
+    from phendiff_tpu_torch.ops.attention import takes_kernel
+    from phendiff_tpu_torch.ops.gn_kernels import gn_route
+    from phendiff_tpu_torch.train.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    mp = TP_WORLD
+    # the kernels at the shards' shapes: half the heads, half the channels
+    # and groups of every GroupNorm a ResnetBlock's norm2 could take
+    ok = attention_check(torch, TRAIN_BATCH, 1024, 32 // mp, 8, sfu_rate)["ok"]
+    ok &= attention_bwd_check(torch, TRAIN_BATCH, 1024, 32 // mp, 8, sfu_rate)["ok"]
+    for s, c, g, act in sorted({k for k in group_norm_calls(RES) if k[3] == "silu"}):
+        ok &= gn_check(torch, TRAIN_BATCH, s, c // mp, g // mp, act, iters=3)["ok"]
+        ok &= gn_bwd_check(torch, TRAIN_BATCH, s, c // mp, g // mp, act, sfu_rate, iters=3)["ok"]
+    for dname in TP_SD_DTYPES.values():
+        sd_calls = sd_unet_calls(SDUNetConfig(), RES // 8, getattr(torch, dname))
+        for s_q, s_kv, h, d in sorted({k[:4] for k in sd_calls["attention"]}):
+            if takes_kernel(s_q, s_kv, d) and h % mp == 0:
+                ok &= attention_check(torch, TP_SD_BATCH, s_q, h // mp, d, sfu_rate,
+                                      dname)["ok"]
+        for s, c, g, act, isz in sorted({k for k in sd_calls["group_norm"] if k[3] == "silu"}):
+            if gn_route(s, c // mp, g // mp, isz, False) == "cluster":
+                ok &= gn_check(torch, TP_SD_BATCH, s, c // mp, g // mp, act, iters=3,
+                               dtype_name=dname)["ok"]
+    if not ok:
+        fail("tp: a kernel disagrees with its plain version at the shards' shapes")
+
+    ref_train, ref_grads, ref_params = dp_ref
+    sd_ref, sd_ref_out = {}, {}
+    for k, dt in TP_SD_DTYPES.items():
+        sd_ref[k], sd_ref_out[k] = tp_sd_forward(torch, dt)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="phd_tp_")
+    worker_env = {k: v for k, v in os.environ.items()
+                  if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(mp)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         os.path.join(root, "gloo"), root],
+        env=worker_env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(mp)]
+    try:
+        codes = [p.wait(timeout=TP_WORKER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_workers = time.perf_counter() - t0
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    if any(codes):
+        fail(f"tp: a rank failed (exit codes {codes}):\n" + "\n---\n".join(tails))
+    got = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(mp)]
+
+    lr = TrainConfig().optimizer.learning_rate
+    rule = dp_grad_rule(torch, got[0]["grads"], ref_grads, got[0]["params"], ref_params, lr)
+    gathered_equal = all(torch.equal(got[1]["params"][1][n], got[0]["params"][1][n])
+                         for n in ref_params[1])
+    local = [g["train"].pop("local_params") for g in got]
+    replicated_equal, shard_shapes = True, True
+    for n, full in ref_params[1].items():
+        a, b = local[0][n], local[1][n]
+        if a.shape == full.shape:
+            replicated_equal &= bool(torch.equal(a, b))
+        else:
+            dims = [i for i, (x, y) in enumerate(zip(a.shape, full.shape)) if x != y]
+            shard_shapes &= (len(dims) == 1 and a.shape == b.shape
+                             and a.shape[dims[0]] * mp == full.shape[dims[0]])
+    loss_rel = abs(got[0]["train"]["losses"][0] - ref_train["losses"][0]) / abs(
+        ref_train["losses"][0])
+    want = launches_for(DP_STEPS, DP_STEPS)
+
+    def narrow_calls(widths):
+        """GroupNorm calls at half the groups (the norm2 of the 17 ResnetBlocks)
+        and attention calls at half the heads, of DP_STEPS forwards."""
+        gn = sum(n for w, n in widths["group_norm"].items() if w.endswith(f" {32 // mp})"))
+        return {"group_norm_half": gn, "attention_half_heads":
+                widths["attention_heads"].get(str(32 // mp), 0),
+                "attention_calls": sum(widths["attention_heads"].values())}
+
+    narrow = [narrow_calls(g["train"]["widths"]) for g in got]
+    # f32: the shards against world 1, f32 rounding alone.  bf16: the shards
+    # and world 1 each against world 1's f32 output, at the bf16 forward
+    # limit; the shards' distance over world 1's is recorded (a row layer's
+    # two partial sums round to bf16 before the all-reduce adds them)
+    sd_err = [rel_l2(g["sd_out"]["f32"], sd_ref_out["f32"]) for g in got]
+    ref32 = sd_ref_out["f32"]
+    bf16_world1 = rel_l2(sd_ref_out["bf16"], ref32)
+    bf16_err = [rel_l2(g["sd_out"]["bf16"], ref32) for g in got]
+    sd_bf16 = {"world1_vs_f32_world1": bf16_world1, "by_rank_vs_f32_world1": bf16_err,
+               "by_rank_vs_bf16_world1": [rel_l2(g["sd_out"]["bf16"], sd_ref_out["bf16"])
+                                          for g in got],
+               "ratio_by_rank": [e / bf16_world1 for e in bf16_err],
+               "tol_rel_l2": FORWARD_REL_L2_TOL}
+    rec = {
+        "phase": "tp", "world": mp, "layouts": [g["layout"] for g in got],
+        "model_ranks": [g["model_rank"] for g in got],
+        "ranks": [{k: g[k] for k in ("rank", "device", "backend")} for g in got],
+        "worker_seconds": t_workers, "train_rank0": got[0]["train"],
+        "train_rank1": got[1]["train"], "first_step_loss_rel_err": loss_rel,
+        "grad_rule": rule, "gathered_params_bit_equal_on_ranks": gathered_equal,
+        "replicated_leaves_bit_equal": replicated_equal, "shard_shapes_ok": shard_shapes,
+        "narrow_calls_by_rank": narrow,
+        "sd_forward": {"world1": sd_ref, "by_rank": [g["sd"] for g in got],
+                       "f32_rel_l2_vs_world1": sd_err, "f32_tol_rel_l2": SD_F32_REL_L2_TOL,
+                       "bf16": sd_bf16},
+        "times": {"note": "two ranks share one card: not a scaling figure",
+                  "step_seconds_by_rank": [g["train"]["step_seconds"] for g in got],
+                  "samples_per_s_by_rank": [g["train"]["samples_per_s_rank"] for g in got],
+                  "world1_samples_per_s": ref_train["samples_per_s_global"],
+                  "sd_forward_seconds_by_rank": [{k: r["seconds"] for k, r in g["sd"].items()}
+                                                 for g in got],
+                  "sd_forward_seconds_world1": {k: r["seconds"] for k, r in sd_ref.items()},
+                  "nvidia_smi": env["nvidia_smi"]},
+    }
+    ok = (all(g["layout"] == {"data": 1, "model": mp} and g["backend"] == "gloo"
+              and g["device"] == "cuda:0" for g in got)
+          and [g["model_rank"] for g in got] == list(range(mp))
+          and all(g["train"]["launches"] == want and not g["train"]["plain_version_calls"]
+                  and g["train"]["loss_finite"] for g in got)
+          and all(n == {"group_norm_half": 17 * DP_STEPS, "attention_half_heads": 6 * DP_STEPS,
+                        "attention_calls": 6 * DP_STEPS} for n in narrow)
+          and got[0]["train"]["init_checksum"] == ref_train["init_checksum"]
+          and loss_rel <= 1e-2 and rule["ok"] and gathered_equal and replicated_equal
+          and shard_shapes
+          and all(g["sd"][k]["finite"] and g["sd"][k]["launches"] == sd_ref[k]["launches"]
+                  for g in got for k in TP_SD_DTYPES)
+          and max(sd_err) <= SD_F32_REL_L2_TOL
+          and max(bf16_world1, *bf16_err) <= FORWARD_REL_L2_TOL)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(ok)
+    emit(rec)
+    print(f"tp times ({env['nvidia_smi']}; two ranks share one card, not a scaling figure): "
+          f"a DDIM train step at batch {TRAIN_BATCH} "
+          f"{mean_of(got[0]['train']['step_seconds'][1:]):.4f} s "
+          f"on model rank 0 of 2 over gloo, "
+          f"{mean_of(ref_train['step_seconds'][1:]):.4f} s at world 1", flush=True)
+    if not ok:
+        fail(f"tp: {json.dumps(rec, default=str)[:4000]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"tp_train_per_rank": got[0]["train"]["launches"],
+            **{f"tp_sd_forward_{k}_per_rank": got[0]["sd"][k]["launches"] for k in TP_SD_DTYPES}}
+
+
+def mean_of(xs) -> float:
+    return sum(xs) / len(xs) if xs else float("nan")
 
 
 def main() -> None:
@@ -2705,7 +3062,11 @@ def main() -> None:
     phase_train_cli(torch, sd_folder, sd_data)
 
     # -- 26. data parallelism ------------------------------------------------
-    dp, dp_launches = phase_dp(torch, env, cmp_data)
+    dp, dp_launches, dp_ref = phase_dp(torch, env, cmp_data)
+
+    # -- 27. the trained-model round trip; 28. tensor parallelism --------------
+    reco = phase_reco(torch, env, sfu_rate)
+    tp_launches = phase_tp(torch, env, sfu_rate, dp_ref)
 
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
@@ -2728,7 +3089,9 @@ def main() -> None:
                "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
                "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
                "evaluator": evaluator["launches"][name], **sd_by_path(name),
-               **serving_by_path(name), **{p: n[name] for p, n in dp_launches.items()}}
+               **serving_by_path(name), **{p: n[name] for p, n in dp_launches.items()},
+               "reco": reco["launches"][name],
+               **{p: n[name] for p, n in tp_launches.items()}}
         for name in KERNEL_NAMES
     }
 
@@ -2877,5 +3240,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2:])
     else:
         main()

@@ -8,8 +8,9 @@ downscaling of ``modify_args_for_debug``.
 Flags that exist for the TPU's compile transport or for the JAX package's
 parallelism keep their names and choices; ``cli/train_cli.py`` maps them:
 ``--segmented_sd auto|off`` take the one-program step (eager PyTorch has no
-transport limit), while ``--segmented_sd on``, ``--model_parallel > 1``
-and ``--adam_moment_dtype bfloat16`` raise ``NotImplementedError``.
+transport limit), while ``--segmented_sd on`` and ``--adam_moment_dtype
+bfloat16`` raise ``NotImplementedError``; ``--model_parallel`` is the
+tensor-parallel model axis (``parallel/tp.py``).
 ``--device`` is the port's own: the torch device to train on (the card
 unless it names another); under ``torchrun`` (``WORLD_SIZE > 1``)
 ``process_device`` joins the process group and ``cuda`` means
@@ -328,7 +329,7 @@ def check_args(args) -> List[str]:
             "asserts the same; --debug sets a cadence automatically)"
         )
 
-    # tensor parallelism (train_cli raises for > 1: not ported)
+    # tensor parallelism (make_mesh raises where it does not divide the world)
     if args.model_parallel < 1:
         raise ValueError("--model_parallel must be >= 1")
 

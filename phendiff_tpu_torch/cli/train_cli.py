@@ -4,17 +4,20 @@ Counterpart of ``phendiff_tpu/cli/train_cli.py``: parse args -> debug
 downscaling -> validate -> run-dir structure -> pipeline factory -> trainer
 -> epoch loop with eval and checkpoints, on the card unless ``--device``
 names another.  Under ``torchrun`` (``WORLD_SIZE > 1``) each process joins
-the process group and trains data-parallel on ``cuda:{LOCAL_RANK}``
-(``parallel/mesh.py``); ``--train_batch_size`` is the global batch.  Both
+the process group and trains on ``cuda:{LOCAL_RANK}`` (``parallel/mesh.py``),
+data-parallel, or with ``--model_parallel N`` tensor-parallel over groups
+of N consecutive ranks (``parallel/tp.py``); ``--train_batch_size`` is the
+global batch.  Both
 families: DDIM from JSON configs or a pretrained folder
 (``for_ddim_pipeline``), StableDiffusion fine-tuned from a pretrained
 folder (``for_sd_pipeline``).
 
 What the JAX package runs and the port does not yet: ``--segmented_sd on``
 (its per-stage route, a later slice; ``auto`` and ``off`` take the
-one-program step, which eager PyTorch always can) and ``--model_parallel >
-1`` (tensor parallelism, a later slice) raise ``NotImplementedError``
-naming their slice, as ``--adam_moment_dtype bfloat16`` does.
+one-program step, which eager PyTorch always can) raises
+``NotImplementedError`` naming its slice, as ``--adam_moment_dtype
+bfloat16`` does.  ``--model_parallel > 1`` with ``--segmented_sd on`` is
+refused as the JAX CLI refuses it.
 ``--dataset_name`` trains from an HF dataset (``data/hf_datasets.py``);
 ``--tracker wandb`` logs to wandb, or to JSONL where ``wandb`` is not
 installed.
@@ -65,15 +68,19 @@ def banner(args, warnings, device: torch.device):
           f"perc={args.perc_samples}%")
     print(f"   batch={args.train_batch_size} epochs={args.num_epochs} "
           f"lr={args.learning_rate} precision={args.mixed_precision} remat={args.remat}")
-    print(f"   devices={data_size()} ({name})")  # one process a card
+    tp = f", model_parallel={args.model_parallel}" if args.model_parallel > 1 else ""
+    print(f"   devices={data_size()} ({name}){tp}")  # one process a card, before make_mesh
     for w in warnings:
         print(f"   WARNING: {w}")
     print("=" * 70)
 
 
 def trainer_config_from_args(args) -> TrainerConfig:
-    if args.model_parallel > 1:
-        raise not_ported("--model_parallel > 1", "item 6, slice 1: tensor parallelism")
+    if (args.model_parallel > 1 and args.model_type == "StableDiffusion"
+            and args.segmented_sd == "on"):
+        raise NotImplementedError(
+            "tensor parallelism (--model_parallel > 1) is not supported on the segmented "
+            "route (per-stage single-card programs); use --segmented_sd off")
     if args.adam_moment_dtype != "float32":
         raise NotImplementedError("--adam_moment_dtype bfloat16: the port keeps Adam's "
                                   "moments in float32")
@@ -102,6 +109,7 @@ def trainer_config_from_args(args) -> TrainerConfig:
         remat=args.remat,
         metrics_flush_every=args.metrics_flush_every,
         upload_uint8=args.upload_uint8,
+        model_parallel=args.model_parallel,
         compute_metrics=args.compute_fid or args.compute_isc or args.compute_kid,
         train=TrainConfig(
             proba_uncond=args.proba_uncond,

@@ -17,6 +17,9 @@ feed-forward, linear projections and per-level head counts.
   JAX package sends it to XLA.
 * ``remat=True`` recomputes each resnet and Transformer2D block in the
   backward (``unet2d.run_block``), as the JAX model's ``nn.remat`` does.
+* Under tensor parallelism (``parallel/tp.py::shard_module``) the marked
+  attention, GEGLU and projection layers run on this rank's heads and
+  features, with the shards ``functional_call`` hands in.
 * Hazards of the reference kept: the GEGLU gate is Flax's ``nn.gelu``, the
   tanh approximation; the transformer block's LayerNorms are Flax's, eps
   1e-6, computed in float32; Transformer2D's GroupNorm has eps 1e-6 and no
@@ -41,11 +44,13 @@ from phendiff_tpu_torch.models.unet2d import (
     ResnetBlock,
     Upsample2D,
     _norm_params,
+    conv_maybe_sharded,
     init_flax_weights,
     run_block,
 )
 from phendiff_tpu_torch.ops.attention import multi_head_attention
 from phendiff_tpu_torch.ops.group_norm import group_norm
+from phendiff_tpu_torch.parallel import tp as TP
 
 SD_DOWN_BLOCK_TYPES = ("DownBlock2D", "CrossAttnDownBlock2D")
 SD_UP_BLOCK_TYPES = ("UpBlock2D", "CrossAttnUpBlock2D")
@@ -172,14 +177,21 @@ class CrossAttention(nn.Module):
         self.to_k = Dense(context_dim, inner, bias=False)
         self.to_v = Dense(context_dim, inner, bias=False)
         self.to_out = Dense(inner, query_dim)
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
-        heads = (self.num_heads, self.head_dim)
-        q = self.to_q(x).unflatten(-1, heads)
-        k = self.to_k(ctx).unflatten(-1, heads)
-        v = self.to_v(ctx).unflatten(-1, heads)
-        return self.to_out(multi_head_attention(q, k, v).flatten(-2))
+        tp = self.tp
+        if tp is None:
+            heads = (self.num_heads, self.head_dim)
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        else:  # this rank's heads, cross-attention's k and v from the whole context
+            heads = (self.num_heads // tp.size, self.head_dim)
+            q, k, v = (TP.column_linear(tp, a, lin) for a, lin in
+                       ((x, self.to_q), (ctx, self.to_k), (ctx, self.to_v)))
+        q, k, v = (a.unflatten(-1, heads) for a in (q, k, v))
+        attn = multi_head_attention(q, k, v).flatten(-2)
+        return self.to_out(attn) if tp is None else TP.row_linear(attn, self.to_out)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -189,10 +201,16 @@ class GEGLUFeedForward(nn.Module):
         super().__init__()
         self.proj_in = Dense(channels, 8 * channels)
         self.proj_out = Dense(4 * channels, channels)
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = self.proj_in(x).chunk(2, dim=-1)
-        return self.proj_out(h * F.gelu(gate, approximate="tanh"))
+        tp = self.tp
+        if tp is None:
+            h, gate = self.proj_in(x).chunk(2, dim=-1)
+            return self.proj_out(h * F.gelu(gate, approximate="tanh"))
+        # this rank's halves of h and gate (parallel/tp.py: parts 2)
+        h, gate = TP.column_linear(tp, x, self.proj_in, parts=2).chunk(2, dim=-1)
+        return TP.row_linear(h * F.gelu(gate, approximate="tanh"), self.proj_out)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -228,18 +246,26 @@ class Transformer2D(nn.Module):
         self.proj_in = proj()
         self.block_0 = BasicTransformerBlock(channels, context_dim, num_heads, head_dim)
         self.proj_out = proj()
+        # tensor parallelism of the linear projections: proj_in gathered,
+        # proj_out row-parallel over a slice of its input
+        self.tp_in: Optional[TP.Shard] = None
+        self.tp_out: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = group_norm(x, num_groups=self.groups, eps=1e-6, scale=self.norm_scale,
                        bias=self.norm_bias, out_dtype=x.dtype)
         if self.use_linear:
-            h = self.proj_in(h.reshape(b, hh * ww, c))
+            h = h.reshape(b, hh * ww, c)
+            h = (self.proj_in(h) if self.tp_in is None else
+                 TP.gather_channels(TP.column_linear(self.tp_in, h, self.proj_in)))
         else:
             h = self.proj_in(h).reshape(b, hh * ww, c)
         h = self.block_0(h, context)
         if self.use_linear:
-            h = self.proj_out(h).reshape(b, hh, ww, c)
+            h = (self.proj_out(h) if self.tp_out is None else
+                 TP.row_linear(self.tp_out.slice(h), self.proj_out))
+            h = h.reshape(b, hh, ww, c)
         else:
             h = self.proj_out(h.reshape(b, hh, ww, c))
         return x + h
@@ -306,6 +332,7 @@ class SDUNet(nn.Module):
 
         self.norm_out_scale, self.norm_out_bias = _norm_params(ch)
         self.conv_out = Conv(ch, cfg.out_channels, 3, padding=1)
+        self.tp_conv_in: Optional[TP.Shard] = None
         self.to(memory_format=torch.channels_last)
 
     def init_weights(self, generator: torch.Generator) -> "SDUNet":
@@ -332,7 +359,7 @@ class SDUNet(nn.Module):
         temb = self.time_embedding(temb.to(dt))
 
         n_levels = len(cfg.block_out_channels)
-        x = self.conv_in(x)
+        x = conv_maybe_sharded(self.tp_conv_in, x, self.conv_in)
         skips = [x]
         for i, btype in enumerate(cfg.down_block_types):
             for j in range(cfg.layers_per_block):

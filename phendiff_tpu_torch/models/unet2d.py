@@ -18,6 +18,9 @@ a precomputed ``class_emb`` (the CFG unconditional pass feeds zeros).
 * ``remat=True`` recomputes each resnet and attention block in the
   backward (``checkpointed``), as the JAX model's ``nn.remat`` does; the
   parameter names do not change.
+* Under tensor parallelism (``parallel/tp.py::shard_module``) a block
+  marked with a ``tp`` shard runs on this rank's channels or heads, with
+  the shards ``functional_call`` hands in; an unmarked block runs whole.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from phendiff_tpu_torch.models.embeddings import (
 )
 from phendiff_tpu_torch.ops.attention import multi_head_attention
 from phendiff_tpu_torch.ops.group_norm import group_norm
+from phendiff_tpu_torch.parallel import tp as TP
 
 
 def _num_groups(channels: int, preferred: int) -> int:
@@ -157,22 +161,31 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (
             Conv(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
+        dt, tp = x.dtype, self.tp
         h = group_norm(x, num_groups=self.groups1, eps=self.eps, scale=self.norm1_scale,
                        bias=self.norm1_bias, act="silu", out_dtype=dt)
-        h = self.conv1(h)
-        t = self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        norm2 = dict(num_groups=self.groups2, eps=self.eps, scale=self.norm2_scale,
-                     bias=self.norm2_bias, out_dtype=dt)
+        t = self.time_emb_proj(F.silu(temb))
+        if tp is None:
+            h = self.conv1(h)
+            norm2 = dict(num_groups=self.groups2, eps=self.eps, scale=self.norm2_scale,
+                         bias=self.norm2_bias, out_dtype=dt)
+        else:  # conv1 column-parallel: this rank's channels, their groups
+            h = TP.column_conv(tp, h, self.conv1)
+            t = tp.slice(t, parts=2 if self.time_scale_shift == "scale_shift" else 1)
+            norm2 = dict(num_groups=self.groups2 // tp.size, eps=self.eps,
+                         scale=tp.slice(self.norm2_scale), bias=tp.slice(self.norm2_bias),
+                         out_dtype=dt)
+        t = t[:, None, None, :]
         if self.time_scale_shift == "scale_shift":
             scale, shift = t.chunk(2, dim=-1)
             h = group_norm(h, **norm2)
             h = F.silu(h * (1 + scale) + shift)
         else:
             h = group_norm(h + t, act="silu", **norm2)
-        h = self.conv2(h)
+        h = self.conv2(h) if tp is None else TP.row_conv(h, self.conv2)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -193,17 +206,27 @@ class SelfAttention2D(nn.Module):
         self.norm_scale, self.norm_bias = _norm_params(channels)
         self.qkv = Dense(channels, 3 * channels)
         self.proj_out = Dense(channels, channels)
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hgt, wid, c = x.shape
+        tp = self.tp
         h = group_norm(x, num_groups=self.groups, eps=self.eps, scale=self.norm_scale,
-                       bias=self.norm_bias, out_dtype=x.dtype)
-        qkv = self.qkv(h.reshape(b, hgt * wid, c))
+                       bias=self.norm_bias, out_dtype=x.dtype).reshape(b, hgt * wid, c)
+        # this rank's heads of q, k and v (parallel/tp.py: per-head slices)
+        heads, cl = (self.num_heads, c) if tp is None else (self.num_heads // tp.size, c // tp.size)
+        qkv = self.qkv(h) if tp is None else TP.column_linear(tp, h, self.qkv, parts=3)
         # column slices of the fused projection, viewed as [B, S, H, D]
-        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
-                   for t in qkv.split(c, dim=-1))
-        attn = multi_head_attention(q, k, v).reshape(b, hgt * wid, c)
-        return x + self.proj_out(attn).reshape(b, hgt, wid, c)
+        q, k, v = (t.unflatten(-1, (heads, self.head_dim)) for t in qkv.split(cl, dim=-1))
+        attn = multi_head_attention(q, k, v).reshape(b, hgt * wid, cl)
+        out = self.proj_out(attn) if tp is None else TP.row_linear(attn, self.proj_out)
+        return x + out.reshape(b, hgt, wid, c)
+
+
+def conv_maybe_sharded(tp: Optional[TP.Shard], x: torch.Tensor, conv: Conv) -> torch.Tensor:
+    """``conv(x)``; under tensor parallelism this rank's output channels,
+    gathered to the full width the next layer reads."""
+    return conv(x) if tp is None else TP.gather_channels(TP.column_conv(tp, x, conv))
 
 
 class Downsample2D(nn.Module):
@@ -214,11 +237,12 @@ class Downsample2D(nn.Module):
         super().__init__()
         self.pad_asymmetric = padding == 0
         self.conv = Conv(channels, channels, 3, stride=2, padding=padding)
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pad_asymmetric:
             x = F.pad(x, (0, 0, 0, 1, 0, 1))
-        return self.conv(x)
+        return conv_maybe_sharded(self.tp, x, self.conv)
 
 
 class Upsample2D(nn.Module):
@@ -227,11 +251,12 @@ class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.conv = Conv(channels, channels, 3, padding=1)
+        self.tp: Optional[TP.Shard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
-        return self.conv(x)
+        return conv_maybe_sharded(self.tp, x, self.conv)
 
 
 class CondUNet2D(nn.Module):
@@ -302,6 +327,7 @@ class CondUNet2D(nn.Module):
         self.norm_out_groups = _num_groups(ch, cfg.norm_num_groups)
         self.norm_out_scale, self.norm_out_bias = _norm_params(ch)
         self.conv_out = Conv(ch, cfg.out_channels, 3, padding=1)
+        self.tp_conv_in: Optional[TP.Shard] = None
         self.to(memory_format=torch.channels_last)
 
     def init_weights(self, generator: torch.Generator) -> "CondUNet2D":
@@ -348,7 +374,7 @@ class CondUNet2D(nn.Module):
 
         # --- down path ------------------------------------------------------
         n_levels = len(cfg.block_out_channels)
-        x = self.conv_in(x)
+        x = conv_maybe_sharded(self.tp_conv_in, x, self.conv_in)
         skips = [x]
         for i, btype in enumerate(cfg.down_block_types):
             for j in range(cfg.layers_per_block):

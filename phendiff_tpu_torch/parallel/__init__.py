@@ -1,2 +1,3 @@
-"""Parallelism: data parallelism over processes (``parallel/mesh.py``).
-Import from the submodule."""
+"""Parallelism over processes: the data and model axes and data parallelism
+(``parallel/mesh.py``), tensor parallelism over the model axis
+(``parallel/tp.py``).  Import from the submodules."""

@@ -1,12 +1,12 @@
-"""Data parallelism over processes: one process a card, ``torch.distributed``.
+"""Data and tensor parallelism over processes: one process a card,
+``torch.distributed``.
 
 Counterpart of ``phendiff_tpu/parallel/mesh.py``.  The JAX package lays a
 ``(data, model)`` device mesh out in one process and lets XLA's collectives
-average the gradients; PyTorch runs one process a card (``torchrun``), each
-holding a full replica and its rows of every global batch, and the
-gradients are averaged by an explicit all-reduce (``all_reduce_mean_``,
-called by the train step).  The group's backend is NCCL for CUDA and gloo
-for the CPU; gloo also takes CUDA tensors, staging them through the host.
+average the gradients; PyTorch runs one process a card (``torchrun``) and
+the collectives are explicit.  The group's backend is NCCL for CUDA and
+gloo for the CPU; gloo also takes CUDA tensors, staging them through the
+host.
 
 * ``init_distributed`` reads torchrun's environment (``RANK``,
   ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) or takes
@@ -14,13 +14,20 @@ for the CPU; gloo also takes CUDA tensors, staging them through the host.
   before anything else touches it, and is a no-op at world size 1 without
   an environment.  It never falls back to world 1: with ``WORLD_SIZE > 1``
   and no reachable group it raises.
-* ``make_mesh`` gives the sizes of the ``(data, model)`` layout; the model
-  axis (tensor parallelism) is a later slice, so the helpers below take no
-  mesh: every process is a data rank.
-* ``shard_batch`` keeps this rank's rows of a global batch: contiguous and
-  rank-major, the order ``jax.make_array_from_process_local_data``
-  assembles.  ``all_gather_rows`` is its inverse, ``replicate`` broadcasts
-  from rank 0.
+* ``make_mesh(model_parallel)`` lays the processes out as JAX reshapes its
+  devices, ``(world // model_parallel, model_parallel)``: the model ranks of
+  one replica are consecutive.  It makes one process group a data index
+  (the ranks holding the same shard of every replica) and one a replica
+  (its model ranks), and raises when ``model_parallel`` does not divide the
+  world.  With a model axis of 1 the data group is the default group.
+* ``data_size``/``data_rank`` are the data axis's, ``model_size``/
+  ``model_rank`` the model axis's (``parallel/tp.py`` shards over it).
+  ``shard_batch`` keeps this data rank's rows of a global batch: contiguous
+  and rank-major, the order ``jax.make_array_from_process_local_data``
+  assembles, the same rows on every model rank of a replica.
+  ``all_gather_rows`` is its inverse over the data group, ``replicate``
+  broadcasts from rank 0 to every process, and ``is_main`` is global rank 0,
+  the one process that writes.
 
 The JAX module's ``data_sharding`` and ``replicated`` are ``NamedSharding``
 objects, placements inside one process; one process a card has no
@@ -50,23 +57,57 @@ MODEL_AXIS = "model"
 GROUP_TIMEOUT = datetime.timedelta(hours=2)
 
 
+# The layout ``make_mesh`` made: the model axis's size and this process's
+# data and model groups (None: the default group, or no group of its own).
+_LAYOUT = {"model": 1, "data_group": None, "model_group": None}
+
+
 def _active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def data_size() -> int:
-    """Processes in the data group (1 without a group)."""
+def _world() -> int:
     return dist.get_world_size() if _active() else 1
 
 
-def data_rank() -> int:
-    """This process's rank in the data group (0 without a group)."""
+def _rank() -> int:
     return dist.get_rank() if _active() else 0
 
 
+def model_size() -> int:
+    """Processes holding shards of one replica (1 without a model axis)."""
+    return _LAYOUT["model"]
+
+
+def model_rank() -> int:
+    """This process's shard index within its replica."""
+    return _rank() % model_size()
+
+
+def data_size() -> int:
+    """Replicas: processes in the data group (1 without a group)."""
+    return _world() // model_size()
+
+
+def data_rank() -> int:
+    """This process's replica index (0 without a group)."""
+    return _rank() // model_size()
+
+
+def data_group():
+    """The data group's handle for ``torch.distributed`` calls (None: the
+    default group)."""
+    return _LAYOUT["data_group"]
+
+
+def model_group():
+    """This replica's model group (None without a model axis)."""
+    return _LAYOUT["model_group"]
+
+
 def is_main() -> bool:
-    """True on rank 0, the process that writes files."""
-    return data_rank() == 0
+    """True on global rank 0, the process that writes files."""
+    return _rank() == 0
 
 
 def barrier() -> None:
@@ -114,19 +155,37 @@ def init_distributed(device: DeviceLike = None, backend: Optional[str] = None,
 
 
 def destroy() -> None:
-    """Leave the process group, if any."""
+    """Leave the process group, if any, and forget the layout."""
+    _LAYOUT.update(model=1, data_group=None, model_group=None)
     if _active():
         dist.destroy_process_group()
 
 
 def make_mesh(model_parallel: int = 1) -> Dict[str, int]:
-    """The sizes of the ``(data, model)`` layout: every process is one data
-    rank, the data group is the default group."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 is tensor parallelism, not ported to phendiff_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 6, slice 1: tensor parallelism)")
-    return {DATA_AXIS: data_size(), MODEL_AXIS: 1}
+    """Lay the processes out as ``(data, model)`` and return the axes' sizes.
+
+    Rank ``r`` is data rank ``r // model_parallel`` and model rank
+    ``r % model_parallel``.  Every process must call this with the same
+    ``model_parallel`` (the groups are made collectively); calling it again
+    with the layout it already has makes nothing."""
+    world = _world()
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} processes not divisible by model_parallel={model_parallel}")
+    if model_parallel != _LAYOUT["model"]:
+        layout = {"model": model_parallel, "data_group": None, "model_group": None}
+        if model_parallel > 1:
+            ranks = np.arange(world).reshape(world // model_parallel, model_parallel)
+            me = _rank()
+            for col in ranks.T:  # every process takes part in making every group
+                g = dist.new_group(col.tolist())
+                if me in col:
+                    layout["data_group"] = g
+            for row in ranks:
+                g = dist.new_group(row.tolist())
+                if me in row:
+                    layout["model_group"] = g
+        _LAYOUT.update(layout)
+    return {DATA_AXIS: data_size(), MODEL_AXIS: model_size()}
 
 
 def _map(fn, tree):
@@ -148,9 +207,9 @@ def local_rows(n: int) -> slice:
 
 
 def shard_batch(batch):
-    """This rank's rows of every array or tensor of a global batch (a tree of
-    tuples, lists and dicts).  The JAX function's mesh argument has no
-    counterpart until a model axis exists."""
+    """This data rank's rows of every array or tensor of a global batch (a
+    tree of tuples, lists and dicts); the JAX function's mesh argument is
+    the layout ``make_mesh`` made."""
     return _map(lambda x: x[local_rows(x.shape[0])], batch)
 
 
@@ -167,12 +226,12 @@ def padded_rows(n: int, mode: str) -> np.ndarray:
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes), concatenated in rank order along
-    dim 0; ``x`` itself without a group."""
-    if not _active() or dist.get_world_size() == 1:
+    """Every data rank's ``x`` (equal shapes), concatenated in rank order
+    along dim 0; ``x`` itself with one replica."""
+    if data_size() == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(data_size())]
+    dist.all_gather(parts, x.contiguous(), group=data_group())
     return torch.cat(parts)
 
 
@@ -196,18 +255,18 @@ def broadcast_object(obj):
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     """Average ``tensors`` over the data group, in place: one flat buffer a
-    dtype, all-reduced with SUM and divided by the world size (gloo has no
-    AVG, and the arithmetic is then the same on both backends).  A no-op
-    without a group."""
+    dtype, all-reduced with SUM and divided by the number of replicas (gloo
+    has no AVG, and the arithmetic is then the same on both backends).  A
+    no-op without a group."""
     if not _active():
         return
-    world = dist.get_world_size()
+    world = data_size()
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=data_group())
         flat.div_(world)
         for t, part in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(part.view_as(t))

@@ -30,8 +30,10 @@ a CUDA graph captured per op at ``max_batch``:
 
 A capture that fails raises, and a CUDA pipeline is never served eagerly.
 On a pipeline the caller put on the CPU, ``warmup()`` captures nothing and
-each request runs the same op function eagerly.  The JAX engine shards a
-request over a device mesh; this engine serves on the pipeline's device.
+each request runs the same op function eagerly.  Like the JAX engine, it
+serves on one device: that engine makes a mesh and imports ``shard_batch``
+but compiles every op without a sharding and never places a request on
+the mesh (``phendiff_tpu/serving/engine.py:33,52``).
 """
 
 from __future__ import annotations

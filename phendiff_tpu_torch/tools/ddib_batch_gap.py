@@ -22,10 +22,13 @@ class 0 to class 1, 10 steps (10 inversion and 10 generation calls).
 
 Where ``ulp`` grows to the size of ``batch``, the transfer amplifies
 rounding-size differences, and the batch gap is rounding; a batch gap
-already large at one call would be a fault instead.  Prints one JSON line
-with the card's name and power limit; ``--out`` also writes it to a file.
+already large at one call would be a fault instead.  ``--pipeline DIR``
+measures a saved pipeline (trained weights, its own schedule) in place of
+the random one; its images are drawn at its own resolution.  Prints one
+JSON line with the card's name and power limit; ``--out`` also writes it
+to a file.
 
-    python -m phendiff_tpu_torch.tools.ddib_batch_gap [--out FILE] [--cpu-rows 2]
+    python -m phendiff_tpu_torch.tools.ddib_batch_gap [--pipeline DIR] [--out FILE] [--cpu-rows 2]
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import argparse
 import json
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,11 +50,13 @@ from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 SEED, RES, BATCH, STEPS = 0, 128, 32, 10
 
 
-def first_batch() -> np.ndarray:
-    """The first ``BATCH`` images of ``chip_smoke.py``'s folder (class 0),
-    in [-1, 1]: uint8 pixels from ``default_rng(SEED)``, lossless as PNGs."""
+def first_batch(res: Optional[int] = None) -> np.ndarray:
+    """The first ``BATCH`` images of ``chip_smoke.py``'s folder (class 0) at
+    ``res`` px, in [-1, 1]: uint8 pixels from ``default_rng(SEED)``, lossless
+    as PNGs."""
+    res = res or RES
     rng = np.random.default_rng(SEED)
-    pixels = np.stack([rng.integers(0, 255, (RES, RES, 3), dtype=np.uint8)
+    pixels = np.stack([rng.integers(0, 255, (res, res, 3), dtype=np.uint8)
                        for _ in range(BATCH)])
     return pixels.astype(np.float32) / 127.5 - 1.0
 
@@ -94,9 +100,19 @@ def one_call(pipe, images: torch.Tensor, half: int) -> dict:
             "rel_l2": float((full - part).norm() / full.norm())}
 
 
-def witness(device: torch.device, images: np.ndarray, half: int) -> dict:
-    pipe = ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
+def load(device: torch.device, pipeline: Optional[str] = None) -> ConditionalDDIMPipeline:
+    """The saved pipeline at ``pipeline``, else the seed-``SEED`` random one."""
+    if pipeline:
+        return ConditionalDDIMPipeline.from_pretrained(pipeline, device=device)
+    return ConditionalDDIMPipeline.init_random(super_small(), SchedulerConfig(), seed=SEED,
                                                device=device)
+
+
+def witness(device: torch.device, images: Optional[np.ndarray], half: int,
+            pipeline: Optional[str] = None) -> dict:
+    pipe = load(device, pipeline)
+    if images is None:
+        images = first_batch(pipe.unet_config.sample_size)
     x = torch.from_numpy(images[:2 * half]).to(device)
     full, part = trajectory(pipe, x), trajectory(pipe, x[:half])
     nudged = trajectory(pipe, torch.nextafter(x[:half], torch.tensor(np.inf, device=device)))
@@ -113,6 +129,7 @@ def nvidia_smi() -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pipeline", default=None, help="a saved ConditionalDDIMPipeline folder")
     ap.add_argument("--out", default=None)
     ap.add_argument("--cpu-rows", type=int, default=2,
                     help="rows of the CPU witness (0: none)")
@@ -121,17 +138,17 @@ def main(argv=None) -> dict:
         raise SystemExit("ddib_batch_gap needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    images = first_batch()
     t0 = time.perf_counter()
-    card = witness(torch.device("cuda"), images, BATCH // 2)
+    card = witness(torch.device("cuda"), None, BATCH // 2, args.pipeline)
     pipe, x = card.pop("_pipe"), card.pop("_x")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     card["deterministic"] = report(gaps(trajectory(pipe, x[:BATCH // 2]), trajectory(pipe, x)))
     torch.backends.cudnn.deterministic = False
     rec = {"tool": "ddib_batch_gap", "device": torch.cuda.get_device_name(0),
-           "nvidia_smi": nvidia_smi(), "steps": STEPS, "card": card}
+           "nvidia_smi": nvidia_smi(), "pipeline": args.pipeline, "steps": STEPS,
+           "card": card}
     if args.cpu_rows:
-        cpu = witness(torch.device("cpu"), images, args.cpu_rows)
+        cpu = witness(torch.device("cpu"), None, args.cpu_rows, args.pipeline)
         cpu.pop("_pipe"), cpu.pop("_x")
         rec["cpu"] = cpu
     rec["seconds"] = time.perf_counter() - t0

@@ -33,7 +33,11 @@ step on its rows of the global batch with its rows of the global draws
 (``StepDraws.rows``); the gradients and the loss are averaged over the
 processes right after the backward, so the clip, the update and the
 ``grad_norm`` metric see the global gradient and every replica takes the
-same update.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
+same update.  Under tensor parallelism (``parallel/tp.py``) ``params`` holds
+this rank's shards of the leaves named in ``sharded``: the gradients are
+averaged over the data group only, the global norm sums the sharded
+leaves' squares over the model group and counts the replicated leaves
+once, and AdamW and the EMA update the local tensors.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
 family's VAE encode), outside the gradient for a frozen VAE or inside it
 when the VAE trains.  Adam's first moment is always f32 (the
 JAX package's ``moment_dtype`` option measured slower and is not ported).
@@ -43,12 +47,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Collection, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from phendiff_tpu_torch.core import scheduler as S
 from phendiff_tpu_torch.core.rng import derive_seed
+from phendiff_tpu_torch.parallel import mesh
 from phendiff_tpu_torch.parallel.mesh import all_reduce_mean_
 from phendiff_tpu_torch.train.ema import EMAConfig, ema_update
 
@@ -114,10 +120,25 @@ def make_lr_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_scheduler: {cfg.lr_scheduler}")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, f32 (optax.global_norm)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, f32 (optax.global_norm).
+
+    ``sharded[i]`` marks ``tensors[i]`` as this rank's shard of a leaf split
+    over the model group: those squares are summed over the group, the
+    others (whole on every rank) are counted once."""
+    if not sharded or not any(sharded):
+        norms = torch._foreach_norm([t.float() for t in tensors])
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def squares(ts):
+        if not ts:
+            return torch.zeros((), device=tensors[0].device)
+        return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
+
+    part = squares([t for t, s in zip(tensors, sharded) if s])
+    dist.all_reduce(part, group=mesh.model_group())
+    return (squares([t for t, s in zip(tensors, sharded) if not s]) + part).sqrt()
 
 
 @dataclasses.dataclass
@@ -129,12 +150,16 @@ class AdamWState:
 
 class Optimizer:
     """Global-norm clip then AdamW, over the trainable parameters only;
-    frozen parameters get a zero update (optax's ``set_to_zero``)."""
+    frozen parameters get a zero update (optax's ``set_to_zero``).  The
+    names in ``sharded`` are this rank's shards of leaves split over the
+    model group (``global_norm``)."""
 
-    def __init__(self, cfg: OptimizerConfig, trainable_mask: TrainableMask = None):
+    def __init__(self, cfg: OptimizerConfig, trainable_mask: TrainableMask = None,
+                 sharded: Collection[str] = ()):
         self.cfg = cfg
         self.lr = make_lr_schedule(cfg)
         self.trainable_mask = trainable_mask
+        self.sharded = frozenset(sharded)
 
     def trainable_names(self, params: Params):
         if self.trainable_mask is None:
@@ -154,7 +179,7 @@ class Optimizer:
         names = list(state.mu)
         p = [params[n] for n in names]
         g = [grads[n].float() for n in names]
-        norm = global_norm(g)
+        norm = global_norm(g, [n in self.sharded for n in names])
         clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
                            cfg.max_grad_norm / norm)
         g = torch._foreach_mul(g, clip)
@@ -176,10 +201,12 @@ class Optimizer:
         state.count = count
 
 
-def make_optimizer(cfg: OptimizerConfig, trainable_mask: TrainableMask = None) -> Optimizer:
+def make_optimizer(cfg: OptimizerConfig, trainable_mask: TrainableMask = None,
+                   sharded: Collection[str] = ()) -> Optimizer:
     """AdamW with global-norm clipping; ``trainable_mask`` (params -> name ->
-    bool) freezes the parameters it maps to False."""
-    return Optimizer(cfg, trainable_mask)
+    bool) freezes the parameters it maps to False; ``sharded`` names the
+    tensor-parallel shards."""
+    return Optimizer(cfg, trainable_mask, sharded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,7 +378,7 @@ def make_train_step(
         # all-reduce of the computed gradients and the loss
         loss = loss.detach()
         all_reduce_mean_([grads[n] for n in names] + [loss])
-        grad_norm = global_norm(list(grads.values()))
+        grad_norm = global_norm(list(grads.values()), [n in opt.sharded for n in grads])
         opt.update(grads, state.opt_state, params)
         state.step += 1
         ema_update(config.ema, state.ema_params, params, state.step)

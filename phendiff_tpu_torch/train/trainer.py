@@ -14,9 +14,16 @@ process a card (``parallel/mesh.py``):
 * data parallelism as the JAX Trainer's data axis: lr x sqrt(data size),
   each process loading its shard of every global batch
   (``train_batch_size // data size`` rows, ``num_shards``/``shard_index``
-  from its rank) and taking its rows of the global step draws; only rank 0
-  writes checkpoints, pipeline folders, tracker records and panels (the
-  others wait at a barrier), and every rank restores a checkpoint;
+  from its data rank) and taking its rows of the global step draws; only
+  rank 0 writes checkpoints, pipeline folders, tracker records and panels
+  (the others wait at a barrier), and every rank restores a checkpoint;
+* tensor parallelism as the JAX Trainer's model axis (``model_parallel``,
+  ``parallel/tp.py``): the model ranks of a replica load the same rows and
+  hold their shards of the params, the EMA and Adam's moments (``tp_plan``,
+  from the family adapter, which lays out ``make_mesh`` and calls
+  ``shard_module``); checkpoints and the saved
+  pipeline are the gathered full tree, so they load at any layout, and a
+  resume cuts them again;
 * with ``compute_metrics=True`` (the default, as in the JAX package) an
   eval pass runs the ``Evaluator``
   (per-class FID/ISC/KID of EMA samples) and saves the EMA pipeline when
@@ -63,6 +70,7 @@ from phendiff_tpu_torch.models.sd_unet import SDUNet
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
 from phendiff_tpu_torch.obs.profiling import StepTimer
 from phendiff_tpu_torch.obs.trackers import make_tracker
+from phendiff_tpu_torch.parallel import tp
 from phendiff_tpu_torch.parallel.mesh import (
     barrier,
     broadcast_object,
@@ -70,6 +78,7 @@ from phendiff_tpu_torch.parallel.mesh import (
     data_size,
     is_main,
     local_rows,
+    make_mesh,
     replicate,
 )
 from phendiff_tpu_torch.pipelines.conditional_ddim import GuidanceConfig, ddim_sample
@@ -155,6 +164,9 @@ class TrainerConfig:
     save_final_checkpoint: bool = True
     metrics_flush_every: int = 1  # read metrics back every N steps, one fetch
     upload_uint8: bool = False  # ship uint8 batches, normalise on the device
+    # processes holding shards of one replica (tensor parallelism); the
+    # data axis is the world divided by it
+    model_parallel: int = 1
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     tracker: str = "jsonl"
@@ -211,17 +223,21 @@ class Trainer:
         # family's latents); the pixel batch's own when None
         diffusion_shape: Optional[Callable[[Tuple[int, ...]], Tuple[int, ...]]] = None,
         device: DeviceLike = None,
+        # the tensor-parallel layout of ``trainable_params`` (tp.shard_module)
+        tp_plan: Optional[tp.Plan] = None,
     ):
         if config.compute_metrics and make_generate_fn is None:
             raise ValueError("compute_metrics=True needs a make_generate_fn")
         self.config = config
         self.paths = paths
         self.device = resolve_device(device)
-        # lr x sqrt(data-parallel size), as the reference scales across ranks
+        self.tp_plan = tp_plan or {}
+        # lr x sqrt(data-parallel size), as the reference scales across ranks:
+        # model ranks hold shards of one replica
         opt_cfg = dataclasses.replace(config.train.optimizer,
                                       lr_scale=math.sqrt(data_size()))
         self.train_cfg = dataclasses.replace(config.train, optimizer=opt_cfg)
-        self.optimizer = make_optimizer(opt_cfg, trainable_mask)
+        self.optimizer = make_optimizer(opt_cfg, trainable_mask, sharded=self.tp_plan)
         self.schedule = schedule
         self._step_fn = make_train_step(model_apply, embed_fn, schedule, self.train_cfg,
                                         self.optimizer, encode_fn, encode_inside_grad)
@@ -230,6 +246,8 @@ class Trainer:
         self.state = init_train_state(trainable_params, self.optimizer)
         # every replica starts from rank 0's weights, as DDP's constructor makes it
         replicate((self.state.params, self.state.ema_params))
+        if self.tp_plan:
+            self.state = self._local_state(self.state)
         self.ckpt = CheckpointManager(paths.checkpoints, config.checkpoints_total_limit)
         self.tracker = make_tracker(config.tracker, paths.run_dir)
         self.save_pipeline_fn = save_pipeline_fn
@@ -241,6 +259,32 @@ class Trainer:
             self.evaluator = Evaluator(config.eval, eval_index, config.definition,
                                        cache_root=paths.fidelity_cache, device=self.device)
 
+    # -- tensor-parallel state ------------------------------------------------
+    def _local_state(self, full: TrainState) -> TrainState:
+        """This model rank's shards of a full state."""
+        plan, opt = self.tp_plan, full.opt_state
+        return TrainState(
+            step=full.step, params=tp.shard_params(full.params, plan),
+            ema_params=tp.shard_params(full.ema_params, plan),
+            opt_state=dataclasses.replace(opt, mu=tp.shard_params(opt.mu, plan),
+                                          nu=tp.shard_params(opt.nu, plan)))
+
+    def full_state(self) -> TrainState:
+        """The state with every leaf whole (the state itself without a model
+        axis).  A collective under tensor parallelism: every rank calls it."""
+        if not self.tp_plan:
+            return self.state
+        plan, s = self.tp_plan, self.state
+        return TrainState(
+            step=s.step, params=tp.gather_params(s.params, plan),
+            ema_params=tp.gather_params(s.ema_params, plan),
+            opt_state=dataclasses.replace(s.opt_state,
+                                          mu=tp.gather_params(s.opt_state.mu, plan),
+                                          nu=tp.gather_params(s.opt_state.nu, plan)))
+
+    def save_checkpoint(self, step: int) -> None:
+        self.ckpt.save(step, self.full_state())
+
     # -- resume ------------------------------------------------------------
     def maybe_resume(self) -> Tuple[int, int]:
         """Returns (first_epoch, batches_to_skip_in_first_epoch)."""
@@ -248,7 +292,11 @@ class Trainer:
         if cfg.resume_from_checkpoint is None:
             return 0, 0
         step = None if cfg.resume_from_checkpoint == "latest" else int(cfg.resume_from_checkpoint)
-        self.ckpt.restore(self.state, step)
+        if self.tp_plan:  # the checkpoint holds the full tree: cut it again
+            full = self.ckpt.restore(self.full_state(), step)
+            self.state.load_state_dict(self._local_state(full).state_dict())
+        else:
+            self.ckpt.restore(self.state, step)
         steps_per_epoch = len(self.loader)
         return self.state.step // steps_per_epoch, self.state.step % steps_per_epoch
 
@@ -268,8 +316,9 @@ class Trainer:
         elif is_it_best_model(mean_main, self.best_metric):
             self.best_metric, save = mean_main, True
         if save:
+            full = self.full_state()
             if is_main():
-                self.save_pipeline_fn(self.state, save_dir)
+                self.save_pipeline_fn(full, save_dir)
             barrier()
 
     # -- main loop -----------------------------------------------------------
@@ -336,7 +385,7 @@ class Trainer:
 
                 if global_step % cfg.checkpointing_steps == 0:
                     self._flush_metrics(pending, timer)
-                    self.ckpt.save(global_step, self.state)
+                    self.save_checkpoint(global_step)
                 if cfg.eval_every_opti_steps and global_step % cfg.eval_every_opti_steps == 0:
                     self._flush_metrics(pending, timer)
                     self._run_eval(global_step)
@@ -352,7 +401,7 @@ class Trainer:
             if done:
                 break
         if cfg.save_final_checkpoint:
-            self.ckpt.save(global_step, self.state)
+            self.save_checkpoint(global_step)
         return self.state
 
 
@@ -378,8 +427,10 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
     weights, the forward in ``config.mixed_precision``'s compute dtype, and
     an EMA pipeline save through ``save_pretrained``."""
     policy = Policy.from_mixed_precision(config.mixed_precision)
+    make_mesh(config.model_parallel)
     with torch.device("meta"):  # structure only: functional_call brings the weights
         model = CondUNet2D(pipe.unet_config, dtype=policy.compute_torch, remat=config.remat)
+    plan = tp.shard_module(model)
     params = {n: p.detach().float() for n, p in pipe.model.named_parameters()}
     for n, p in pipe.model.named_parameters():
         params[n].requires_grad_(p.requires_grad)
@@ -426,6 +477,7 @@ def for_ddim_pipeline(pipe, config: TrainerConfig, paths: RunPaths,
         make_generate_fn=make_generate_fn,
         trainable_mask=attention_param_mask if attention_fine_tuning else None,
         device=pipe.device,
+        tp_plan=plan,
         **kw,
     )
 
@@ -489,9 +541,11 @@ def sd_trainer_kwargs(pipe, config: TrainerConfig,
     active = {_SD_COMPONENTS[c] for c in components_to_train}
     policy = Policy.from_mixed_precision(config.mixed_precision)
     ucfg, vcfg = pipe.unet_config, pipe.vae_config
+    make_mesh(config.model_parallel)
     with torch.device("meta"):  # structure only: functional_call brings the weights
         unet = SDUNet(ucfg, dtype=policy.compute_torch, remat=config.remat)
         vae = AutoencoderKL(vcfg, dtype=pipe.vae.dtype)
+    plan = tp.shard_module(unet, prefix="unet.")
     vae_encode, vae_decode = _VAEPart(vae, encode_to_latents), _VAEPart(vae, decode_from_latents)
     parts = {"unet": pipe.unet, "class_embedding": pipe.class_embedding}
     if train_vae:
@@ -589,4 +643,5 @@ def sd_trainer_kwargs(pipe, config: TrainerConfig,
         encode_inside_grad=train_vae,
         diffusion_shape=diffusion_shape,
         device=pipe.device,
+        tp_plan=plan,
     )

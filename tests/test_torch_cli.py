@@ -187,7 +187,10 @@ def test_trainer_config_from_args_matches_jax(extra):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_parallel", "2"], "parallelism"),
+    # the JAX CLI's refusal of tensor parallelism on the segmented route
+    (["--model_type", "StableDiffusion", "--pretrained_model_name_or_path", "/tmp/p",
+      "--learn_denoiser_from_scratch", "--model_parallel", "2", "--segmented_sd", "on"],
+     "parallelism"),
     (["--adam_moment_dtype", "bfloat16"], "float32"),
 ])
 def test_flags_the_port_does_not_run_raise(extra, match):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``phendiff_tpu_torch``
 (and ``chip_smoke.py``) loads neither ``jax`` nor ``phendiff_tpu`` nor
-``triton``, builds no kernel, and entry points default to the card.  The
+``triton``, no source imports the root ``tools/`` scripts, no kernel is
+built, and entry points default to the card.  The
 build directory may hold the native loader library (host C++, built by the
 CPU tests that read images), never a CUDA kernel library without a card."""
 
@@ -30,8 +31,8 @@ _FORBIDDEN_CHECK = textwrap.dedent("""
     print("missing", missing)
     sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """)
-# The training, comparison, SD, serving and data-parallel slices' modules, each checked by
-# name above.
+# The training, comparison, SD, serving, data-parallel, round-trip and tensor-parallel
+# slices' modules, each checked by name above.
 NEW_MODULES = [
     "phendiff_tpu_torch.train.train_loop", "phendiff_tpu_torch.train.ema",
     "phendiff_tpu_torch.train.checkpoints", "phendiff_tpu_torch.train.trainer",
@@ -45,6 +46,8 @@ NEW_MODULES = [
     "phendiff_tpu_torch.models.hf_import", "phendiff_tpu_torch.pipelines.sd_img2img",
     "phendiff_tpu_torch.serving.engine", "phendiff_tpu_torch.data.hf_datasets",
     "phendiff_tpu_torch.parallel", "phendiff_tpu_torch.parallel.mesh",
+    "phendiff_tpu_torch.parallel.tp", "phendiff_tpu_torch.tools.reco_err",
+    "phendiff_tpu_torch.tools.make_toy_dataset", "phendiff_tpu_torch.tools.trained_round_trip",
 ]
 
 
@@ -78,7 +81,8 @@ def test_sources_never_import_jax(path):
         else:
             continue
         for m in mods:
-            assert m.split(".")[0] not in ("jax", "jaxlib", "flax", "phendiff_tpu"), (path, m)
+            assert m.split(".")[0] not in ("jax", "jaxlib", "flax", "phendiff_tpu", "tools"), (
+                path, m)
 
 
 def test_entry_points_default_to_cuda():

@@ -459,11 +459,14 @@ def test_shard_batch_replicate_and_gather_at_world_2(runs):
     np.testing.assert_array_equal(one["cycle"], np.arange(5))
 
 
-def test_make_mesh_names_the_layout_and_refuses_tensor_parallelism():
+def test_make_mesh_names_the_layout_and_checks_divisibility():
     assert mesh.make_mesh() == {mesh.DATA_AXIS: 1, mesh.MODEL_AXIS: 1}
     assert (mesh.DATA_AXIS, mesh.MODEL_AXIS) == ("data", "model")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh.make_mesh(model_parallel=2)
+    # one process: a model axis of 2 does not divide it, as JAX's make_mesh refuses
+    for bad in (2, 0):
+        with pytest.raises(ValueError, match=f"not divisible by model_parallel={bad}"):
+            mesh.make_mesh(model_parallel=bad)
+    assert (mesh.model_size(), mesh.model_rank(), mesh.data_size(), mesh.data_rank()) == (1, 0, 1, 0)
 
 
 def test_init_distributed_raises_without_a_reachable_group(monkeypatch, tmp_path):
