@@ -157,7 +157,22 @@ failure exits non-zero before the final line:
     against world 1 to SD_F32_REL_L2_TOL, in bf16 the shards and world 1
     each against world 1's float32 output to FORWARD_REL_L2_TOL; the step
     times (two ranks share one card: not a
-    scaling figure).
+    scaling figure);
+29. sd_segmented: the stage-per-device SD route on full-width SD-2.1
+    (seed 0): ``SegmentedSDUNet`` bit-equal to ``SDUNet.forward`` at 128 px,
+    batch 8 in bf16 (deterministic cuDNN), ``PipelinedSDUNet`` on
+    ``cuda:0`` with 4 microbatches against the whole batch in f32, each
+    stage's device printed; ``forward_with_input_vjp`` at batch 4 in f32
+    against autograd through the monolith, with exact launches (every stage
+    recomputed: twice the forward's); ``SegmentedSDTrainStep`` at 128 px,
+    batch 32 (frozen bf16 VAE, bf16 compute, ctx stage, EMA, clip at 1.0)
+    in each clip mode: its first step against the one-program step from
+    the same draws by grad_check's rule, then 3 timed steps with ms/step,
+    exact launches and peak memory beside the one-program step's;
+    ``train_cli --segmented_sd on`` for 3 steps over phase 21's folder,
+    its checkpoint resumed and its save loaded; ``ComparisonExperiment``
+    with ``segmented_sd`` (ddib and guided, 10 steps, batch 8, f32) within
+    SEG_CMP_LEVELS uint8 levels of the one-module route.
 
 Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -331,6 +346,22 @@ RECO_TRAIN_STEPS, RECO_BUDGET_S = 100, 60
 TP_WORLD, TP_SD_BATCH = 2, 8
 TP_SD_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
 TP_WORKER_TIMEOUT_S = 600
+# The stage-per-device SD route (phase 29): the segmented forward at batch 8
+# (bf16, bit-equal to the monolith), four microbatches through the placed
+# stages in f32 against the whole batch (f32 rounding of other batch
+# sizes), the input VJP at batch 4 in f32 against autograd through the
+# monolith (f32 sums in another order through 16 attentions and 61
+# GroupNorms), the train step in each clip mode at TRAIN_BATCH against the
+# one-program step by grad_check's rule (cache_bf16: the cached gradients
+# round to bf16 before the update, so up to twice the share of elements
+# may move by more than lr / 10), then the CLI and the comparison (f32
+# images within SEG_CMP_LEVELS uint8 levels of the one-program route's).
+SEG_FWD_BATCH, SEG_VJP_BATCH, SEG_MICROBATCHES, SEG_STEPS = 8, 4, 4, 3
+SEG_PP_REL_L2, SEG_VJP_REL_L2 = 1e-5, 1e-4
+SEG_CLIP_MODES = {"recompute": ("recompute", None), "cache": ("cache", None),
+                  "cache_bf16": ("cache", "bfloat16")}
+SEG_SHARE = {"recompute": 1e-2, "cache": 1e-2, "cache_bf16": 2e-2}
+SEG_CMP_BATCH, SEG_CMP_LEVELS, SEG_BUDGET_S = 8, 1, 120
 
 
 def emit(obj) -> None:
@@ -2850,6 +2881,287 @@ def phase_tp(torch, env, sfu_rate, dp_ref):
     return {"tp_train_per_rank": got[0]["train"]["launches"],
             **{f"tp_sd_forward_{k}_per_rank": got[0]["sd"][k]["launches"] for k in TP_SD_DTYPES}}
 
+def seg_train_step(torch, pipe, clip_mode, cache_dtype):
+    """The segmented SD step (``SegmentedSDTrainStep``) as the segmented
+    trainer builds it over ``pipe`` (bf16 compute, f32 master weights
+    cloned from the pipeline, ctx stage, EMA, global clip at 1.0, lr 1e-5,
+    the optimizer of ``sd_train_step``): ``(step, params, opt_state, ema)``."""
+    from phendiff_tpu_torch.models.sd_segmented import SegmentedSDUNet
+    from phendiff_tpu_torch.models.sd_unet import SDUNet
+    from phendiff_tpu_torch.train.ema import EMAConfig
+    from phendiff_tpu_torch.train.segmented_train import CtxEmbed, SegmentedSDTrainStep
+    from phendiff_tpu_torch.train.train_loop import Optimizer, OptimizerConfig
+
+    with torch.device("meta"):
+        seg = SegmentedSDUNet(SDUNet(pipe.unet_config, dtype=torch.bfloat16))
+        ctx = CtxEmbed(pipe.num_classes, pipe.class_embedding_dim, dtype=torch.bfloat16)
+    opt = Optimizer(OptimizerConfig(learning_rate=1e-5, max_grad_norm=None))
+    step = SegmentedSDTrainStep(
+        seg, pipe.schedule, opt, proba_uncond=0.0, ema=EMAConfig(), max_grad_norm=1.0,
+        clip_mode=clip_mode, ctx_module=ctx,
+        cache_dtype=None if cache_dtype is None else getattr(torch, cache_dtype))
+    params = {n: p.detach().float().clone() for n, p in pipe.unet.named_parameters()}
+    params["class_embedding.embedding.weight"] = (
+        pipe.class_embedding.embedding.weight.detach().float().clone())
+    return step, params, step.init_opt_state(params), {n: t.clone() for n, t in params.items()}
+
+
+def phase_sd_segmented(torch, env, sd_folder, data):
+    """The stage-per-device SD route (``models/sd_segmented.py``,
+    ``parallel/pp.py``, ``train/segmented_train.py``, the segmented trainer,
+    ``--segmented_sd on``, the comparison's ``segmented_sd``): full-width
+    SD-2.1, seed-0 weights, the one card."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from phendiff_tpu_torch.cli import args as cli_args
+    from phendiff_tpu_torch.cli import train_cli
+    from phendiff_tpu_torch.experiments.comparison import ComparisonConfig, ComparisonExperiment
+    from phendiff_tpu_torch.models.autoencoder_kl import encode_to_latents
+    from phendiff_tpu_torch.models.sd_segmented import SegmentedSDUNet
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step, sd_unet_calls
+    from phendiff_tpu_torch.parallel.pp import PipelinedSDUNet
+    from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
+    from phendiff_tpu_torch.train.segmented_trainer import SegmentedSDTrainer
+    from phendiff_tpu_torch.train.train_loop import make_draws
+    from phendiff_tpu_torch.train.trainer import RunPaths
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phd_seg_")
+    rec = {"phase": "sd_segmented", "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    ok = True
+    lat = RES // 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    pipe = sd_pipeline(torch.bfloat16, SEED, cast=False)
+    pipe32 = sd_pipeline(torch.float32, SEED)
+
+    with counting_plain_calls() as plain:
+        # -- 1. the segmented forward, and four microbatches through the stages
+        x = torch.randn(SEG_FWD_BATCH, lat, lat, 4, generator=gen, device="cuda")
+        t = torch.randint(0, 1000, (SEG_FWD_BATCH,), generator=gen, device="cuda")
+        seq = pipe.encode_class(torch.arange(SEG_FWD_BATCH, device="cuda") % 2)
+        deterministic = (torch.backends.cudnn.deterministic,
+                         torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.no_grad():
+                mono = pipe.unet(x, t, seq)
+                segd = SegmentedSDUNet(pipe.unet)(x, t, seq)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic[0]
+            torch.use_deterministic_algorithms(deterministic[1])
+        pp = PipelinedSDUNet(pipe32.unet, devices=["cuda:0"])
+        pp.place_params()
+        with torch.no_grad():
+            whole = pp(x, t, seq)
+            micro = pp(x, t, seq, num_microbatches=SEG_MICROBATCHES)
+        torch.cuda.synchronize()
+        rec["forward"] = {
+            "batch": SEG_FWD_BATCH, "latent": lat, "bf16_bit_equal_to_monolith":
+            bool(torch.equal(segd, mono)), "finite": bool(torch.isfinite(segd).all()),
+            "f32_microbatches": SEG_MICROBATCHES, "microbatched_vs_whole_rel_l2":
+            rel_l2(micro, whole), "tol_rel_l2": SEG_PP_REL_L2,
+            "stage_devices": {k: str(d) for k, d in pp.device_of.items()}}
+        ok &= (rec["forward"]["bf16_bit_equal_to_monolith"] and rec["forward"]["finite"]
+               and rec["forward"]["microbatched_vs_whole_rel_l2"] <= SEG_PP_REL_L2)
+        print(f"sd_segmented stage devices: {rec['forward']['stage_devices']}", flush=True)
+
+        # -- 2. the input VJP against autograd through the monolith, f32 -----
+        xb, tb, sb = x[:SEG_VJP_BATCH], t[:SEG_VJP_BATCH], seq[:SEG_VJP_BATCH]
+        w = torch.randn(xb.shape, generator=gen, device="cuda")
+        with pipe32.frozen():
+            xx = xb.clone().requires_grad_()
+            (want_dx,) = torch.autograd.grad(pipe32.unet(xx, tb, sb), xx, w)
+            reset_sd_launches()
+            out, vjp_fn = SegmentedSDUNet(pipe32.unet).forward_with_input_vjp(xb, tb, sb)
+            got_dx = vjp_fn(w)
+            torch.cuda.synchronize()
+            launches = read_sd_launches()
+        calls32 = sd_unet_calls(SDUNetConfig(), lat, torch.float32)
+        want = add_launches((2, predicted_launches(calls32)),
+                            (1, predicted_launches(calls32, False, True)))
+        rec["input_vjp"] = {"batch": SEG_VJP_BATCH, "rel_l2": rel_l2(got_dx, want_dx),
+                            "tol_rel_l2": SEG_VJP_REL_L2, "launches": launches,
+                            "launches_expected": want}
+        ok &= rec["input_vjp"]["rel_l2"] <= SEG_VJP_REL_L2 and launches == want
+        # vjp_fn holds the f32 UNet: drop it before the train step's peaks
+        del pp, whole, micro, mono, segd, out, vjp_fn, got_dx, want_dx, xx
+        del pipe32
+        torch.cuda.empty_cache()
+
+        # -- 3. the train step in each clip mode against the one-program step
+        images = torch.rand(TRAIN_BATCH, RES, RES, 3, generator=gen, device="cuda") * 2 - 1
+        labels = torch.tensor([0, 1], device="cuda").repeat(TRAIN_BATCH // 2)
+        shape = (TRAIN_BATCH, lat, lat, 4)
+        draws0 = make_draws(SEED, 0, shape, pipe.schedule.num_train_timesteps, 0.0, "cuda",
+                            posterior=True)
+        step1, state1, _, opt1 = sd_train_step(pipe, False, proba_uncond=0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state1, m1 = step1(state1, (images, labels), draws0)
+        torch.cuda.synchronize()
+        one = {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"]),
+               "seconds_first_step": time.perf_counter() - t0,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        # the one-program parameters after the step, on the host: the
+        # segmented modes' peaks are measured without the one-program state
+        ref = {n[len("unet."):] if n.startswith("unet.") else n: p.detach().cpu()
+               for n, p in state1.params.items()}
+        del step1, opt1, state1, m1
+        rec["one_program"] = one
+        lr = 1e-5
+        enc = vae_part_calls(torch, RES, "encode")
+        unet_calls = sd_unet_calls(SDUNetConfig(), lat)
+        rec["train"] = {}
+        for mode, (clip_mode, cache_dtype) in SEG_CLIP_MODES.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step, params, opt_state, ema = seg_train_step(torch, pipe, clip_mode, cache_dtype)
+
+            def run(k, draws):
+                with torch.no_grad():
+                    latents = encode_to_latents(pipe.vae, images, noise=draws.enc_noise)
+                return step(params, opt_state, latents, labels, draws, ema_params=ema, step=k)[3]
+
+            m = run(0, draws0)
+            torch.cuda.synchronize()
+            param_max, differ, total = 0.0, 0, 0
+            for n, want_p in ref.items():
+                d = (params[n] - want_p.to(params[n].device)).abs()
+                param_max = max(param_max, float(d.max()))
+                differ += int((d > 0.1 * lr).sum())
+                total += d.numel()
+            share = differ / total
+            r = {"clip_mode": clip_mode, "cache_dtype": cache_dtype,
+                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                 "loss_rel_err": abs(float(m["loss"]) - one["loss"]) / abs(one["loss"]),
+                 "grad_norm_rel_err": abs(float(m["grad_norm"]) - one["grad_norm"])
+                 / one["grad_norm"], "param_max_abs_diff_after_step": param_max,
+                 "bound": 2.01 * lr, "param_share_differing_by_lr_over_10": share,
+                 "share_bound": SEG_SHARE[mode]}
+            reset_sd_launches()
+            t0 = time.perf_counter()
+            for k in range(1, 1 + SEG_STEPS):
+                m = run(k, make_draws(SEED, k, shape, pipe.schedule.num_train_timesteps, 0.0,
+                                      "cuda", posterior=True))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            chains = 2 if clip_mode == "recompute" else 1
+            want = add_launches(
+                (SEG_STEPS, predicted_launches(enc)),
+                (SEG_STEPS * (1 + chains), predicted_launches(unet_calls)),
+                (SEG_STEPS * chains, predicted_launches(unet_calls, False, True)))
+            r.update({"ms_per_step": 1e3 * dt / SEG_STEPS,
+                      "samples_per_s": TRAIN_BATCH * SEG_STEPS / dt,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": read_sd_launches(), "launches_expected": want,
+                      "loss_finite": math.isfinite(float(m["loss"]))})
+            rec["train"][mode] = r
+            ok &= (r["loss_rel_err"] <= 1e-2 and param_max <= 2.01 * lr
+                   and share <= SEG_SHARE[mode] and r["launches"] == want and r["loss_finite"])
+            del step, params, opt_state, ema
+        del ref
+        torch.cuda.empty_cache()
+
+        # -- 4. the CLI: 3 steps, then the checkpoint resumed, the save loaded
+        argv = ["--run_name", "seg_128px", "--model_type", "StableDiffusion",
+                "--pretrained_model_name_or_path", sd_folder, "--train_data_dir", data,
+                "--definition", str(RES), "--train_batch_size", str(TRAIN_BATCH),
+                "--max_num_steps", "3", "--eval_save_model_every_opti_steps", "3",
+                "--no_compute_fid", "--proba_uncond", "0.1", "--learning_rate", "1e-5",
+                "--components_to_train", "denoiser", "class_embedding",
+                "--segmented_sd", "on", "--segmented_clip_mode", "recompute",
+                "--exp_output_dirs_parent_folder", os.path.join(root, "cli")]
+        t0 = time.perf_counter()
+        rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        run_dir = os.path.join(root, "cli", "phendiff-tpu", "seg_128px")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        t0 = time.perf_counter()
+        args = cli_args.build_parser().parse_args(argv + ["--resume_from_checkpoint", "latest"])
+        resumed = SegmentedSDTrainer(pipe, train_cli.trainer_config_from_args(args),
+                                     RunPaths(run_dir, os.path.join(run_dir, "checkpoints"),
+                                              os.path.join(run_dir, "full_pipeline_save"),
+                                              os.path.join(root, "cli", ".fidelity_cache")))
+        epoch, skip = resumed.maybe_resume()
+        t_resume = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        saved = SDImg2ImgPipeline.from_pretrained(os.path.join(run_dir, "full_pipeline_save"),
+                                                  device="cuda")
+        t_load = time.perf_counter() - t0
+        # the save (at step 3) holds the EMA weights the checkpoint restored
+        ema_equal = all(torch.equal(p, resumed.state.ema_params[n])
+                        for n, p in saved.unet.named_parameters())
+        rec["cli"] = {"rc": rc, "seconds": t_cli, "argv": argv,
+                      "steps": [r["step"] for r in recs if "loss" in r], "losses": losses,
+                      "checkpoints": sorted(os.listdir(os.path.join(run_dir, "checkpoints"))),
+                      "resumed_step": resumed.state.step, "resume_epoch_skip": [epoch, skip],
+                      "resume_seconds": t_resume, "load_seconds": t_load,
+                      "saved_equals_resumed_ema": ema_equal,
+                      "saved_finite": all(bool(torch.isfinite(p).all())
+                                          for p in saved.unet.parameters())}
+        ok &= (rc == 0 and len(losses) == 3 and all(math.isfinite(v) for v in losses)
+               and resumed.state.step == 3 and ema_equal and rec["cli"]["saved_finite"])
+        del resumed, saved
+        torch.cuda.empty_cache()
+
+        # -- 5. the comparison's segmented route against its one-module route
+        methods = ["ddib", "linear_interp_custom_guidance_inverted_start"]
+        cfg = ComparisonConfig.from_dict({
+            "output_dir": os.path.join(root, "cmp_seg"), "pipelines": {"sd": sd_folder},
+            "dataset_train": data, "definition": [RES, RES], "methods": methods,
+            "method_params": {m: {"batch_size": SEG_CMP_BATCH} for m in methods},
+            "num_inference_steps": CMP_STEPS, "debug": True, "inference_param_dtype": None,
+            "metrics": {"fid": False, "isc": False, "kid": False}, "segmented_sd": True})
+        t0 = time.perf_counter()
+        exp = ComparisonExperiment(cfg, device="cuda")
+        exp.run_transfers()
+        exp.config, exp.segmented = dataclasses.replace(
+            cfg, output_dir=os.path.join(root, "cmp_one"), segmented_sd=False), False
+        exp.run_transfers()
+        torch.cuda.synchronize()
+        t_cmp = time.perf_counter() - t0
+        levels = {}
+        for method in methods:
+            a_dir = os.path.join(root, "cmp_seg", method)
+            files = sorted(os.path.relpath(os.path.join(d, f), a_dir)
+                           for d, _, fs in os.walk(a_dir) for f in fs if "_to_" in f)
+            diffs = [np.abs(np.asarray(Image.open(os.path.join(a_dir, f)), np.int16)
+                            - np.asarray(Image.open(os.path.join(root, "cmp_one", method, f)),
+                                         np.int16)) for f in files]
+            levels[method] = {"images": len(files), "max_levels": int(max(d.max() for d in diffs)),
+                              "share_differing": float(np.mean([(d > 0).mean() for d in diffs]))}
+        rec["comparison"] = {"batch": SEG_CMP_BATCH, "steps": CMP_STEPS, "dtype": "float32",
+                             "seconds_both_routes": t_cmp, "levels": levels,
+                             "bound_levels": SEG_CMP_LEVELS}
+        ok &= all(v["images"] == SEG_CMP_BATCH and v["max_levels"] <= SEG_CMP_LEVELS
+                  for v in levels.values())
+        del exp
+    rec["plain_version_calls"] = dict(plain)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = SEG_BUDGET_S
+    ok &= not plain
+    rec["ok"] = bool(ok)
+    emit(rec)
+    print(f"sd_segmented ({env['nvidia_smi']}): one-program step peak "
+          f"{one['peak_mem_gib']:.2f} GiB; " + "; ".join(
+              f"{k} {v['ms_per_step']:.1f} ms/step, peak {v['peak_mem_gib']:.2f} GiB"
+              for k, v in rec["train"].items()), flush=True)
+    if not ok:
+        fail(f"sd_segmented: {json.dumps(rec, default=str)[:4000]}")
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {f"sd_segmented_{k}": v["launches"] for k, v in rec["train"].items()}
+
 
 def mean_of(xs) -> float:
     return sum(xs) / len(xs) if xs else float("nan")
@@ -3068,6 +3380,9 @@ def main() -> None:
     reco = phase_reco(torch, env, sfu_rate)
     tp_launches = phase_tp(torch, env, sfu_rate, dp_ref)
 
+    # -- 29. the stage-per-device SD route -------------------------------------
+    seg_launches = phase_sd_segmented(torch, env, sd_folder, sd_data)
+
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
     # GroupNorm backward's 41 calls have the forward's shapes).
@@ -3091,7 +3406,8 @@ def main() -> None:
                "evaluator": evaluator["launches"][name], **sd_by_path(name),
                **serving_by_path(name), **{p: n[name] for p, n in dp_launches.items()},
                "reco": reco["launches"][name],
-               **{p: n[name] for p, n in tp_launches.items()}}
+               **{p: n[name] for p, n in tp_launches.items()},
+               **{p: n[name] for p, n in seg_launches.items()}}
         for name in KERNEL_NAMES
     }
 

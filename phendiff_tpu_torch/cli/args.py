@@ -8,9 +8,10 @@ downscaling of ``modify_args_for_debug``.
 Flags that exist for the TPU's compile transport or for the JAX package's
 parallelism keep their names and choices; ``cli/train_cli.py`` maps them:
 ``--segmented_sd auto|off`` take the one-program step (eager PyTorch has no
-transport limit), while ``--segmented_sd on`` and ``--adam_moment_dtype
-bfloat16`` raise ``NotImplementedError``; ``--model_parallel`` is the
-tensor-parallel model axis (``parallel/tp.py``).
+transport limit), ``--segmented_sd on`` the per-stage route
+(``train/segmented_trainer.py``, with ``--segmented_clip_mode``), and
+``--adam_moment_dtype bfloat16`` raises ``NotImplementedError``;
+``--model_parallel`` is the tensor-parallel model axis (``parallel/tp.py``).
 ``--device`` is the port's own: the torch device to train on (the card
 unless it names another); under ``torchrun`` (``WORLD_SIZE > 1``)
 ``process_device`` joins the process group and ``cuda`` means
@@ -71,13 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fine-tune attention layers only")
     p.add_argument("--segmented_sd", type=str, default="auto",
                    choices=("auto", "on", "off"),
-                   help="the JAX package's per-stage route for the SD family: "
-                        "'auto' and 'off' take the one-program step here; "
-                        "'on' is not ported")
+                   help="the per-stage route for the SD family (one stage's "
+                        "gradients alive at a time): 'on' takes it; 'auto' and "
+                        "'off' take the one-program step")
     p.add_argument("--segmented_clip_mode", type=str, default="recompute",
                    choices=("recompute", "cache", "cache_bf16"),
-                   help="global-grad-clip scheme of the JAX package's "
-                        "segmented route (no effect here)")
+                   help="global-grad-clip scheme of the segmented route: two "
+                        "backward chains, or one with the gradients cached (in "
+                        "f32, or bf16)")
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None)
     p.add_argument("--learn_denoiser_from_scratch", action="store_true",
                    help="keep the pretrained pipeline's config/VAE but "

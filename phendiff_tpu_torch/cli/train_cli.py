@@ -12,12 +12,14 @@ families: DDIM from JSON configs or a pretrained folder
 (``for_ddim_pipeline``), StableDiffusion fine-tuned from a pretrained
 folder (``for_sd_pipeline``).
 
-What the JAX package runs and the port does not yet: ``--segmented_sd on``
-(its per-stage route, a later slice; ``auto`` and ``off`` take the
-one-program step, which eager PyTorch always can) raises
-``NotImplementedError`` naming its slice, as ``--adam_moment_dtype
-bfloat16`` does.  ``--model_parallel > 1`` with ``--segmented_sd on`` is
-refused as the JAX CLI refuses it.
+``--segmented_sd on`` fine-tunes the SD family through
+``SegmentedSDTrainer`` (the per-stage VJP chain, the optimizer applied one
+stage at a time; ``--segmented_clip_mode`` recompute, cache or
+cache_bf16), in one process as the JAX route runs (its step has no
+all-reduce); ``auto`` and ``off`` take the one-program step, which eager
+PyTorch always can.  The JAX CLI's refusals stay: ``autoencoder`` in
+``--components_to_train`` and ``--model_parallel > 1`` on the segmented
+route; ``--adam_moment_dtype bfloat16`` raises ``NotImplementedError``.
 ``--dataset_name`` trains from an HF dataset (``data/hf_datasets.py``);
 ``--tracker wandb`` logs to wandb, or to JSONL where ``wandb`` is not
 installed.
@@ -25,6 +27,7 @@ installed.
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -44,6 +47,7 @@ from phendiff_tpu_torch.parallel.mesh import data_size, is_main
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 from phendiff_tpu_torch.train.ema import EMAConfig
 from phendiff_tpu_torch.train.eval_loop import EvalConfig
+from phendiff_tpu_torch.train.segmented_trainer import SegmentedSDTrainer
 from phendiff_tpu_torch.train.train_loop import OptimizerConfig, TrainConfig
 from phendiff_tpu_torch.train.trainer import (
     RunPaths,
@@ -52,10 +56,12 @@ from phendiff_tpu_torch.train.trainer import (
     for_sd_pipeline,
 )
 
-
-def not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to phendiff_tpu_torch yet "
-                               f"(ROADMAP.md Queue 1: {item})")
+# --segmented_clip_mode -> (clip_mode, cache_dtype) of SegmentedSDTrainer
+SEGMENTED_CLIP_MODES = {
+    "recompute": ("recompute", None),
+    "cache": ("cache", None),
+    "cache_bf16": ("cache", torch.bfloat16),
+}
 
 
 def banner(args, warnings, device: torch.device):
@@ -156,8 +162,17 @@ def main(argv=None) -> int:
         modify_args_for_debug(args)
     warnings = check_args(args)
     config = trainer_config_from_args(args)
-    if args.model_type == "StableDiffusion" and args.segmented_sd == "on":
-        raise not_ported("--segmented_sd on", "item 6, slice 2: the stage-per-device SD route")
+    segmented = args.model_type == "StableDiffusion" and args.segmented_sd == "on"
+    if segmented:
+        if "autoencoder" in args.components_to_train:
+            raise NotImplementedError(
+                "training the VAE ('autoencoder') is not supported on the segmented route "
+                "(its per-stage VJP chain covers the UNet and the class embedding); use "
+                "--segmented_sd off for the one-program step, which trains it")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError(
+                "--segmented_sd on runs in one process (its step has no all-reduce); "
+                "use --segmented_sd off for data parallelism")
     device = process_device(args.device)
     setup_logger("phendiff_tpu_torch", main_process_only=True)
     if is_main():
@@ -167,6 +182,17 @@ def main(argv=None) -> int:
     pipeline = load_initial_pipeline(args, dtype=policy.compute_torch, device=device)
     paths = RunPaths.create(args.exp_output_dirs_parent_folder, args.experiment_name,
                             args.run_name)
+    if segmented:
+        clip_mode, cache_dtype = SEGMENTED_CLIP_MODES[args.segmented_clip_mode]
+        seg_trainer = SegmentedSDTrainer(
+            pipeline, config, paths, components_to_train=tuple(args.components_to_train),
+            attention_fine_tuning=args.attention_fine_tuning, clip_mode=clip_mode,
+            cache_dtype=cache_dtype)
+        state = seg_trainer.run()
+        seg_trainer.tracker.finish()
+        print(f"done: {state.step} steps; best {config.eval.main_metric} = "
+              f"{seg_trainer.best_metric}")
+        return 0
     if isinstance(pipeline, ConditionalDDIMPipeline):
         trainer = for_ddim_pipeline(pipeline, config, paths,
                                     attention_fine_tuning=args.attention_fine_tuning)

@@ -22,10 +22,15 @@ Counterpart of ``phendiff_tpu/experiments/comparison.py`` for
 An SD pipeline's transfer runs in its VAE's latent space: the images are
 encoded to their posterior means (times ``scaling_factor``), the method
 runs on the latents with the SD denoiser and ``encode_class``'s
-sequences, and the result is decoded.  The JAX engine's segmented and
-pipeline-parallel SD routes (stages placed on devices) are a later slice: a
-config that asks for them (``segmented_sd: true``, ``pipeline_parallel:
-true``) raises.
+sequences, and the result is decoded.  ``segmented_sd: true`` runs an SD
+pipeline's UNet as its chain of stages (``models/sd_segmented.py``; the
+guided method's input gradient one stage's graph at a time, through
+``forward_with_input_vjp``), and ``pipeline_parallel: true`` (which takes
+the segmented route unless ``segmented_sd`` is false) places the stages on
+the visible cards when there are several (``parallel/pp.py``; with one
+card it is the segmented route on that card, and under data parallelism,
+where each rank owns one card, it raises).  A DDIM pipeline ignores both
+keys.
 
 Under data parallelism (``parallel/mesh.py``, one process a card) each
 transfer batch is padded to a multiple of the data size by repeating its
@@ -60,12 +65,15 @@ from phendiff_tpu_torch.data.imagefolder import (
 )
 from phendiff_tpu_torch.metrics.fidelity import MetricsConfig, calculate_metrics
 from phendiff_tpu_torch.metrics.inception import InceptionExtractor
+from phendiff_tpu_torch.models.sd_segmented import SegmentedSDUNet
 from phendiff_tpu_torch.parallel.mesh import (
     all_gather_rows,
     broadcast_object,
+    data_size,
     is_main,
     padded_rows,
 )
+from phendiff_tpu_torch.parallel.pp import PipelinedSDUNet
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
 from phendiff_tpu_torch.pipelines.io import load_model_index
@@ -107,10 +115,12 @@ class ComparisonConfig:
     # autocast, and the JAX engine's f32 matmuls over bf16 weights run as
     # bf16 passes on the TPU.  None: float32, weights as stored.
     inference_param_dtype: Optional[str] = "bfloat16"
-    # The JAX engine's segmented and pipeline-parallel SD routes (SD stages
-    # placed on devices): a later slice, so None and False are the only
-    # values the port takes.
+    # An SD pipeline's UNet as its chain of stages (models/sd_segmented.py):
+    # True takes it, False the one-module route, None follows
+    # pipeline_parallel (eager PyTorch needs no automatic fallback).
     segmented_sd: Optional[bool] = None
+    # The segmented route's stages placed on every visible card
+    # (parallel/pp.py); with one card, the segmented route on it.
     pipeline_parallel: bool = False
 
     @classmethod
@@ -133,10 +143,14 @@ class ComparisonConfig:
             return cls.from_dict(yaml.safe_load(f))
 
 
-def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int) -> Callable:
+def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int,
+                      denoiser=None, fwd_vjp=None) -> Callable:
     """(images, src_labels, tgt_labels, generator) -> [-1, 1] images.  An SD
-    pipeline runs the method on the VAE latents of the images."""
-    denoiser, schedule = pipe.denoiser_fn(), pipe.schedule
+    pipeline runs the method on the VAE latents of the images.  With
+    ``denoiser`` and ``fwd_vjp`` (the segmented route's ``(x, t, emb) ->
+    model_out`` and ``-> (model_out, vjp_fn)``) the guided method takes its
+    input gradient through ``fwd_vjp``."""
+    denoiser, schedule = denoiser or pipe.denoiser_fn(), pipe.schedule
     is_sd = isinstance(pipe, SDImg2ImgPipeline)
     embed = pipe.encode_class if is_sd else pipe.class_embeddings
 
@@ -155,6 +169,12 @@ def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int) -> Ca
             )
         if method == "linear_interp_custom_guidance_inverted_start":
             with pipe.frozen():
+                if fwd_vjp is not None:
+                    return T.guided_inverted_start_stepwise(
+                        denoiser, fwd_vjp, schedule, x, src_emb, tgt_emb,
+                        guidance_loss_scale=params.guidance_loss_scale, p=params.p,
+                        num_inference_steps=steps,
+                    )
                 return T.guided_inverted_start(
                     denoiser, schedule, x, src_emb, tgt_emb,
                     guidance_loss_scale=params.guidance_loss_scale, p=params.p,
@@ -168,6 +188,21 @@ def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int) -> Ca
         return pipe.decode_latents(out) if is_sd else out
 
     return fn
+
+
+def _make_segmented_transfer_fn(pipe: SDImg2ImgPipeline, method: str, params: MethodParams,
+                                steps: int, placed: Optional[PipelinedSDUNet] = None) -> Callable:
+    """The SD route over the UNet's chain of stages: VAE encode, the method's
+    host loop through ``SegmentedSDUNet`` (or the stages placed on cards,
+    ``placed``), VAE decode."""
+    seg = placed or SegmentedSDUNet(pipe.unet)
+
+    def denoiser(x, t, emb):
+        with torch.no_grad():
+            return seg(x, t, emb)
+
+    return _make_transfer_fn(pipe, method, params, steps, denoiser=denoiser,
+                             fwd_vjp=seg.forward_with_input_vjp)
 
 
 def _save_batch(images01: np.ndarray, basenames: List[str], tgt_labels: np.ndarray,
@@ -188,13 +223,15 @@ class ComparisonExperiment:
         self.config = config
         self.tracker = tracker
         self.device = resolve_device(device)
-        if config.segmented_sd or config.pipeline_parallel:
-            raise NotImplementedError(
-                "segmented_sd and pipeline_parallel select the JAX engine's stage-per-device SD "
-                "routes (written for the TPU's compile transport), not ported to "
-                "phendiff_tpu_torch yet (ROADMAP.md Queue 1 item 6, slice 2: the "
-                "stage-per-device SD route); set segmented_sd to null or false and "
-                "pipeline_parallel to false")
+        self.segmented = (config.segmented_sd if config.segmented_sd is not None
+                          else config.pipeline_parallel)
+        if self.segmented and config.pipeline_parallel and data_size() > 1:
+            raise ValueError("pipeline_parallel places the SD stages on every card this "
+                             "process sees, but under data parallelism each rank owns one "
+                             "card: set pipeline_parallel to false")
+        # stages placed on the cards, one placement per pipeline (a sweep of
+        # checkpoints places each once)
+        self._placed: Dict[int, PipelinedSDUNet] = {}
         self.pipes = {name: self._load_pipeline(path) for name, path in config.pipelines.items()}
         self.splits: Dict[str, DatasetIndex] = {"train": scan_imagefolder(config.dataset_train)}
         if config.dataset_test:
@@ -230,7 +267,7 @@ class ComparisonExperiment:
             for pipe_name, pipe in self.pipes.items():
                 t_pipe = time.perf_counter()
                 n_images = 0
-                fn = _make_transfer_fn(pipe, method, params, cfg.num_inference_steps)
+                fn = self._transfer_fn(pipe, method, params)
                 for split_name, index in self.splits.items():
                     out_dir = os.path.join(cfg.output_dir, method, pipe_name, split_name)
                     bs = params.batch_size
@@ -261,6 +298,20 @@ class ComparisonExperiment:
         if is_main():
             with open(os.path.join(cfg.output_dir, "timings.json"), "w") as f:
                 json.dump(self.transfer_timings, f, indent=2, sort_keys=True)
+
+    def _transfer_fn(self, pipe, method: str, params: MethodParams) -> Callable:
+        cfg = self.config
+        if not (self.segmented and isinstance(pipe, SDImg2ImgPipeline)):
+            return _make_transfer_fn(pipe, method, params, cfg.num_inference_steps)
+        placed = None
+        if cfg.pipeline_parallel and torch.cuda.device_count() > 1:
+            if id(pipe) not in self._placed:
+                pp = PipelinedSDUNet(pipe.unet)
+                pp.place_params()
+                self._placed[id(pipe)] = pp
+            placed = self._placed[id(pipe)]
+        return _make_segmented_transfer_fn(pipe, method, params, cfg.num_inference_steps,
+                                           placed)
 
     def _transfer_rows(self, fn: Callable, images: np.ndarray, src: np.ndarray,
                        tgt: np.ndarray, generator: torch.Generator) -> np.ndarray:

@@ -14,8 +14,12 @@ Counterpart of ``phendiff_tpu/pipelines/transfer.py``:
   clipped pred_x0 and the inverted latent.
 
 PyTorch runs eagerly, so the JAX package's scan and stepwise variants are
-one host loop here.  With eta = 0 the DDIM generation
-update and the inversion update are the same map,
+one host loop here (``ddib``, ``ddim_invert`` and ``ddim_sample`` serve as
+its ``ddib_stepwise`` and ``ddim_sample_stepwise``); the guided method's
+stepwise pair takes a forward+input-VJP callable
+(``custom_guided_generation_stepwise``, ``guided_inverted_start_stepwise``).
+With eta = 0 the DDIM generation update and the inversion update are the
+same map,
     x' = sqrt(a[t_tgt]) x0 + sqrt(1 - a[t_tgt]) eps,   (x0, eps) at t_eval,
 so the bridge is one host loop over 2N (t_eval, t_target, is_generation)
 rows: the inversion rows under the source embedding, then the generation
@@ -25,6 +29,8 @@ final-alpha lookup, and x0-clipping applies on the generation rows only.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -186,6 +192,72 @@ def guided_inverted_start(
                              num_inference_steps=num_inference_steps)
     return custom_guided_generation(
         denoiser, schedule, latents, target_emb,
+        guidance_loss_scale=guidance_loss_scale, p=p,
+        num_inference_steps=num_inference_steps,
+    )
+
+
+def guided_head(schedule: S.NoiseSchedule, model_out: torch.Tensor, x: torch.Tensor,
+                t: int, target: torch.Tensor, p: float = 2.0):
+    """(d loss / d model_out, d loss / d x held fixed model_out) of the
+    guided loss ``guided_gradient`` takes: the head's own derivatives,
+    which a forward+input-VJP callable chains through the denoiser."""
+    with torch.enable_grad():
+        mo = model_out.detach().requires_grad_()
+        xx = x.detach().requires_grad_()
+        x0, _ = S.predict_x0_eps(schedule, mo, t, xx)
+        loss = lp_loss(S._maybe_clip_x0(schedule, x0), target, p).sum()
+        return torch.autograd.grad(loss, (mo, xx))
+
+
+@torch.no_grad()
+def custom_guided_generation_stepwise(
+    fwd_vjp: Callable,  # (x, t[B], emb) -> (model_out, vjp_fn: ct -> d_x)
+    schedule: S.NoiseSchedule,
+    start_latents: torch.Tensor,
+    target_emb: torch.Tensor,
+    *,
+    guidance_loss_scale: float = 1e-3,
+    p: float = 2.0,
+    num_inference_steps: int = 100,
+) -> torch.Tensor:
+    """``custom_guided_generation`` over a forward+input-VJP callable (the
+    segmented SD UNet's ``forward_with_input_vjp``, which keeps one stage's
+    graph alive at a time) instead of autograd through one denoiser call:
+    the guided gradient is ``d_x_direct + vjp_fn(d_model_out)``, the same
+    chain rule ``guided_gradient`` takes in one piece."""
+    start = start_latents.to(schedule.device, torch.float32)
+    x = start
+    b = x.shape[0]
+    ts, t_prev = S.timestep_pairs(schedule.config, num_inference_steps)
+    for t, tp in zip(ts.tolist(), t_prev.tolist()):
+        t_net = torch.full((b,), t, dtype=torch.int64, device=x.device)
+        model_out, vjp_fn = fwd_vjp(x, t_net, target_emb)
+        d_mo, d_x_direct = guided_head(schedule, model_out, x, t, start, p)
+        grad = d_x_direct + vjp_fn(d_mo)
+        x = S.ddim_step(schedule, model_out, t, tp, x - guidance_loss_scale * grad)
+    return x
+
+
+def guided_inverted_start_stepwise(
+    denoiser: DenoiserFn,
+    fwd_vjp: Callable,
+    schedule: S.NoiseSchedule,
+    images: torch.Tensor,
+    source_emb: torch.Tensor,
+    target_emb: torch.Tensor,
+    *,
+    guidance_loss_scale: float = 1e-3,
+    p: float = 2.0,
+    num_inference_steps: int = 100,
+) -> torch.Tensor:
+    """``guided_inverted_start`` on the segmented route: DDIM inversion
+    through ``denoiser`` under the source class, then
+    ``custom_guided_generation_stepwise`` toward the target."""
+    latents = cd.ddim_invert(denoiser, schedule, images, source_emb,
+                             num_inference_steps=num_inference_steps)
+    return custom_guided_generation_stepwise(
+        fwd_vjp, schedule, latents, target_emb,
         guidance_loss_scale=guidance_loss_scale, p=p,
         num_inference_steps=num_inference_steps,
     )

@@ -71,7 +71,10 @@ class OptimizerConfig:
     adam_beta2: float = 0.999
     adam_weight_decay: float = 1e-2
     adam_epsilon: float = 1e-8
-    max_grad_norm: float = 1.0
+    # None skips the clip: the segmented SD step (train/segmented_train.py)
+    # applies the optimizer one stage at a time and clips by the global norm
+    # itself, so its AdamW must be per-leaf
+    max_grad_norm: Optional[float] = 1.0
     lr_scheduler: str = "constant"  # constant|constant_with_warmup|linear|cosine|polynomial
     lr_warmup_steps: int = 500
     total_steps: int = 100_000  # horizon for decaying schedules
@@ -152,7 +155,8 @@ class Optimizer:
     """Global-norm clip then AdamW, over the trainable parameters only;
     frozen parameters get a zero update (optax's ``set_to_zero``).  The
     names in ``sharded`` are this rank's shards of leaves split over the
-    model group (``global_norm``)."""
+    model group (``global_norm``).  ``cfg.max_grad_norm=None`` drops the
+    clip: plain per-leaf AdamW."""
 
     def __init__(self, cfg: OptimizerConfig, trainable_mask: TrainableMask = None,
                  sharded: Collection[str] = ()):
@@ -177,12 +181,16 @@ class Optimizer:
         """Apply one update to ``params`` and ``state`` in place."""
         cfg = self.cfg
         names = list(state.mu)
+        if not names:  # every tensor frozen (a stage under a trainable mask)
+            state.count += 1
+            return
         p = [params[n] for n in names]
         g = [grads[n].float() for n in names]
-        norm = global_norm(g, [n in self.sharded for n in names])
-        clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
-                           cfg.max_grad_norm / norm)
-        g = torch._foreach_mul(g, clip)
+        if cfg.max_grad_norm is not None:
+            norm = global_norm(g, [n in self.sharded for n in names])
+            clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
+                               cfg.max_grad_norm / norm)
+            g = torch._foreach_mul(g, clip)
         mu, nu = [state.mu[n] for n in names], [state.nu[n] for n in names]
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         torch._foreach_mul_(mu, b1)

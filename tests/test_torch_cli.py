@@ -6,11 +6,12 @@ on the CPU.
   ``--device``), and the flags of ``examples/launch_train_ddim.sh`` parse to
   the same values; ``check_args`` and ``modify_args_for_debug`` agree with
   the JAX functions over a table of argument sets; the flags the port does
-  not run raise ``NotImplementedError``.
+  not run raise ``NotImplementedError``, and so do the JAX CLI's refusals on
+  the segmented route.
 * ``cli/train_cli.py``: ``trainer_config_from_args`` gives the JAX
   function's values; ``main`` runs a DDIM and an SD ``--debug`` training on
-  the CPU with the run-dir layout of ``tests/test_cli.py`` and a reloadable
-  save.
+  the CPU, and the SD one on the segmented route in each clip mode, with the
+  run-dir layout of ``tests/test_cli.py`` and a reloadable save.
 * ``cli/factory.py``, ``obs/logging_utils.py``, ``cli/prepare_data.py`` and
   ``cli/launcher.py``: the scheduler-override precedence, the factory's
   dispatch, the logger's format, and the same files and commands as the
@@ -213,10 +214,23 @@ def test_hf_dataset_and_wandb_flags_reach_the_trainer_config_as_in_jax(extra, fi
         assert getattr(got, f) == getattr(want, f) == v
 
 
-def test_segmented_sd_on_raises_and_auto_or_off_take_the_one_program_step(tmp_path):
-    with pytest.raises(NotImplementedError, match="segmented_sd on"):
-        train_cli.main(SD + ["--segmented_sd", "on", "--device", "cpu"])
-    for mode in ("auto", "off"):  # these reach the loader: the folder does not exist
+def test_segmented_sd_on_raises_and_auto_or_off_take_the_one_program_step(tmp_path,
+                                                                           monkeypatch):
+    """The JAX CLI's refusals on the segmented route stay (the VAE, a model
+    axis), and so does its single process (a world > 1 names
+    ``--segmented_sd off``); ``auto`` and ``off`` take the one-program step
+    (they reach the loader: the folder does not exist)."""
+    on = SD + ["--segmented_sd", "on", "--device", "cpu",
+               "--exp_output_dirs_parent_folder", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="autoencoder"):
+        train_cli.main(on + ["--components_to_train", "denoiser", "autoencoder"])
+    with pytest.raises(NotImplementedError, match="parallelism"):
+        train_cli.main(on + ["--model_parallel", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="--segmented_sd off"):
+        train_cli.main(on)
+    monkeypatch.delenv("WORLD_SIZE")
+    for mode in ("auto", "off"):
         with pytest.raises(FileNotFoundError):
             train_cli.main(SD + ["--segmented_sd", mode, "--device", "cpu",
                                  "--exp_output_dirs_parent_folder", str(tmp_path)])
@@ -340,6 +354,34 @@ def test_train_cli_sd_end_to_end(tiny_image_root, tmp_path):
     assert loaded.unet_config.sample_size == 2  # 16 px through the VAE's 8x downsampling
     assert not torch.equal(loaded.unet.conv_in.weight, sd.unet.conv_in.weight)
     assert torch.equal(loaded.vae.encoder.conv_in.weight, sd.vae.encoder.conv_in.weight)
+
+
+@pytest.mark.parametrize("clip_mode", ["recompute", "cache", "cache_bf16"])
+def test_train_cli_sd_segmented_end_to_end(tiny_image_root, tmp_path, capsys, clip_mode):
+    """``--segmented_sd on`` trains through ``SegmentedSDTrainer`` in each
+    ``--segmented_clip_mode``: the ``--debug`` run's layout, 12 steps, a
+    reloadable EMA save with the UNet trained and the VAE as it was."""
+    sd = SDImg2ImgPipeline.init_random(TINY_SD, TINY_VAE, SCHED, num_classes=2,
+                                       class_embedding_dim=16, seed=0, device="cpu")
+    sd.save_pretrained(str(tmp_path / "sd"))
+    rc = train_cli.main([
+        "--run_name", "seg", "--model_type", "StableDiffusion", "--train_data_dir",
+        str(tiny_image_root), "--pretrained_model_name_or_path", str(tmp_path / "sd"),
+        "--components_to_train", "denoiser", "class_embedding", "--definition", "16",
+        "--train_batch_size", "8", "--eval_batch_size", "4", "--nb_generated_images", "4",
+        "--no_compute_fid", "--exp_output_dirs_parent_folder", str(tmp_path / "exp"),
+        "--mixed_precision", "no", "--debug", "--device", "cpu",
+        "--segmented_sd", "on", "--segmented_clip_mode", clip_mode,
+    ])
+    assert rc == 0
+    run_dir = tmp_path / "exp" / "phendiff-tpu" / "seg"
+    recs = _run_dir_layout(run_dir)
+    assert [r["step"] for r in recs if "loss" in r] == list(range(1, 13))
+    assert all("grad_norm" in r for r in recs if "loss" in r)
+    loaded = SDImg2ImgPipeline.from_pretrained(str(run_dir / "full_pipeline_save"), device="cpu")
+    assert not torch.equal(loaded.unet.conv_in.weight, sd.unet.conv_in.weight)
+    assert torch.equal(loaded.vae.encoder.conv_in.weight, sd.vae.encoder.conv_in.weight)
+    assert "done: 12 steps" in capsys.readouterr().out
 
 
 def test_setup_logger_format(capsys):

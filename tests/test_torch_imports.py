@@ -31,8 +31,8 @@ _FORBIDDEN_CHECK = textwrap.dedent("""
     print("missing", missing)
     sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """)
-# The training, comparison, SD, serving, data-parallel, round-trip and tensor-parallel
-# slices' modules, each checked by name above.
+# The training, comparison, SD, serving, data-parallel, round-trip, tensor-parallel
+# and stage-per-device slices' modules, each checked by name above.
 NEW_MODULES = [
     "phendiff_tpu_torch.train.train_loop", "phendiff_tpu_torch.train.ema",
     "phendiff_tpu_torch.train.checkpoints", "phendiff_tpu_torch.train.trainer",
@@ -48,6 +48,8 @@ NEW_MODULES = [
     "phendiff_tpu_torch.parallel", "phendiff_tpu_torch.parallel.mesh",
     "phendiff_tpu_torch.parallel.tp", "phendiff_tpu_torch.tools.reco_err",
     "phendiff_tpu_torch.tools.make_toy_dataset", "phendiff_tpu_torch.tools.trained_round_trip",
+    "phendiff_tpu_torch.models.sd_segmented", "phendiff_tpu_torch.parallel.pp",
+    "phendiff_tpu_torch.train.segmented_train", "phendiff_tpu_torch.train.segmented_trainer",
 ]
 
 

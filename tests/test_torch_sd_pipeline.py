@@ -274,11 +274,41 @@ def test_engine_sd_route_matches_jax_engine(folder, monkeypatch):
            "kernel_inception_distance_mean" in got
 
 
-def test_engine_refuses_the_tpu_only_sd_routes(folder):
+def test_engine_refuses_the_tpu_only_sd_routes(folder, monkeypatch):
+    """``segmented_sd: true`` and ``pipeline_parallel: true`` (no card here:
+    the segmented route on this device) run the four methods through the
+    UNet's stages: the same PNGs as the one-module route, bit-equal where no
+    gradient is taken and within one uint8 level for the guided method
+    (per-stage input VJPs sum in another order).  Under data parallelism,
+    where each rank owns one card, pipeline placement is refused."""
+    conf = dict(_conf(folder, "one_module"), metrics={"fid": False, "isc": False, "kid": False})
+    comparison.ComparisonExperiment(comparison.ComparisonConfig.from_dict(conf),
+                                    device="cpu").run_transfers()
+    made = []
+    real = comparison._make_segmented_transfer_fn
+    monkeypatch.setattr(comparison, "_make_segmented_transfer_fn",
+                        lambda *a, **kw: made.append(a[1]) or real(*a, **kw))
+    ref = folder / "one_module"
     for key in ("segmented_sd", "pipeline_parallel"):
-        cfg = comparison.ComparisonConfig.from_dict(dict(_conf(folder, "x"), **{key: True}))
-        with pytest.raises(NotImplementedError, match="compile transport"):
-            comparison.ComparisonExperiment(cfg, device="cpu")
+        made.clear()
+        exp = comparison.ComparisonExperiment(comparison.ComparisonConfig.from_dict(
+            dict(conf, output_dir=str(folder / key), **{key: True})), device="cpu")
+        assert exp.segmented
+        exp.run_transfers()
+        assert made == METHODS
+        out = folder / key
+        pngs = sorted(os.path.relpath(os.path.join(d, f), out)
+                      for d, _, fs in os.walk(out) for f in fs if f.endswith(".png"))
+        assert len([f for f in pngs if "_to_" in f]) == 4 * len(METHODS)
+        for f in pngs:
+            a = np.asarray(Image.open(out / f), dtype=np.int16)
+            b = np.asarray(Image.open(ref / f), dtype=np.int16)
+            levels = 1 if f.startswith("linear_interp") else 0
+            assert np.abs(a - b).max() <= levels, (key, f)
+    monkeypatch.setattr(comparison, "data_size", lambda: 2)
+    with pytest.raises(ValueError, match="each rank owns one card"):
+        comparison.ComparisonExperiment(comparison.ComparisonConfig.from_dict(
+            dict(conf, pipeline_parallel=True)), device="cpu")
 
 
 def test_engine_casts_sd_pipelines_to_inference_dtype(folder):
