@@ -10,12 +10,15 @@ failure exits non-zero before the final line:
 2. build: every CUDA kernel library, from ``phendiff_tpu_torch/csrc``, one
    ``nvcc`` per source, all in parallel, with registers and spills per
    compiled function (``ptxas -v``; the GroupNorm kernels' also on their
-   own); a spill in any tensor-core (bf16) attention kernel or any GroupNorm
-   kernel fails the run;
+   own); a spill in any GroupNorm kernel, or a spill or stack frame in any
+   tensor-core (bf16) attention kernel (6 mma.sync, 3 wgmma), fails the run;
 3. kernel checks at the main paths' shapes: each kernel against its plain
    PyTorch version on the same inputs, two calls bit-equal, with its time,
    the plain version's, one library call's (a yardstick the port never
-   calls) and the bound; the GroupNorm forward and backward at each of the
+   calls) and the bound (``bound_by``: bytes, tensor cores, f32 FMA or exp);
+   each attention row names the design its calls took
+   (``attention_design``: wgmma, mma_sync or fma) and fails unless both
+   calls took it; the GroupNorm forward and backward at each of the
    main path's 12 (S, C) with and without SiLU, with their launch plans, the
    clusters the card holds at once and the registers a thread of the kernel
    takes (their ``ms`` is device time, the calls captured in a CUDA graph,
@@ -87,9 +90,10 @@ failure exits non-zero before the final line:
     SD-2.1, seed 0, bf16) and a 50-step DDIB class transfer from images
     through the VAE at 128 px, batch 64 and 512 px, batch 8
     (``bench.py::bench_sd(16, 64)`` and ``bench_sd(64, 8)``'s shapes), with
-    exact launches per kernel, streaming variant and plain-attention route
-    against what the recorded calls predict, and no call of a kernel's plain
-    version on the card;
+    exact launches per kernel, warpgroup attention design (``attention_design``
+    over the recorded calls; every SD phase's launches are held to it),
+    streaming variant and plain-attention route against what the recorded
+    calls predict, and no call of a kernel's plain version on the card;
 20. sd_guided_check: one guided step at latent 16, batch 4 in bf16, and at
     latent 64, batch 1 in float32 (its one streaming backward), model output
     and input gradient against the plain path;
@@ -174,8 +178,11 @@ failure exits non-zero before the final line:
     with ``segmented_sd`` (ddib and guided, 10 steps, batch 8, f32) within
     SEG_CMP_LEVELS uint8 levels of the one-module route.
 
-Then a JSON line of all kernels, the ``nvidia-smi`` name/power-limit line,
-and last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
+Then a JSON line of all kernels (the D = 64 warpgroup attention kernels as
+rows of their own: their forward's launches on the 512 px SD transfer, their
+backward's on the SD train step, which fail the run if either is 0), the
+``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
+{...}}``.  Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -237,12 +244,28 @@ BWD_REL_L2_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 # 41 GroupNorms and 6 attentions, forward and backward (measured 6.6e-3).
 GRAD_REL_L2_TOL = 2e-2
 DESIGN = {
-    "flash_attn_fwd": "bf16: mma.sync m16n8k8 QK^T / m16n8k16 PV, one warp per 16 q rows, "
-                      "online softmax on the accumulator fragments, k/v by cp.async double "
-                      "buffer + ldmatrix; f32: CUDA-core FMA",
-    "flash_attn_bwd": "bf16: two mma.sync kernels (dq per q tile; dk/dv per key tile from "
-                      "S^T = K Q^T), p recomputed from the saved lse, no atomics; f32: "
-                      "CUDA-core FMA",
+    "flash_attn_fwd": "bf16 (D = 8, and D = 64 below WGMMA_MIN_S): mma.sync m16n8k8 QK^T / "
+                      "m16n8k16 PV, one warp per 16 q rows, online softmax on the accumulator "
+                      "fragments, k/v by cp.async double buffer + ldmatrix; f32: CUDA-core FMA",
+    "flash_attn_fwd_wgmma": "bf16 D = 64 from WGMMA_MIN_S tokens: a producer warpgroup "
+                            "(setmaxnreg 24) issues TMA loads of 128-key k/v tiles (4-D maps "
+                            "over the strided qkv slices, 128-byte swizzle) into a 3-stage "
+                            "mbarrier ring; two consumer warpgroups of 64 q rows (240 "
+                            "registers) run S = QK^T as m64n128k16 with q * scale in "
+                            "registers, the online softmax on the accumulators, O += PV as "
+                            "m64n64k16 with P in registers and v read transposed; the next "
+                            "tile's QK^T and this tile's PV issued together, the two "
+                            "warpgroups unsynchronised",
+    "flash_attn_bwd": "bf16 (D = 8, and D = 64 below WGMMA_MIN_S): two mma.sync kernels (dq "
+                      "per q tile; dk/dv per key tile from S^T = K Q^T), p recomputed from "
+                      "the saved lse, no atomics; f32: CUDA-core FMA",
+    "flash_attn_bwd_wgmma": "bf16 D = 64 from WGMMA_MIN_S tokens: two warpgroup kernels, each "
+                            "a TMA producer and two ping-pong consumer warpgroups over a "
+                            "3-stage ring of 64-row tiles: dq per 128 q rows (S, dP as "
+                            "m64n64k16 over k/v K-major, dS K over k transposed; writes q * "
+                            "scale and the padded lse/delta rows), then dk/dv per 128 keys "
+                            "(S^T, dP^T over q*scale/g K-major, dV += P^T G and dK += dS^T Q "
+                            "transposed); fixed order, no atomics",
     "group_norm_silu": "one launch: a (sample, channel slice of whole groups) tile split over "
                        "a thread-block cluster, each block's rows in shared memory by TMA "
                        "boxes, f32 sums as the boxes land, combined in rank order through "
@@ -284,11 +307,14 @@ INCEPTION_REL_L2_TOL = 1e-3
 CMP_PER_CLASS, CMP_STEPS = 32, 10
 GN_PTXAS = {}  # ptxas -v of the GroupNorm library's functions, from the build phase
 KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
-# The SD paths' launch counts: the kernels, the streaming GroupNorm variant,
-# the counted attention_plain route (cross-attention) and the VAE's
-# single-head attention.
-SD_KEYS = KERNEL_NAMES + ("group_norm_silu_stream", "group_norm_silu_stream_bwd",
-                          "attention_plain_route", "single_head_attention")
+# The SD paths' launch counts: the kernels, those of the attention kernels
+# that took the warpgroup design (bf16, D = 64, S >= WGMMA_MIN_S: a subset
+# of flash_attn_fwd / flash_attn_bwd), the streaming GroupNorm variant, the
+# counted attention_plain route (cross-attention) and the VAE's single-head
+# attention.
+WGMMA_KEYS = ("flash_attn_fwd_wgmma", "flash_attn_bwd_wgmma")
+SD_KEYS = KERNEL_NAMES + WGMMA_KEYS + ("group_norm_silu_stream", "group_norm_silu_stream_bwd",
+                                       "attention_plain_route", "single_head_attention")
 # (batch, image px): bench.py::bench_sd(16, 64) and bench_sd(64, 8)'s shapes
 SD_RUNS = {"sd_path": (64, 128), "sd_path_512": (8, 512)}
 SD_CMP_BATCH = 32
@@ -315,7 +341,8 @@ SD_REMAT_LOSS_REL = 1e-6
 # same inputs and every kernel is deterministic, so replays are held
 # bit-equal to eager runs.
 SERVE_PARTIAL = 5
-SERVE_KEYS = ("flash_attn_fwd", "group_norm_silu", "group_norm_silu_stream")
+SERVE_KEYS = ("flash_attn_fwd", "group_norm_silu", "group_norm_silu_stream",
+              "flash_attn_fwd_wgmma")
 # Data parallelism: two ranks of one card over gloo, 3 train steps.  World 2
 # against world 1 runs other batch sizes, so cuDNN may pick other convolution
 # algorithms: bf16 train steps are held by grad_check's rule (GRAD_REL_L2_TOL
@@ -461,36 +488,71 @@ def phase_build():
     logs = _build.build()
     seconds = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_functions(log) for name, log in logs.items()}
-    # the bf16 attention instantiations are the tensor-core kernels (*_mma_kernel<D>)
+    # the bf16 attention kernels: mma.sync (*_mma_kernel<D>, D = 8 and 64: the
+    # forward, dq and dk/dv) and the D = 64 warpgroup kernels (*_wgmma_kernel);
+    # none may spill or keep a stack frame (local memory, which ptxas does not
+    # count as a spill)
     mma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
            for fn, props in ptxas[name].items() if "_mma_kernel" in fn}
-    spills = sorted(fn for fn, props in mma.items() if props.get("spill_bytes", 1) != 0)
+    wgmma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
+             for fn, props in ptxas[name].items() if "_wgmma_kernel" in fn}
+    spills = sorted(fn for fn, props in {**mma, **wgmma}.items()
+                    if props.get("spill_bytes", 1) != 0 or props.get("stack_bytes", 1) != 0)
     gn = ptxas["group_norm_silu"]
     GN_PTXAS.update(gn)
     emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS),
-          "ptxas": ptxas, "mma_kernels_spilling": spills, "group_norm_kernels": gn,
+          "ptxas": ptxas, "mma_kernels": len(mma), "wgmma_kernels": len(wgmma),
+          "tensor_core_kernels_spilling": spills, "group_norm_kernels": gn,
           "group_norm_kernels_spilling": sorted(fn for fn, p in gn.items()
                                                 if p.get("spill_bytes", 0))})
-    if len(mma) != 6 or spills:
-        fail(f"tensor-core attention kernels: expected 6 without spills, got {mma}")
+    if len(mma) != 6 or len(wgmma) != 3 or spills:
+        fail(f"tensor-core attention kernels: expected 6 mma.sync and 3 wgmma kernels without "
+             f"spills or stack frames, got {mma} and {wgmma}")
     if any(p.get("spill_bytes", 0) for p in gn.values()):
         fail(f"GroupNorm kernels spill: {gn}")
+
+
+def bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype) -> str:
+    """What bounds a call: "bytes", "exp" (the special-function unit), or
+    the products' unit ("tensor cores" in bf16, "f32 FMA" in f32)."""
+    import torch
+
+    if t_bytes >= max(flops / flop_rate, exps / sfu_rate):
+        return "bytes"
+    if exps / sfu_rate > flops / flop_rate:
+        return "exp"
+    return "tensor cores" if dtype == torch.bfloat16 else "f32 FMA"
+
+
+def attn_launches(fn) -> dict:
+    """An attention wrapper's launch counters: all its launches, and those of
+    the warpgroup design."""
+    return {"all": fn.launches, "wgmma": fn.wgmma_launches}
+
+
+def attn_launches_for(design: str, n: int) -> dict:
+    """``attn_launches``' change over ``n`` calls that take ``design``."""
+    return {"all": n, "wgmma": n if design == "wgmma" else 0}
 
 
 def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     import torch.nn.functional as F
 
-    from phendiff_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from phendiff_tpu_torch.ops.flash_attention import (
+        attention_design, attention_plain, flash_attention)
 
     dtype = getattr(torch, dtype_name)
     tol = ATTN_TOL[dtype_name]
+    design = attention_design(s, d, dtype)
     g = torch.Generator(device="cuda").manual_seed(1234 + d)
     # q, k, v as the UNet hands them over: column slices of one fused qkv
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda").to(dtype)
     q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    before = attn_launches(flash_attention)
     out = flash_attention(q, k, v)
     again = flash_attention(q, k, v)
     torch.cuda.synchronize()
+    took = {k_: n - before[k_] for k_, n in attn_launches(flash_attention).items()}
     ref = attention_plain(q, k, v)
     torch.cuda.synchronize()
     deterministic = bool(torch.equal(out, again))
@@ -506,7 +568,7 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
         del exact
     else:
         close = torch.allclose(out.float(), ref.float(), **tol)
-    ok = out.dtype == dtype and close and deterministic
+    ok = out.dtype == dtype and close and deterministic and took == attn_launches_for(design, 2)
     err = max_abs(out, ref)
     ms = cuda_ms(lambda: flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v), iters=5, warmup=1)
@@ -519,12 +581,13 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(flops / flop_rate, exps / sfu_rate)
     rec = {
         "phase": "kernel_check", "kernel": "flash_attn_fwd", "dtype": dtype_name,
+        "design": design, "launches": took,
         "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": err, "ok": bool(ok),
         "deterministic": deterministic, "tol": tol, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, **({"small_s": small_s} if small_s else {}),
         "bytes": n_bytes, "flops": flops, "exps": exps,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "bound_by": bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype),
     }
     emit(rec)
     return rec
@@ -693,22 +756,26 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     from phendiff_tpu_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dtype_name)
+    design = fa.attention_design(s, d, dtype)
     gen = torch.Generator(device="cuda").manual_seed(4321 + d)
     qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
     q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
     g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
     scale = d**-0.5
     o, lse = fa._launch(q, k, v, scale, with_lse=True)
+    before = attn_launches(fa.flash_attention_bwd)
     got = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
     again = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
     torch.cuda.synchronize()
+    took = {k_: n - before[k_] for k_, n in attn_launches(fa.flash_attention_bwd).items()}
     ref = fa.flash_attention_bwd_plain(q, k, v, g, scale)
     torch.cuda.synchronize()
     errs = {n: rel_l2(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     max_err = max(max_abs(a, r) for a, r in zip(got, ref))
     deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
     ok = (all(a.dtype == dtype and bool(torch.isfinite(a).all()) for a in got)
-          and max(errs.values()) <= BWD_REL_L2_TOL[dtype_name] and deterministic)
+          and max(errs.values()) <= BWD_REL_L2_TOL[dtype_name] and deterministic
+          and took == attn_launches_for(design, 2))
     del again, ref
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale))
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g, scale),
@@ -723,14 +790,19 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     exps = b * h * s * s  # one recompute of p
     flop_rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(flops / flop_rate, exps / sfu_rate)
+    # the two-kernel design's own floor: p recomputed in both kernels, so 7
+    # products and 2 exps a score
+    t_design = max(t_bytes, 1.4 * flops / flop_rate, 2 * exps / sfu_rate)
     rec = {
         "phase": "kernel_check", "kernel": "flash_attn_bwd", "dtype": dtype_name,
+        "design": design, "launches": took,
         "shape": {"B": b, "S": s, "H": h, "D": d}, "max_abs_err": max_err, "rel_l2": errs,
         "tol_rel_l2": BWD_REL_L2_TOL[dtype_name], "ok": bool(ok),
         "deterministic": deterministic, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bytes": n_bytes, "flops": flops,
         "exps": exps, "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "bound_by": bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype),
+        "design_floor_ms": 1e3 * t_design,
     }
     emit(rec)
     return rec
@@ -741,6 +813,7 @@ def reset_launches() -> None:
     from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
 
     flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention.wgmma_launches = flash_attention_bwd.wgmma_launches = 0
     fused_group_norm.launches = fused_group_norm_bwd.launches = 0
 
 
@@ -1251,9 +1324,13 @@ def reset_sd_launches() -> None:
 
 def read_sd_launches() -> dict:
     from phendiff_tpu_torch.ops import attention
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
 
-    return {**read_launches(), "group_norm_silu_stream": fused_group_norm.stream_launches,
+    return {**read_launches(),
+            "flash_attn_fwd_wgmma": flash_attention.wgmma_launches,
+            "flash_attn_bwd_wgmma": flash_attention_bwd.wgmma_launches,
+            "group_norm_silu_stream": fused_group_norm.stream_launches,
             "group_norm_silu_stream_bwd": fused_group_norm_bwd.stream_launches,
             "attention_plain_route": attention.multi_head_attention.xla_route_calls,
             "single_head_attention": attention.single_head_attention.calls}
@@ -1261,9 +1338,12 @@ def read_sd_launches() -> dict:
 
 def predicted_launches(calls: dict, forward: bool = True, backward: bool = False) -> dict:
     """The launches one recorded forward (``obs.forward_profile.record_calls``)
-    makes on the card, by ``gn_route`` and ``attention.takes_kernel``, and
-    those of its input backward."""
+    makes on the card, by ``gn_route``, ``attention.takes_kernel`` and
+    ``attention_design``, and those of its input backward."""
+    import torch
+
     from phendiff_tpu_torch.ops.attention import takes_kernel
+    from phendiff_tpu_torch.ops.flash_attention import attention_design
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
 
     out = dict.fromkeys(SD_KEYS, 0)
@@ -1274,10 +1354,14 @@ def predicted_launches(calls: dict, forward: bool = True, backward: bool = False
         if backward:
             stream = gn_route(s, c, g, isz, backward=True) == "stream"
             out["group_norm_silu_stream_bwd" if stream else "group_norm_silu_bwd"] += n
-    for (s_q, s_kv, _, d, _), n in calls["attention"].items():
+    for (s_q, s_kv, _, d, isz), n in calls["attention"].items():
         if takes_kernel(s_q, s_kv, d):
             out["flash_attn_fwd"] += n * forward
             out["flash_attn_bwd"] += n * backward
+            dtype = torch.bfloat16 if isz == 2 else torch.float32
+            if attention_design(s_q, d, dtype) == "wgmma":
+                out["flash_attn_fwd_wgmma"] += n * forward
+                out["flash_attn_bwd_wgmma"] += n * backward
         else:
             out["attention_plain_route"] += n * forward
     out["single_head_attention"] += calls["single_head_attention"] * forward
@@ -2048,7 +2132,7 @@ def phase_serving(torch, pipe, ucfg, sched_cfg, env):
 
     def fwd(forwards):
         return {**{k: launches_for(forwards, 0)[k] for k in SERVE_KEYS[:2]},
-                "group_norm_silu_stream": 0}
+                "group_norm_silu_stream": 0, "flash_attn_fwd_wgmma": 0}
 
     pipe1 = ConditionalDDIMPipeline.init_random(
         ucfg, sched_cfg, seed=SEED + 1, dtype=torch.bfloat16, device="cuda"
@@ -2132,7 +2216,8 @@ def phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res):
                     for part in ("encode", "decode"))
         if add_launches((1, enc), (1, dec)) != predicted_launches(vae_by_res[res]):
             fail(f"sd_serving: the VAE's encode and decode calls at {res} px do not add up")
-        want = {op: {k: add_launches(*terms)[k] for k in SERVE_KEYS} for op, terms in (
+        want = {op: {k: add_launches(*terms)[k] for k in SERVE_KEYS}
+                for op, terms in (
             ("transfer", ((2 * STEPS, unet), (1, enc), (1, dec))),
             ("generate", ((STEPS, unet), (1, dec))), ("invert", ((STEPS, unet), (1, enc))))}
         served = at_latent(sd, lat)
@@ -3400,6 +3485,8 @@ def main() -> None:
         return {path: rec["launches"].get(name, 0) for path, rec in serving.items()}
 
     by_path = {
+        name: {**sd_by_path(name), **serving_by_path(name)} for name in WGMMA_KEYS}
+    by_path.update({
         name: {"transfer": launches.get(name, 0), "train": train["launches"].get(name, 0),
                "trainer": trainer["launches"].get(name, 0), "guided": guided["launches"][name],
                "cfg": cfg_path["launches"][name], "comparison": comparison["launches"][name],
@@ -3409,15 +3496,40 @@ def main() -> None:
                **{p: n[name] for p, n in tp_launches.items()},
                **{p: n[name] for p, n in seg_launches.items()}}
         for name in KERNEL_NAMES
-    }
+    })
 
-    def sd_attn_per_forward(which):
+    def sd_attn_per_forward(which, design=None):
         """Summed over the self-attention calls of one SD UNet forward (or
-        its input backward) at each SD run's shapes."""
+        its input backward) at each SD run's shapes (with ``design``: over
+        the calls that take it)."""
         return {run: {k: sum(n * recs[which][k] for (r, _, _), (n, *recs) in sd_attn.items()
-                             if r == run)
+                             if r == run and design in (None, recs[which]["design"]))
                       for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                for run in SD_RUNS}
+                for run in (*SD_RUNS, "sd_train_path")}
+
+    def wgmma_calls(which):
+        """The SD kernel checks' records (forward 0, backward 1) of calls
+        that take the warpgroup design."""
+        return [recs[which] for (n, *recs) in sd_attn.values()
+                if recs[which]["design"] == "wgmma"]
+
+    def contract_bound(unit):
+        return "bytes" if unit == "bytes" else "operations"
+
+    def wgmma_bound_by(which):
+        """What bounds the 512 px SD UNet's warpgroup calls (forward 0,
+        backward 1) summed: bytes or operations, by the share of the summed
+        bound_ms of the calls each one bounds."""
+        share = {"bytes": 0.0, "operations": 0.0}
+        for (run, _, _), (n, *recs) in sd_attn.items():
+            if run == "sd_path_512" and recs[which]["design"] == "wgmma":
+                share[contract_bound(recs[which]["bound_by"])] += n * recs[which]["bound_ms"]
+        return max(share, key=share.get)
+
+    sd512, sd_train_nr = sd_runs["sd_path_512"]["launches"], sd_train["no_remat"]["launches"]
+    if sd512["flash_attn_fwd_wgmma"] == 0 or sd_train_nr["flash_attn_bwd_wgmma"] == 0:
+        fail("the warpgroup attention kernels took no call on the SD 512 px transfer or the "
+             "SD train step")
 
     def sd_gn_sum(which):
         """Summed over the cluster GroupNorm calls of one SD UNet forward
@@ -3465,10 +3577,25 @@ def main() -> None:
             "launches": launches["flash_attn_fwd"], "max_abs_err": attn["max_abs_err"],
             **{k: attn_per_forward * attn[k]
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": attn["bound_by"], "launches_by_path": by_path["flash_attn_fwd"],
+            "bound_by": contract_bound(attn["bound_by"]),
+            "launches_by_path": by_path["flash_attn_fwd"],
             "sd_per_unet_forward": sd_attn_per_forward(0),
             "sd_train_per_step": sd_train_per_step("flash_attn_fwd"),
             "design": DESIGN["flash_attn_fwd"],
+        },
+        {
+            # the D = 64 bf16 calls from WGMMA_MIN_S tokens: ms etc. per 512 px
+            # SD UNet forward at batch 8 (its calls of this design); launches
+            # on the 512 px SD transfer
+            "name": "flash_attn_fwd_wgmma", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "phendiff_tpu/ops/flash_attention.py:77",
+            "launches": sd512["flash_attn_fwd_wgmma"],
+            "max_abs_err": max(r["max_abs_err"] for r in wgmma_calls(0)),
+            **sd_attn_per_forward(0, "wgmma")["sd_path_512"], "bound_by": wgmma_bound_by(0),
+            "launches_by_path": by_path["flash_attn_fwd_wgmma"],
+            "sd_per_unet_forward": sd_attn_per_forward(0, "wgmma"),
+            "design": DESIGN["flash_attn_fwd_wgmma"],
         },
         {
             "name": "flash_attn_bwd", "route": "cuda",
@@ -3476,10 +3603,27 @@ def main() -> None:
             "replaces": "phendiff_tpu/ops/flash_attention.py:155",
             "launches": train["launches"]["flash_attn_bwd"], "max_abs_err": bwd["max_abs_err"],
             **{k: 6 * bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": bwd["bound_by"], "launches_by_path": by_path["flash_attn_bwd"],
+            "bound_by": contract_bound(bwd["bound_by"]),
+            "launches_by_path": by_path["flash_attn_bwd"],
             "sd_per_unet_backward": sd_attn_per_forward(1),
             "sd_train_per_step": sd_train_per_step("flash_attn_bwd"),
             "design": DESIGN["flash_attn_bwd"],
+        },
+        {
+            # ms etc. per 512 px SD UNet input backward at batch 8 (its calls of
+            # this design); launches on the SD train step (10 steps, 128 px)
+            "name": "flash_attn_bwd_wgmma", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "phendiff_tpu/ops/flash_attention.py:155",
+            "launches": sd_train_nr["flash_attn_bwd_wgmma"],
+            "max_abs_err": max(r["max_abs_err"] for r in wgmma_calls(1)),
+            **sd_attn_per_forward(1, "wgmma")["sd_path_512"], "bound_by": wgmma_bound_by(1),
+            "design_floor_ms": sum(n * recs[1]["design_floor_ms"]
+                                   for (r, _, _), (n, *recs) in sd_attn.items()
+                                   if r == "sd_path_512" and recs[1]["design"] == "wgmma"),
+            "launches_by_path": by_path["flash_attn_bwd_wgmma"],
+            "sd_per_unet_backward": sd_attn_per_forward(1, "wgmma"),
+            "design": DESIGN["flash_attn_bwd_wgmma"],
         },
         {
             "name": "group_norm_silu", "route": "cuda",

@@ -5,17 +5,48 @@
 // q, k, v of layout [B, S, H, D] in bf16 or f32 (the TPU kernel, too, runs
 // in its input dtype), with f32 softmax and f32 accumulation, and nothing
 // of size [S, S] written to device memory.  D is 8 (the main path) or 64
-// (the SD path); the caller zero-pads other head dims up.
+// (the SD path); the caller zero-pads other head dims up.  Three designs,
+// chosen by the caller (ops/flash_attention.py::attention_design) and
+// passed in as `design`:
 //
 // Bound.  At the main-path shape (B=32, H=32, S=1024, D=8) one call does
 // B*H*S*S = 1.07e9 exponentials and 4*B*H*S*S*D = 3.4e10 flops over 67 MB of
 // q/k/v/o: the special-function unit (16 exp2 per clock per SM) bounds it,
-// not the tensor cores or the memory.
+// not the tensor cores or the memory.  At D = 64 the tensor cores bound it:
+// per score 4*D = 256 flops at 989 TFLOP/s take 0.26 ps, one exp2 at
+// 16 x 132 x 1.98e9 a second 0.24 ps.
 //
-// bf16: tensor cores (flash_fwd_mma_kernel).  The TPU kernel held a whole
-// [BQ, S] score row in VMEM; a Hopper block cannot, so k and v stream
-// through shared memory and each q row keeps an online softmax (running
-// max m, running sum l, rescaled f32 accumulator):
+// 1. bf16 D = 64 at S >= the route's threshold: warpgroup products
+// (flash_fwd_wgmma_kernel, helpers in attn_wgmma.cuh).  A block of three
+// warpgroups owns 128 q rows of one (batch, head):
+//   * the producer warpgroup (24 registers a thread by setmaxnreg) has one
+//     thread issue TMA loads of 128-key k and v tiles, 128-byte swizzled,
+//     into a ring of WG_STAGES stages, each with a full and an empty
+//     mbarrier; the 4-D tensor maps (64, H, S, B) read q/k/v through their
+//     strides, so the fused qkv's column slices need no copy, and zero-fill
+//     keys past S;
+//   * two consumer warpgroups (240 registers) of 64 q rows each hold
+//     q * scale (rounded to bf16 as the plain version scales q) in
+//     registers as wgmma's A operand; per tile, S = Q K^T is four
+//     m64n128k16 over the k tile (K-major), the online softmax runs on the
+//     accumulator fragments (quad shuffles, one FFMA and one ex2 a score),
+//     P rounded to bf16x2 in registers is the A operand of O += P V, eight
+//     m64n64k16 reading the v tile transposed by the descriptor; the next
+//     tile's Q K^T and this tile's P V are issued together, so the tensor
+//     cores run P V under the next softmax (FlashAttention-3's
+//     intra-warpgroup overlap); once P V is done every consumer thread
+//     arrives on the stage's empty barrier.
+// The two consumer warpgroups share each tile and run unsynchronised, so
+// one's softmax also overlaps the other's products.  Making them take
+// turns, as the backward does, measured slower here, and dropping the
+// intra-warpgroup overlap slower still; 192-key tiles measured slower than
+// 128-key ones at every SD shape.  The K/V tiles are re-read from L2 by
+// each of the S / 128 blocks of a (batch, head).
+//
+// 2. bf16 otherwise: mma.sync tensor cores (flash_fwd_mma_kernel).  The TPU
+// kernel held a whole [BQ, S] score row in VMEM; a Hopper block cannot, so
+// k and v stream through shared memory and each q row keeps an online
+// softmax (running max m, running sum l, rescaled f32 accumulator):
 //   * one block of 4 warps per (b*h, 64-row q tile); each warp owns 16 q
 //     rows, whose q * scale (rounded to bf16, as the plain version scales
 //     q) stays in registers as the A operand;
@@ -28,21 +59,24 @@
 //   * the softmax runs on the accumulator fragments: row max and row sum
 //     over a quad by two __shfl_xor, one rescale per tile, and each
 //     probability is one FFMA (s*log2e - m*log2e) and one ex2.approx.
-// p is rounded to bf16 unnormalised before P V, as the TPU kernel rounds
-// it (`_fwd_kernel`); the row sum l adds the f32 p, before rounding.  The
-// output is the f32 accumulator over l, rounded once.
+// In both, p is rounded to bf16 unnormalised before P V, as the TPU kernel
+// rounds it (`_fwd_kernel`); the row sum l adds the f32 p, before
+// rounding.  The output is the f32 accumulator over l, rounded once.
 //
-// f32: CUDA cores (flash_fwd_kernel).  Tensor cores take f32 only as TF32,
-// which misses the f32 tolerances, so f32 keeps plain FMA: one thread per q
-// row, k/v tiles in shared memory read as broadcasts, the rescale once per
-// CH keys, scores in base-2 units for one ex2.approx per probability.
+// 3. f32: CUDA cores (flash_fwd_kernel).  Tensor cores take f32 only as
+// TF32, which misses the f32 tolerances, so f32 keeps plain FMA: one thread
+// per q row, k/v tiles in shared memory read as broadcasts, the rescale
+// once per CH keys, scores in base-2 units for one ex2.approx per
+// probability.
 //
-// Both write, when `lse` is non-null, each row's log-sum-exp in base-2
+// All write, when `lse` is non-null, each row's log-sum-exp in base-2
 // units (m + log2(l)), f32 [B, H, S], for the backward
 // (csrc/flash_attn_bwd.cu).  q, k and v are addressed through strides, so
 // the three column slices of the fused qkv projection are read in place.
 
-#include "attn_mma.cuh"
+#include <type_traits>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -51,7 +85,7 @@ using phd::MMA_ROWS;
 using phd::MMA_THREADS;
 using bf16 = __nv_bfloat16;
 
-// ---- bf16, tensor cores ----------------------------------------------------
+// ---- bf16, mma.sync tensor cores --------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_fwd_mma_kernel(
@@ -186,6 +220,170 @@ __global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_fwd
   }
 }
 
+// ---- bf16, D = 64, warpgroup products ------------------------------------------
+
+constexpr int WG_BN = 128;                      // keys a stage
+constexpr int WG_STAGES = 3;                    // stages of the ring
+constexpr int WG_TILE = WG_BN * 64 * 2;         // bytes of one k or v tile
+// The ring (k then v tile a stage), its 2 x WG_STAGES mbarriers, and room
+// to align the ring to 1024 bytes (the 128-byte swizzle's period).
+constexpr int WG_SMEM = 1024 + 2 * WG_STAGES * WG_TILE + 16 * WG_STAGES;
+
+__global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale) {
+  namespace wg = phd::wg;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (phd::smem_u32(smem_raw) + 1023u) & ~1023u;
+  // stage st: k tile at ring + 2 st WG_TILE, its v tile next; full[st] at
+  // bars + 8 st, empty[st] at bars + 8 (WG_STAGES + st)
+  const uint32_t bars = ring + 2 * WG_STAGES * WG_TILE;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int ntiles = (S + WG_BN - 1) / WG_BN;
+  wg::init_ring<WG_STAGES>(bars);
+
+  const int role = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
+  if (role == 0) {
+    wg::producer_registers();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&kmap);
+      wg::prefetch_map(&vmap);
+      wg::produce<WG_BN, WG_STAGES>(ring, 0, bars, ntiles, &kmap, &vmap, nullptr, nullptr, h,
+                                    b, 0);
+    }
+  } else {
+    wg::consumer_registers();
+    const int tid = threadIdx.x - 128 * role;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_g = blockIdx.x * wg::ROWS + (role - 1) * 64 + warp * 16 + g;  // rows r_g, r_g + 8
+
+    uint32_t qa[16];
+    phd::load_a<64>(qa, q + b * q_sb + h * q_sh, q_ss, r_g, S, t, phd::round_bf16(scale));
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: per-lane partial sums
+    float acc[32];
+    wg::zero<32>(acc);
+    uint32_t pa[WG_BN / 4];  // the previous tile's p, the A operand of its P V
+
+    // Scores of tile `it` into s; then, with `pv`, the previous tile's
+    // P V queued behind them, so the tensor cores run it under this tile's
+    // softmax.  Returns with s ready and P V in flight.
+    auto scores = [&](float* s, int it, bool pv) {
+      const int st = it % WG_STAGES;
+      wg::mbar_wait(bars + 8 * st, (it / WG_STAGES) & 1);
+      wg::pin<WG_BN / 2>(s);
+      wg::pin<32>(acc);
+      wg::fence();
+      wg::mma_abt<WG_BN>(s, qa, ring + 2 * st * WG_TILE);
+      wg::commit();
+      if (pv) {
+        const int prev = (it + WG_STAGES - 1) % WG_STAGES;
+        wg::mma_pb<WG_BN>(acc, pa, ring + 2 * prev * WG_TILE + WG_TILE);
+        wg::commit();
+      }
+      if (pv)
+        wg::wait<1>();
+      else
+        wg::wait<0>();
+      wg::pin<WG_BN / 2>(s);
+    };
+    // The online softmax of tile `it`'s scores: new maxima, s -> p in place,
+    // the row sums; returns the rescale factors of the older terms.  MASK:
+    // the tile holds keys past S (only the last tile can).
+    auto softmax = [&](float* s, int it, float& alpha0, float& alpha1, auto mask) {
+      if constexpr (decltype(mask)::value) {
+        const int kn = S - it * WG_BN;  // keys of this tile that exist
+#pragma unroll
+        for (int i = 0; i < WG_BN / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * i + 2 * t + (e & 1) >= kn) s[4 * i + e] = -INFINITY;
+      }
+      // the tile's first key exists, so both maxima are finite; on the first
+      // tile m = -inf gives alpha = ex2(-inf) = 0
+      const float mx0 = fmaxf(m0, wg::row_max<WG_BN>(s, 0));
+      const float mx1 = fmaxf(m1, wg::row_max<WG_BN>(s, 1));
+      alpha0 = phd::ex2((m0 - mx0) * LOG2E);
+      alpha1 = phd::ex2((m1 - mx1) * LOG2E);
+      m0 = mx0;
+      m1 = mx1;
+      const float nm0 = -mx0 * LOG2E, nm1 = -mx1 * LOG2E;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int i = 0; i < WG_BN / 8; ++i) {
+        s[4 * i] = phd::ex2(fmaf(s[4 * i], LOG2E, nm0));
+        s[4 * i + 1] = phd::ex2(fmaf(s[4 * i + 1], LOG2E, nm0));
+        s[4 * i + 2] = phd::ex2(fmaf(s[4 * i + 2], LOG2E, nm1));
+        s[4 * i + 3] = phd::ex2(fmaf(s[4 * i + 3], LOG2E, nm1));
+        l0 += s[4 * i] + s[4 * i + 1];
+        l1 += s[4 * i + 2] + s[4 * i + 3];
+      }
+    };
+    const bool ragged = S % WG_BN != 0;
+    auto softmax_of = [&](float* s, int it, float& alpha0, float& alpha1) {
+      if (ragged && it == ntiles - 1)
+        softmax(s, it, alpha0, alpha1, std::true_type());
+      else
+        softmax(s, it, alpha0, alpha1, std::false_type());
+    };
+
+    float alpha0, alpha1;
+    {
+      float s[WG_BN / 2];
+      scores(s, 0, false);
+      softmax_of(s, 0, alpha0, alpha1);
+      wg::to_a<WG_BN>(pa, s);
+    }
+    for (int it = 1; it < ntiles; ++it) {
+      float s[WG_BN / 2];
+      scores(s, it, true);
+      softmax_of(s, it, alpha0, alpha1);
+      wg::wait<0>();  // the previous tile's P V is done: its stage is free
+      wg::pin<32>(acc);
+      wg::mbar_arrive(bars + 8 * (WG_STAGES + (it - 1) % WG_STAGES));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[4 * i] *= alpha0; acc[4 * i + 1] *= alpha0;
+        acc[4 * i + 2] *= alpha1; acc[4 * i + 3] *= alpha1;
+      }
+      wg::to_a<WG_BN>(pa, s);
+    }
+    {
+      const int last = (ntiles - 1) % WG_STAGES;
+      wg::pin<32>(acc);
+      wg::fence();
+      wg::mma_pb<WG_BN>(acc, pa, ring + 2 * last * WG_TILE + WG_TILE);
+      wg::commit();
+      wg::wait<0>();
+      wg::pin<32>(acc);
+      wg::mbar_arrive(bars + 8 * (WG_STAGES + last));
+    }
+
+    l0 = phd::quad_sum(l0);
+    l1 = phd::quad_sum(l1);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    bf16* ob = o + b * o_sb + h * o_sh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (r_g < S)
+        *reinterpret_cast<uint32_t*>(ob + r_g * o_ss + 8 * n) =
+            phd::pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (r_g + 8 < S)
+        *reinterpret_cast<uint32_t*>(ob + (r_g + 8) * o_ss + 8 * n) =
+            phd::pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
+    if (lse && t == 0) {
+      float* lb = lse + static_cast<long long>(bh) * S;
+      if (r_g < S) lb[r_g] = m0 * LOG2E + log2f(l0);
+      if (r_g + 8 < S) lb[r_g + 8] = m1 * LOG2E + log2f(l1);
+    }
+  }
+}
+
 // ---- f32, CUDA cores ---------------------------------------------------------
 
 constexpr int BQ = 128;  // q rows per block, one per thread
@@ -313,15 +511,17 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 
 }  // namespace
 
-// q, k, v, o: [B, S, H, D] of one dtype (code 0 = f32, 1 = bf16),
-// addressed by (batch, seq, head) strides in elements; the D axis is
-// contiguous.  lse: null, or f32 [B, H, S] for each row's log-sum-exp in
-// base-2 units.  D is 8 or 64; every pointer is 16-byte aligned and every
-// stride a multiple of 8 (the caller checks).  bf16 runs the tensor-core
-// kernel, f32 the CUDA-core kernel.  Returns the CUDA error of the launch
-// (0 on success).
+// q, k, v, o: [B, S, H, D] of one dtype, f32 for kFma and bf16 for the
+// other designs, addressed by (batch, seq, head) strides in elements; the D
+// axis is contiguous.  lse: null, or f32 [B, H, S] for each row's
+// log-sum-exp in base-2 units.  D is 8 or 64; every pointer is 16-byte
+// aligned and every stride a multiple of 8 (the caller checks).  `design`:
+// phd::kFma (the CUDA-core kernel), kMmaSync (the mma.sync kernel) or
+// kWgmma (the warpgroup kernel, D = 64 only).  Returns the CUDA error of
+// the launch (0 on success), or kErrEncode - CUresult for a tensor map the
+// driver refused.
 extern "C" int phd_flash_attn_fwd(
-    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse, int design,
     int B, int S, int H, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -329,13 +529,27 @@ extern "C" int phd_flash_attn_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((D != 8 && D != 64) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  using phd::kFma, phd::kMmaSync, phd::kWgmma;
+  const bool valid = (D == 8 || D == 64) &&
+                     (design == kFma || design == kMmaSync || (design == kWgmma && D == 64));
+  if (!valid) return static_cast<int>(cudaErrorInvalidValue);
 #define PHD_ARGS(T)                                                                   \
   static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),       \
       static_cast<T*>(o), lse, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
       v_sh, o_sb, o_ss, o_sh, scale
-  if (dtype == 1) {
+  if (design == kWgmma) {
+    static unsigned long long ready = 0;
+    const cudaError_t e = phd::wgh::allow_smem(flash_fwd_wgmma_kernel, WG_SMEM, &ready);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    CUtensorMap kmap, vmap;
+    int err = phd::wgh::encode_bshd(&kmap, k, B, S, H, k_sb, k_ss, k_sh, WG_BN);
+    if (err == 0) err = phd::wgh::encode_bshd(&vmap, v, B, S, H, v_sb, v_ss, v_sh, WG_BN);
+    if (err != 0) return err;
+    const dim3 grid((S + phd::wg::ROWS - 1) / phd::wg::ROWS, B * H);
+    flash_fwd_wgmma_kernel<<<grid, phd::wg::THREADS, WG_SMEM, st>>>(
+        kmap, vmap, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, S, H, q_sb, q_ss,
+        q_sh, o_sb, o_ss, o_sh, scale);
+  } else if (design == kMmaSync) {
     const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
     if (D == 8)
       flash_fwd_mma_kernel<8><<<grid, MMA_THREADS, 0, st>>>(PHD_ARGS(bf16));

@@ -54,8 +54,9 @@ import torch
 # statistics pass and its combine (gn_stats, which the streaming forward
 # also runs as its first pass, counts there).
 _CATEGORIES = (
-    ("flash_attn_fwd", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),
+    ("flash_attn_fwd", ("flash_fwd_mma_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("flash_attn_bwd", ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+                        "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                         "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
     ("group_norm_silu", ("gn_fwd_cluster",)),
     ("group_norm_silu_bwd", ("gn_bwd_cluster",)),

@@ -100,7 +100,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
     """Per compiled function of a ``ptxas -v`` log (its mangled name): the
-    registers it uses and its spill bytes (stores + loads)."""
+    registers it uses, its spill bytes (stores + loads) and its stack frame
+    bytes (local memory, spilled or not: an array the compiler cannot keep
+    in registers)."""
     out: Dict[str, Dict[str, int]] = {}
     fn = None
     for line in log.splitlines():
@@ -110,6 +112,7 @@ def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
         elif fn and "spill stores" in line:
             nums = [int(x) for x in line.replace(",", " ").split() if x.isdigit()]
             out[fn]["spill_bytes"] = nums[1] + nums[2]
+            out[fn]["stack_bytes"] = nums[0]
         elif fn and "Used " in line and " registers" in line:
             out[fn]["registers"] = int(line.split("Used ", 1)[1].split()[0])
     return out

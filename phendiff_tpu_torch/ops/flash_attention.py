@@ -16,13 +16,19 @@ slices of the fused qkv projection need no copy.
 When a gradient is needed the forward also saves each row's log-sum-exp,
 and the backward (``flash_attention_bwd``) recomputes the probabilities
 from it.  ``flash_attention.launches`` and ``flash_attention_bwd.launches``
-count kernel launches.  Every launch runs with the current device set to
-its input's (``_build.on_tensor_device``).
+count kernel launches, and their ``.wgmma_launches`` those of them that
+took the warpgroup design.  Every launch runs with the current device set
+to its input's (``_build.on_tensor_device``).
 
-The kernel is chosen by the input dtype, inside the C entries: bf16 runs
-the tensor-core kernels (``mma.sync``), f32 the CUDA-core FMA kernels,
-because the tensor cores take f32 only as TF32, which would miss the f32
-tolerances.  Either way a CUDA tensor launches a kernel or raises.
+The design a call takes is ``attention_design(s, d, dtype)``, decided
+here and passed to the C entries: bf16 at D = 64 from ``WGMMA_MIN_S``
+tokens runs the warpgroup kernels (``wgmma`` fed by TMA through an
+mbarrier ring, ``csrc/attn_wgmma.cuh``), other bf16 calls the
+``mma.sync`` kernels, f32 the CUDA-core FMA kernels, because the tensor
+cores take f32 only as TF32, which would miss the f32 tolerances.  The
+design implies the dtype, which the C entries do not see: they refuse
+only a design that does not fit the head dim.  Either way a CUDA tensor
+launches a kernel or raises: no design falls back to another.
 """
 
 from __future__ import annotations
@@ -39,7 +45,26 @@ from phendiff_tpu_torch.ops import _build
 # Head dims the kernel is instantiated for (the main path's 8, the SD
 # path's 64); others are zero-padded up.
 _KERNEL_DIMS = (8, 64)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# The kernels' designs, as the C entries number them (csrc/attn_wgmma.cuh,
+# phd::AttnDesign); fma takes f32 tensors, the others bf16.
+DESIGN_CODES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+# The least S (tokens) at which a bf16 D = 64 call takes the warpgroup
+# kernels; below it the mma.sync kernels, whose 64-row blocks waste less of
+# a short sequence than wgmma's 128-row blocks and 3-stage ring.  Chosen
+# from both designs' times at every SD-2.1 shape on the card (PERF.md).
+WGMMA_MIN_S = 256
+
+
+def attention_design(s: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel design a CUDA call with S tokens, head dim ``d`` (before
+    padding to a kernel dim) and ``dtype`` takes: "wgmma", "mma_sync" or
+    "fma" (f32)."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention kernels take one of bf16/f32, got {dtype}")
+    return "wgmma" if _kernel_dim(d) == 64 and s >= WGMMA_MIN_S else "mma_sync"
 
 
 def attention_plain(
@@ -108,7 +133,7 @@ def _strides(*ts):
 
 def _check_dtypes(*ts):
     dt = ts[0].dtype
-    if dt not in _DTYPE_CODES or any(t.dtype != dt for t in ts):
+    if dt not in _DTYPES or any(t.dtype != dt for t in ts):
         raise TypeError(
             f"flash_attention kernels take one of bf16/f32, got {[t.dtype for t in ts]}"
         )
@@ -130,15 +155,17 @@ def _bwd_entry():
     fn = _build.load("flash_attn_bwd").phd_flash_attn_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
         + [ctypes.c_float, ctypes.c_void_p]
     )
     return fn
 
 
 @_build.on_tensor_device
-def _launch(q, k, v, scale: float, with_lse: bool = False):
-    """Forward kernel on kernel-dim inputs: o, or (o, lse) with ``with_lse``."""
+def _launch(q, k, v, scale: float, with_lse: bool = False, design: Optional[str] = None):
+    """Forward kernel on kernel-dim inputs: o, or (o, lse) with ``with_lse``.
+    ``design`` (one of ``DESIGN_CODES``, by default ``attention_design``'s)
+    must fit the dtype: only ``tools/attention_designs`` forces one."""
     _check_dtypes(q, k, v)
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -147,26 +174,33 @@ def _launch(q, k, v, scale: float, with_lse: bool = False):
         raise ValueError(f"batch*heads {b * h} exceeds the kernel grid limit 65535")
     if d not in _KERNEL_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims {_KERNEL_DIMS}, got {d}")
+    design = design or attention_design(s, d, q.dtype)
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype],
+        lse.data_ptr() if with_lse else None, DESIGN_CODES[design],
         b, s, h, d, *_strides(q, k, v, o), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "flash_attn_fwd launch")
+    _build.check(err, f"flash_attn_fwd launch ({design})")
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += int(design == "wgmma")
     return (o, lse) if with_lse else o
 
 
-@_build.on_tensor_device
 def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     """(dq, dk, dv) from the backward kernel, for kernel-dim CUDA inputs:
     q, k, v as the forward took them, its output ``o`` and row log-sum-exp
     ``lse`` (``_launch(..., with_lse=True)``), and the output gradient
     ``g``.  Outputs are contiguous, in the inputs' dtype."""
+    return _launch_bwd(q, k, v, o, lse, g, scale)
+
+
+@_build.on_tensor_device
+def _launch_bwd(q, k, v, o, lse, g, scale: float, design: Optional[str] = None):
+    """``flash_attention_bwd`` with its ``design`` as ``_launch`` takes it."""
     g = g.to(q.dtype)
     _check_dtypes(q, k, v, o, g)
     b, s, h, d = q.shape
@@ -174,16 +208,26 @@ def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     o, g = o.contiguous(), g.contiguous()
     if g.data_ptr() % 16:
         g = g.clone()
+    design = design or attention_design(s, d, q.dtype)
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if design == "wgmma":
+        # q * scale for the dk/dv kernel (TMA cannot scale), and the row terms
+        # (lse, delta) in rows padded to 4 floats, where its TMA boxes start
+        qs = torch.empty_like(dq)
+        delta = torch.empty(2 * b * h * (-(-s // 4) * 4), dtype=torch.float32, device=q.device)
+    else:
+        qs = None
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _bwd_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, s, h, d, *_strides(q, k, v), float(scale),
+        qs.data_ptr() if qs is not None else None, DESIGN_CODES[design],
+        b, s, h, d, *_strides(q, k, v), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "flash_attn_bwd launch")
+    _build.check(err, f"flash_attn_bwd launch ({design})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.wgmma_launches += int(design == "wgmma")
     return dq, dk, dv
 
 
@@ -232,3 +276,5 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.wgmma_launches = 0
+flash_attention_bwd.wgmma_launches = 0

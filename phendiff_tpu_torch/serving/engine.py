@@ -64,11 +64,13 @@ class EngineConfig:
 
 
 def _kernel_launches() -> Dict[str, int]:
-    """The forward kernel wrappers' launch counters (serving runs no
+    """The forward kernel wrappers' launch counters, with the attention
+    launches that took the warpgroup design among them (serving runs no
     backward)."""
     return {"flash_attn_fwd": flash_attention.launches,
             "group_norm_silu": fused_group_norm.launches,
-            "group_norm_silu_stream": fused_group_norm.stream_launches}
+            "group_norm_silu_stream": fused_group_norm.stream_launches,
+            "flash_attn_fwd_wgmma": flash_attention.wgmma_launches}
 
 
 @dataclasses.dataclass

@@ -78,9 +78,12 @@ def cuda():
     return torch.device("cuda")
 
 
+# D = 64 from WGMMA_MIN_S tokens takes the warpgroup kernels in bf16: SD-2.1's
+# level 0 at 512 px (5 heads of 64, fused-qkv strides), and ragged S
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,d", [(1024, 32, 8), (300, 4, 8), (4096, 2, 64)])
+@pytest.mark.parametrize("s,h,d", [(1024, 32, 8), (300, 4, 8), (4096, 2, 64), (4096, 5, 64),
+                                   (300, 3, 64), (4097, 2, 64)])
 def test_flash_attention_kernel_matches_plain(cuda, s, h, d, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     qkv = torch.randn(2, s, 3 * h * d, generator=g, device=cuda).to(dtype)
@@ -107,7 +110,8 @@ def _qkv_slices(cuda, b, s, h, d, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 32, 8), (1, 2048, 4, 64)])
+@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 32, 8), (1, 2048, 4, 64), (2, 4096, 5, 64),
+                                     (2, 300, 3, 64), (2, 64, 20, 64)])
 def test_flash_attention_bf16_kernels_are_deterministic(cuda, b, s, h, d):
     qkv, (q, k, v), gout = _qkv_slices(cuda, b, s, h, d, torch.bfloat16, 7)
     outs = [flash_attention(q, k, v) for _ in range(2)]
@@ -135,7 +139,8 @@ def test_flash_attention_ragged_s_and_padded_head_dim(cuda, s, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,d", [(1024, 8, 8), (300, 2, 64)])
+@pytest.mark.parametrize("s,h,d", [(1024, 8, 8), (300, 2, 64), (4097, 2, 64), (64, 20, 64),
+                                   (16, 20, 64), (4, 20, 64)])
 def test_flash_attention_lse_is_base2_logsumexp(cuda, s, h, d, dtype):
     from phendiff_tpu_torch.ops.flash_attention import _launch
 
@@ -395,7 +400,9 @@ def test_unet_on_the_card_runs_through_both_kernels(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 32, 8), (2, 300, 4, 8), (1, 2048, 4, 64)])
+@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 32, 8), (2, 300, 4, 8), (1, 2048, 4, 64),
+                                     (2, 4096, 5, 64), (2, 300, 3, 64), (1, 4097, 2, 64),
+                                     (2, 16, 20, 64), (2, 4, 20, 64)])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, s, h, d, dtype):
     g = torch.Generator(device=cuda).manual_seed(s + d)
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype).requires_grad_()
@@ -413,6 +420,31 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, s, h, d, dtype):
         assert _rel_l2(got.unflatten(-1, (h, d)), want) < BWD_REL_L2[dtype]
     with torch.no_grad():  # no gradient needed: no row log-sum-exp, no backward
         assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d", [(4096, 5, 64), (1024, 10, 64), (256, 20, 64), (64, 20, 64),
+                                   (16, 20, 64), (4, 20, 64), (1024, 32, 8)])
+def test_flash_attention_takes_the_design_attention_design_names(cuda, s, h, d, dtype):
+    """SD-2.1's self-attention shapes and the DDIM main path's: the forward
+    and the backward launch the kernels of ``attention_design``'s design
+    (wgmma for bf16 D = 64 from WGMMA_MIN_S tokens), once each a call."""
+    from phendiff_tpu_torch.ops.flash_attention import WGMMA_MIN_S, attention_design
+
+    qkv, (q, k, v), gout = _qkv_slices(cuda, 2, s, h, d, dtype, 11)
+    want = attention_design(s, d, dtype)
+
+    def counts():
+        return [(fn.launches, fn.wgmma_launches) for fn in (flash_attention, flash_attention_bwd)]
+
+    before = counts()
+    out = flash_attention(q, k, v)
+    torch.autograd.grad(out, qkv, gout)
+    torch.cuda.synchronize()
+    took = [(n - n0, w - w0) for (n, w), (n0, w0) in zip(counts(), before)]
+    assert took == [(1, int(want == "wgmma"))] * 2
+    assert (want == "wgmma") == (dtype == torch.bfloat16 and d == 64 and s >= WGMMA_MIN_S)
 
 
 GN_AUTOGRAD_DX_REL_L2 = 1e-4

@@ -190,6 +190,11 @@ def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
     ("void (anonymous namespace)::flash_bwd_dq_mma_kernel<8>(...)", "flash_attn_bwd"),
     ("void (anonymous namespace)::flash_bwd_dkdv_mma_kernel<64>(...)", "flash_attn_bwd"),
     ("void (anonymous namespace)::flash_bwd_dkdv_kernel<8>(...)", "flash_attn_bwd"),
+    ("void (anonymous namespace)::flash_fwd_wgmma_kernel(CUtensorMap_st, ...)", "flash_attn_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma_kernel(CUtensorMap_st, ...)",
+     "flash_attn_bwd"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_wgmma_kernel(CUtensorMap_st, ...)",
+     "flash_attn_bwd"),
     ("void (anonymous namespace)::gn_fwd_cluster<__nv_bfloat16, true>(...)", "group_norm_silu"),
     ("void (anonymous namespace)::gn_fwd_cluster<float, false>(...)", "group_norm_silu"),
     ("void (anonymous namespace)::gn_bwd_cluster<__nv_bfloat16, true>(...)",
@@ -223,7 +228,8 @@ def test_kernel_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
     log = ("ptxas info    : Function properties for _Z3fooILi64EEv\n"
            "    8 bytes stack frame, 4 bytes spill stores, 6 bytes spill loads\n"
            "ptxas info    : Used 255 registers, used 1 barriers, 33792 bytes smem\n")
-    assert _build.ptxas_functions(log) == {"_Z3fooILi64EEv": {"spill_bytes": 10, "registers": 255}}
+    assert _build.ptxas_functions(log) == {
+        "_Z3fooILi64EEv": {"spill_bytes": 10, "stack_bytes": 8, "registers": 255}}
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
@@ -467,6 +473,30 @@ def test_every_preset_call_has_a_kernel_plan_the_stream_variant_or_the_counted_r
     assert xla["ddpm_unconditional_256"] == 6
     assert xla["sd21_latent16"] == xla["sd21_latent64"] == 16
     assert "super_small" not in xla and records["vae_512px"]["single_head_attention"] == 2
+
+
+def test_attention_design_takes_wgmma_only_for_bf16_d64_from_the_threshold():
+    """The kernel design of every self-attention shape the port runs:
+    SD-2.1's at 128 and 512 px (latents 16 and 64, levels of side latent /
+    2**i, heads of 64), the DDIM main path's (S = 1024, D = 8), padded head
+    dims; in bf16 and f32."""
+    from phendiff_tpu_torch.ops.flash_attention import WGMMA_MIN_S, attention_design
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    sd = sorted({(lat >> i) ** 2 for lat in (16, 64) for i in range(4)})
+    assert sd == [4, 16, 64, 256, 1024, 4096]
+    for s in sd:
+        assert attention_design(s, 64, bf16) == ("wgmma" if s >= WGMMA_MIN_S else "mma_sync")
+        assert attention_design(s, 64, f32) == "fma"
+    # both designs serve SD-2.1's shapes: the threshold lies inside them
+    assert {attention_design(s, 64, bf16) for s in sd} == {"wgmma", "mma_sync"}
+    for s in (1024, 4096, 17):  # D = 8 (the DDIM main path) and D = 4 padded to 8
+        for d in (8, 4):
+            assert attention_design(s, d, bf16) == "mma_sync"
+            assert attention_design(s, d, f32) == "fma"
+    assert attention_design(4096, 40, bf16) == "wgmma"  # padded up to 64
+    with pytest.raises(TypeError):
+        attention_design(4096, 64, torch.float16)
 
 
 def test_attention_routes_count_the_calls_that_skip_the_kernel():

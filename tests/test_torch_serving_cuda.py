@@ -73,7 +73,7 @@ def test_every_op_is_one_graph_and_replays_equal_eager_runs(cuda):
     calls = unet_calls(SMALL, 32)
     per_forward = {"flash_attn_fwd": sum(calls["attention"].values()),
                    "group_norm_silu": sum(calls["group_norm"].values()),
-                   "group_norm_silu_stream": 0}
+                   "group_norm_silu_stream": 0, "flash_attn_fwd_wgmma": 0}
     assert per_forward["flash_attn_fwd"] == 4 and per_forward["group_norm_silu"] == 21
     for op, forwards in (("transfer", 20), ("generate", 10), ("invert", 10)):
         assert s["launches_per_replay"][op] == {k: forwards * n for k, n in per_forward.items()}
