@@ -63,7 +63,8 @@ failure exits non-zero before the final line:
 14. evaluator: ``Trainer.run`` with ``compute_metrics=True``, one step and
     one eval (one batch of 32 per class, 10 steps), best model saved;
 15. the moments tool (``phendiff_tpu_torch.tools.bench_gn_moments``): its
-    kernel against its plain version at [32, 8192, 128] bf16;
+    kernel against its plain version at [32, 8192, 128] bf16, timed by CUDA
+    events around Python calls and by device time (a CUDA graph);
 16. serving: ``phendiff_tpu_torch.serving.InferenceEngine`` over a copy of
     the transfer path's pipeline, ``max_batch`` 32, 50 steps: one CUDA graph
     captured per op (generate, transfer, invert) in ``warmup()``, each full
@@ -117,10 +118,12 @@ failure exits non-zero before the final line:
     the decoder's zero);
 24. sd_train_path: SD fine-tune steps at 128 px, batch 32
     (``bench.py::bench_sd_train``'s shape, plus the frozen VAE encode): 10
-    timed steps without remat and 3 with it, samples/s, peak memory, device
-    time against wall time, and exact launches against the recorded calls
-    of one step (``obs.forward_profile.sd_train_calls``: the blocks'
-    recomputed forwards under remat);
+    timed steps without remat, 3 with it and 3 with Adam's first moment in
+    bf16 (its first step against the f32-moment run's, its second step's
+    update against the same update on the host), samples/s, peak
+    memory, device time against wall time, and exact launches against the
+    recorded calls of one step (``obs.forward_profile.sd_train_calls``: the
+    blocks' recomputed forwards under remat);
 25. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
     DDIM with ``examples/launch_train_ddim.sh``'s flags and ``--debug``,
     and an SD fine-tune of the folder phase 21 saved (3 steps, one eval);
@@ -408,47 +411,19 @@ def smi(query: str) -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
-    import torch
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA events
+    (host time included where it exceeds the device's)."""
+    from phendiff_tpu_torch.obs.profiling import events_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return events_ms(fn, iters, warmup)
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Mean device time of ``fn`` with no host time: ``iters`` calls
-    captured in one CUDA graph, replayed ``replays`` times between CUDA
-    events."""
-    import torch
+    captured in one CUDA graph, replayed ``replays`` times."""
+    from phendiff_tpu_torch.obs import profiling
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
+    return profiling.graph_ms(fn, iters, replays)
 
 
 def max_abs(a, b) -> float:
@@ -904,25 +879,18 @@ def phase_grad_check(torch, pipe):
     bad = sorted(n for n, gk in grads_k.items()
                  if not bool(torch.isfinite(gk).all()) or float(gk.abs().max()) == 0.0)
     lr = cfg.optimizer.learning_rate
-    moved = {n: (state_k.params[n] - state_p.params[n]).detach().abs() for n in params}
-    param_max = max(float(m.max()) for m in moved.values())
-    # an element whose gradient is at bf16 noise takes Adam's update of
-    # either sign, so at most 2 lr apart; the share of such elements is small
-    differ = sum(int((m > 0.1 * lr).sum()) for m in moved.values())
-    total = sum(m.numel() for m in moved.values())
     worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]
     rec = {
         "phase": "grad_check", "batch": 4, "n_params": len(grads_p),
         "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
         "loss_rel_err": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
         "grad_rel_l2_max": max(grad_errs.values()), "grad_rel_l2_worst": worst,
-        "tol_rel_l2": GRAD_REL_L2_TOL, "zero_or_nonfinite_grads": bad,
-        "param_max_abs_diff_after_step": param_max, "lr": lr,
-        "param_share_differing_by_lr_over_10": differ / total,
+        "tol_rel_l2": GRAD_REL_L2_TOL, "zero_or_nonfinite_grads": bad, "lr": lr,
+        "params_after_step": param_rule(state_k.params, state_p.params, lr),
     }
     emit(rec)
     if (bad or rec["grad_rel_l2_max"] > GRAD_REL_L2_TOL or rec["loss_rel_err"] > 1e-2
-            or param_max > 2.01 * lr or differ / total > 1e-2):
+            or not rec["params_after_step"]["ok"]):
         fail("grad_check: the kernel path's gradients disagree with the plain path")
 
 
@@ -1880,8 +1848,14 @@ def phase_sd_train_check(torch):
 def phase_sd_train_path(torch, env, train_calls):
     """Full-width SD-2.1 fine-tune steps at 128 px, batch 32 over a frozen bf16
     VAE (``bench.py::bench_sd_train``'s shape): 2 warm-up and 10 timed steps
-    without remat, then 1 and 3 with it; launches against the recorded
-    calls; device time against wall time from a trace of 2 more steps."""
+    without remat, then 1 and 3 with it, then 2 and 3 without remat with
+    Adam's first moment in bf16 (``bf16_moment``: its moments' dtypes; its
+    first step's parameters against the f32-moment run's first step by
+    grad_check's rule, a sanity check only, since at count 1 the moment is
+    still zero and both updates are the same arithmetic; and its second
+    step's update against ``host_update_check``); launches against the
+    recorded calls; device time against wall time from a trace of 2 more
+    steps."""
     from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step, trace
     from phendiff_tpu_torch.train.train_loop import make_draws
 
@@ -1894,8 +1868,11 @@ def phase_sd_train_path(torch, env, train_calls):
            + sum(p.numel() for p in pipe.class_embedding.parameters()),
            "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
     ok = True
-    for mode, remat, warm, steps in (("no_remat", False, 2, 10), ("remat", True, 1, 3)):
-        step, state, kw, _ = sd_train_step(pipe, remat)
+    first_step = None  # the f32-moment run's parameters after its first step, on the host
+    for mode, remat, warm, steps, moment_dtype in (
+            ("no_remat", False, 2, 10, "float32"), ("remat", True, 1, 3, "float32"),
+            ("bf16_moment", False, 2, 3, "bfloat16")):
+        step, state, kw, opt = sd_train_step(pipe, remat, moment_dtype=moment_dtype)
         shape = kw["diffusion_shape"](tuple(images.shape))
 
         def run(n):
@@ -1908,7 +1885,18 @@ def phase_sd_train_path(torch, env, train_calls):
                 losses.append(m["loss"])
             return torch.stack(losses)
 
-        run(warm)
+        with counting_plain_calls() as plain_first:
+            run(1)
+        if mode == "no_remat":
+            first_step = {n: p.detach().to("cpu", copy=True) for n, p in state.params.items()}
+        elif mode == "bf16_moment":
+            first = param_rule(state.params, first_step, 1e-5)
+            first_step = None
+            with counting_plain_calls() as plain_second:
+                second = host_update_check(torch, opt, state, lambda: run(1))
+            warm -= 1
+        if warm > 1:
+            run(warm - 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_sd_launches()
@@ -1931,9 +1919,16 @@ def phase_sd_train_path(torch, env, train_calls):
              "device_ms_per_step_by_category": traced["ms_per_call_by_category"],
              "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
              "losses": [float(x) for x in losses],
-             "loss_finite": bool(torch.isfinite(losses).all())}
+             "loss_finite": bool(torch.isfinite(losses).all()),
+             "mu_dtypes": sorted({str(t.dtype) for t in state.opt_state.mu.values()}),
+             "nu_dtypes": sorted({str(t.dtype) for t in state.opt_state.nu.values()})}
+        ok &= r["loss_finite"] and launches == want and not plain and not plain_first
+        ok &= r["mu_dtypes"] == [f"torch.{moment_dtype}"] and r["nu_dtypes"] == ["torch.float32"]
+        if mode == "bf16_moment":
+            r["first_step_against_f32_moment"] = first
+            r["second_update_against_host"] = second
+            ok &= first["ok"] and second["ok"] and not plain_second
         rec[mode] = r
-        ok &= r["loss_finite"] and launches == want and not plain
         del step, state, kw
         torch.cuda.empty_cache()
     emit(rec)
@@ -1941,6 +1936,85 @@ def phase_sd_train_path(torch, env, train_calls):
         fail(f"sd_train_path: {rec}")
     del pipe
     torch.cuda.empty_cache()
+    return rec
+
+
+def host_update_check(torch, opt, state, one_step, lr=1e-5, nu_rtol=1e-5,
+                      norm_rtol=1e-5) -> dict:
+    """One step's optimizer update on the card against the same update on
+    the host.  As the step hands its gradients to ``opt.update``, they, the
+    state they update and the update's clip factor (``opt.clip_factor`` on
+    the card) are copied to the host; after the step the port's
+    ``Optimizer.update`` (held against optax by ``tests/test_torch_train.py``)
+    runs on those copies on the CPU, clipped by that factor, so that only
+    the elementwise arithmetic is compared and not a norm summed in another
+    order.  The card's first moments must lie within one ulp of their dtype
+    of the host's, the second moments within ``nu_rtol``, the parameters by
+    grad_check's rule, and the card's gradient norm within ``norm_rtol`` of
+    the float64 norm of the same gradients."""
+    import dataclasses
+
+    from phendiff_tpu_torch.train.train_loop import AdamWState, Optimizer, global_norm
+
+    def host(d):
+        return {n: t.detach().to("cpu", copy=True) for n, t in d.items()}
+
+    cap, update = {}, opt.update
+
+    def capture(grads, st, params):
+        names = list(st.mu)
+        with torch.no_grad():
+            g = [grads[n].float() for n in names]
+            clip = opt.clip_factor(g, names)
+            norm = global_norm(g, [n in opt.sharded for n in names])
+        clip = torch.ones(()) if clip is None else clip.cpu()
+        cap.update(grads=host(grads), params=host(params), clip=clip, norm=float(norm),
+                   opt_state=AdamWState(count=st.count, mu=host(st.mu), nu=host(st.nu)))
+        update(grads, st, params)
+
+    opt.update = capture
+    try:
+        one_step()
+    finally:
+        del opt.update
+    t0 = time.perf_counter()
+    want = cap["opt_state"]
+    names = list(want.mu)
+    norm64 = math.sqrt(sum(float(cap["grads"][n].double().square().sum()) for n in names))
+    host_norm = float(global_norm([cap["grads"][n] for n in names],
+                                  [n in opt.sharded for n in names]))
+    grads = {n: g * cap["clip"] for n, g in cap["grads"].items()}
+    ref = Optimizer(dataclasses.replace(opt.cfg, max_grad_norm=None), opt.trainable_mask,
+                    opt.sharded)
+    ref.update(grads, want, cap["params"])
+    rec = {"count": want.count, "host_s": time.perf_counter() - t0,
+           "mu_dtype": str(next(iter(state.opt_state.mu.values())).dtype),
+           "clip": float(cap["clip"]), "grad_norm": cap["norm"], "grad_norm_f64": norm64,
+           "grad_norm_rel_err": abs(cap["norm"] - norm64) / norm64, "norm_rtol": norm_rtol,
+           "host_grad_norm_rel_err": abs(host_norm - norm64) / norm64}
+    mu_far = mu_differ = total = 0
+    nu_rel = 0.0
+    for n, w in want.mu.items():
+        fi = torch.finfo(w.dtype)
+        got, w = state.opt_state.mu[n].float().cpu(), w.float()
+        # one ulp of the stored dtype at the host's value: 2^(e - 1) eps for
+        # w = m 2^e, m in [0.5, 1); the smallest subnormal at and below
+        # the normal range
+        tiny = fi.smallest_normal * fi.eps
+        ulp = torch.ldexp(torch.full_like(w, fi.eps), torch.frexp(w).exponent - 1)
+        ulp = torch.where(w == 0, tiny, ulp.clamp_min(tiny))
+        diff = (got - w).abs()
+        mu_far += int((diff > ulp).sum())
+        mu_differ += int((diff > 0).sum())
+        total += w.numel()
+        g_nu = state.opt_state.nu[n].cpu()
+        nu_rel = max(nu_rel, float(((g_nu - want.nu[n]).abs()
+                                    / want.nu[n].abs().clamp_min(1e-30)).max()))
+    rec.update(mu_elements=total, mu_differing=mu_differ, mu_beyond_one_ulp=mu_far,
+               nu_max_rel_diff=nu_rel, nu_rtol=nu_rtol,
+               params=param_rule(state.params, cap["params"], lr))
+    rec["ok"] = bool(mu_far == 0 and nu_rel <= nu_rtol and rec["params"]["ok"]
+                     and rec["grad_norm_rel_err"] <= norm_rtol)
     return rec
 
 
@@ -2489,15 +2563,27 @@ def dp_grad_rule(torch, got_grads, want_grads, got_params, want_params, lr):
     ok = rec["grad_rel_l2_max"] <= GRAD_REL_L2_TOL
     for tag, got, want, steps in (("step_1", got_params[0], want_params[0], 1),
                                   (f"step_{DP_STEPS}", got_params[1], want_params[1], DP_STEPS)):
-        moved = {n: (got[n] - want[n]).abs() for n in want}
-        param_max = max(float(m.max()) for m in moved.values())
-        share = (sum(int((m > 0.1 * lr).sum()) for m in moved.values())
-                 / sum(m.numel() for m in moved.values()))
-        rec[tag] = {"param_max_abs_diff": param_max, "bound": 2.01 * lr * steps,
-                    "param_share_differing_by_lr_over_10": share}
-        ok &= param_max <= 2.01 * lr * steps and share <= 1e-2
+        rec[tag] = param_rule(got, want, lr, steps)
+        ok &= rec[tag]["ok"]
     rec["ok"] = bool(ok)
     return rec
+
+
+def param_rule(got, want, lr, steps=1, share=1e-2):
+    """grad_check's rule on the parameters of two runs after ``steps`` steps
+    (``want`` may lie on the host): at most steps x 2.01 lr apart, at most
+    ``share`` of the elements by more than lr / 10.  An element whose
+    gradient is at bf16 noise takes Adam's update of either sign, so two
+    runs may put it 2 lr apart; the share of such elements is small."""
+    param_max, far, total = 0.0, 0, 0
+    for n, w in want.items():
+        moved = (got[n].detach() - w.to(got[n].device)).abs()
+        param_max = max(param_max, float(moved.max()))
+        far, total = far + int((moved > 0.1 * lr).sum()), total + moved.numel()
+    return {"param_max_abs_diff": param_max, "bound": 2.01 * lr * steps,
+            "param_share_differing_by_lr_over_10": far / total, "share_bound": share,
+            "bit_equal": param_max == 0.0,
+            "ok": bool(param_max <= 2.01 * lr * steps and far / total <= share)}
 
 
 def phase_dp(torch, env, data):
@@ -3115,20 +3201,11 @@ def phase_sd_segmented(torch, env, sd_folder, data):
 
             m = run(0, draws0)
             torch.cuda.synchronize()
-            param_max, differ, total = 0.0, 0, 0
-            for n, want_p in ref.items():
-                d = (params[n] - want_p.to(params[n].device)).abs()
-                param_max = max(param_max, float(d.max()))
-                differ += int((d > 0.1 * lr).sum())
-                total += d.numel()
-            share = differ / total
             r = {"clip_mode": clip_mode, "cache_dtype": cache_dtype,
                  "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                  "loss_rel_err": abs(float(m["loss"]) - one["loss"]) / abs(one["loss"]),
                  "grad_norm_rel_err": abs(float(m["grad_norm"]) - one["grad_norm"])
-                 / one["grad_norm"], "param_max_abs_diff_after_step": param_max,
-                 "bound": 2.01 * lr, "param_share_differing_by_lr_over_10": share,
-                 "share_bound": SEG_SHARE[mode]}
+                 / one["grad_norm"], **param_rule(params, ref, lr, share=SEG_SHARE[mode])}
             reset_sd_launches()
             t0 = time.perf_counter()
             for k in range(1, 1 + SEG_STEPS):
@@ -3147,8 +3224,8 @@ def phase_sd_segmented(torch, env, sd_folder, data):
                       "launches": read_sd_launches(), "launches_expected": want,
                       "loss_finite": math.isfinite(float(m["loss"]))})
             rec["train"][mode] = r
-            ok &= (r["loss_rel_err"] <= 1e-2 and param_max <= 2.01 * lr
-                   and share <= SEG_SHARE[mode] and r["launches"] == want and r["loss_finite"])
+            ok &= (r["loss_rel_err"] <= 1e-2 and r["ok"] and r["launches"] == want
+                   and r["loss_finite"])
             del step, params, opt_state, ema
         del ref
         torch.cuda.empty_cache()
@@ -3477,7 +3554,8 @@ def main() -> None:
                 + sd_guided["f32"]["launches"][name],
                 "sd_comparison": sd_cmp["launches"][name],
                 "sd_train_path": sd_train["no_remat"]["launches"][name],
-                "sd_train_path_remat": sd_train["remat"]["launches"][name]}
+                "sd_train_path_remat": sd_train["remat"]["launches"][name],
+                "sd_train_path_bf16_moment": sd_train["bf16_moment"]["launches"][name]}
 
     def serving_by_path(name):
         """Launches at capture times replays, per serving path (serving runs
@@ -3687,7 +3765,8 @@ def main() -> None:
             "source": "phendiff_tpu_torch/csrc/group_norm_silu.cu",
             "replaces": "tools/bench_gn_moments.py:129",
             "launches": moments["launches"], "max_abs_err": moments["max_abs_err"],
-            **{k: moments[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+            **{k: moments[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                       "library_device_ms", "bound_by")},
             "launches_by_path": {"moments_tool": moments["launches"]},
         },
     ]

@@ -10,7 +10,8 @@ parallelism keep their names and choices; ``cli/train_cli.py`` maps them:
 ``--segmented_sd auto|off`` take the one-program step (eager PyTorch has no
 transport limit), ``--segmented_sd on`` the per-stage route
 (``train/segmented_trainer.py``, with ``--segmented_clip_mode``), and
-``--adam_moment_dtype bfloat16`` raises ``NotImplementedError``;
+``--adam_moment_dtype`` is ``OptimizerConfig.moment_dtype`` (f32 moments
+on the segmented route whatever it says, as in the JAX package);
 ``--model_parallel`` is the tensor-parallel model axis (``parallel/tp.py``).
 ``--device`` is the port's own: the torch device to train on (the card
 unless it names another); under ``torchrun`` (``WORLD_SIZE > 1``)
@@ -143,8 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("constant", "constant_with_warmup", "linear",
                             "cosine", "polynomial"))
     p.add_argument("--lr_warmup_steps", type=int, default=500)
-    # The JAX package's Adam first-moment dtype; the port keeps f32 moments
-    # (bfloat16 raises).
+    # Adam's first-moment dtype (OptimizerConfig.moment_dtype); the second
+    # moment and the master parameters stay f32.
     p.add_argument("--adam_moment_dtype", type=str, default="float32",
                    choices=("float32", "bfloat16"))
     # EMA

@@ -19,7 +19,9 @@ cache_bf16), in one process as the JAX route runs (its step has no
 all-reduce); ``auto`` and ``off`` take the one-program step, which eager
 PyTorch always can.  The JAX CLI's refusals stay: ``autoencoder`` in
 ``--components_to_train`` and ``--model_parallel > 1`` on the segmented
-route; ``--adam_moment_dtype bfloat16`` raises ``NotImplementedError``.
+route.  ``--adam_moment_dtype bfloat16`` keeps Adam's first moment in bf16
+on the one-program step (its Trainer, data and tensor parallelism); the
+segmented route keeps it f32, as the JAX route's per-stage optimizer does.
 ``--dataset_name`` trains from an HF dataset (``data/hf_datasets.py``);
 ``--tracker wandb`` logs to wandb, or to JSONL where ``wandb`` is not
 installed.
@@ -87,9 +89,6 @@ def trainer_config_from_args(args) -> TrainerConfig:
         raise NotImplementedError(
             "tensor parallelism (--model_parallel > 1) is not supported on the segmented "
             "route (per-stage single-card programs); use --segmented_sd off")
-    if args.adam_moment_dtype != "float32":
-        raise NotImplementedError("--adam_moment_dtype bfloat16: the port keeps Adam's "
-                                  "moments in float32")
     return TrainerConfig(
         train_data_dir=args.train_data_dir,
         dataset_name=args.dataset_name,
@@ -134,6 +133,7 @@ def trainer_config_from_args(args) -> TrainerConfig:
                 lr_scheduler=args.lr_scheduler,
                 lr_warmup_steps=args.lr_warmup_steps,
                 total_steps=args.max_num_steps or 100_000,
+                moment_dtype=args.adam_moment_dtype,
             ),
         ),
         eval=EvalConfig(

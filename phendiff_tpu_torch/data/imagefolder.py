@@ -121,7 +121,7 @@ def load_image(path: str, definition: Tuple[int, int], normalize: bool = True) -
     raw = decode_image(path)
     if not normalize:
         return native.resize_u8(raw, definition)
-    return native.batch_resize_normalize([raw], definition)[0]
+    return native.resize_normalize(raw, definition)
 
 
 @dataclasses.dataclass

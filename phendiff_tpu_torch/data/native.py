@@ -5,8 +5,9 @@ repo's ``native/phendiff_native.cpp`` with ``g++`` into
 ``phendiff_tpu_torch/build/`` under a file name that hashes the source and
 the flags, compiling to a temporary file and renaming it into place, so a
 concurrent process never loads half a library.  The loader uses its
-batched resize, normalise and flip, with a numpy + PIL fallback when no
-compiler is available.  See the C++ source for the algorithms.
+resize, normalise and flip, one image or a batch at a time, with a
+numpy + PIL fallback when no compiler is available.  See the C++ source
+for the algorithms.
 """
 
 from __future__ import annotations
@@ -75,6 +76,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ]
+        lib.resize_image_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
         lib.resize_image_u8.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -89,6 +95,33 @@ def available() -> bool:
 
 def _as_u8_ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def resize_normalize(
+    img: np.ndarray,  # HWC uint8
+    definition: Tuple[int, int],
+    *,
+    normalize: bool = True,
+    flip_h: bool = False,
+    flip_v: bool = False,
+    antialias: bool = True,
+) -> np.ndarray:
+    """One HWC uint8 image -> [dh, dw, C] float32 (in [-1, 1] when
+    ``normalize``)."""
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"expected an HWC uint8 image, got {img.dtype} {img.shape}")
+    lib = get_lib()
+    dh, dw = definition
+    img = np.ascontiguousarray(img)
+    if lib is None:
+        return _fallback_resize(img, definition, normalize, flip_h, flip_v)
+    sh, sw, ch = img.shape
+    out = np.empty((dh, dw, ch), dtype=np.float32)
+    lib.resize_image_f32(
+        _as_u8_ptr(img), sh, sw, ch, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        dh, dw, int(normalize), int(flip_h), int(flip_v), int(antialias),
+    )
+    return out
 
 
 def batch_resize_normalize(

@@ -1,33 +1,47 @@
-"""Diffusers checkpoint import for the SD family.
+"""Diffusers checkpoints in and out, for the three model families.
 
-Counterpart of the import direction of ``phendiff_tpu/models/hf_import.py``
-(its key plans are the specification, copied here): a state dict in
-diffusers' ``UNet2DConditionModel`` / ``AutoencoderKL`` naming
+Counterpart of ``phendiff_tpu/models/hf_import.py`` (its key plans are the
+specification, copied here): a state dict in diffusers' naming
 (``down_blocks.0.attentions.1.transformer_blocks.0.attn2.to_k.weight``,
-``encoder.mid_block.attentions.0.to_q.bias``, ...) becomes the state dict of
-the port's ``SDUNet`` / ``AutoencoderKL``, whose submodules carry the Flax
-scope names.  Diffusers' conv weights are OIHW and its linear weights
-[out, in], which are the layouts of the port's ``nn.Conv2d`` and
-``nn.Linear``, so the import is a rename: no transposes (the NHWC
-activations are channels_last views of the same weights).
+``encoder.mid_block.attentions.0.to_q.bias``, ...) maps to and from the
+state dict of the port's module, whose submodules carry the Flax scope
+names:
 
-``import_sd_unet`` / ``import_vae`` raise on a missing checkpoint key, an
-unmapped one, or a shape that does not match the architecture.
+* ``CondUNet2D`` <-> ``UNet2DModel`` (``unet2d_plan``): the pixel UNet's
+  fused ``qkv`` linear is diffusers' ``to_q`` / ``to_k`` / ``to_v`` stacked
+  along the output rows;
+* ``SDUNet`` <-> ``UNet2DConditionModel`` (``sd_unet_plan``);
+* ``AutoencoderKL`` <-> ``AutoencoderKL`` (``vae_plan``).
+
+Diffusers' conv weights are OIHW and its linear weights [out, in], which
+are the layouts of the port's ``nn.Conv2d`` and ``nn.Linear``, so both
+directions are renames: no transposes (the NHWC activations are
+channels_last views of the same weights).
+
+The imports (``import_unet2d``, ``import_sd_unet``, ``import_vae``) raise on
+a missing checkpoint key, an unmapped one, or a shape that does not match
+the architecture, and give float32; the exports (``export_unet2d``,
+``export_sd_unet``, ``export_vae``) raise on a parameter the plan does not
+cover or misses, and keep each tensor's dtype and device.
 ``load_state_dict`` reads a ``.safetensors`` file (the port's own codec) or
 a torch ``.bin`` / ``.pt`` file.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+from phendiff_tpu_torch.models.config import UNet2DConfig
 from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
 
-Plan = List[Tuple[str, str]]  # (the port's key, diffusers' key)
+# (the port's key, diffusers' key); a tuple of diffusers' keys is one port
+# tensor stacked from theirs along dim 0 (the pixel UNet's fused qkv)
+Plan = List[Tuple[str, Union[str, Tuple[str, ...]]]]
+_QKV = ("to_q", "to_k", "to_v")
 
 
 def _conv(ours: str, theirs: str) -> Plan:
@@ -58,6 +72,47 @@ def _vae_resnet(ours: str, theirs: str, has_shortcut: bool) -> Plan:
     if has_shortcut:
         plan += _conv(f"{ours}.conv_shortcut", f"{theirs}.conv_shortcut")
     return plan
+
+
+def _attn2d(ours: str, theirs: str) -> Plan:
+    """The pixel UNet's SelfAttention2D as a diffusers Attention."""
+    plan = _norm(f"{ours}.norm", f"{theirs}.group_norm")
+    plan += [(f"{ours}.qkv.{leaf}", tuple(f"{theirs}.{p}.{leaf}" for p in _QKV))
+             for leaf in ("weight", "bias")]
+    return plan + _dense(f"{ours}.proj_out", f"{theirs}.to_out.0")
+
+
+def unet2d_plan(cfg: UNet2DConfig) -> Plan:
+    plan = _conv("conv_in", "conv_in")
+    plan += _dense("time_embedding.linear_1", "time_embedding.linear_1")
+    plan += _dense("time_embedding.linear_2", "time_embedding.linear_2")
+    if cfg.num_class_embeds is not None:
+        plan.append(("class_embedding.weight", "class_embedding.weight"))
+    chans = cfg.block_out_channels
+    prev = chans[0]
+    for i, (btype, c_out) in enumerate(zip(cfg.down_block_types, chans)):
+        for j in range(cfg.layers_per_block):
+            c_in = prev if j == 0 else c_out
+            plan += _resnet(f"down_{i}_res_{j}", f"down_blocks.{i}.resnets.{j}", c_in != c_out)
+            if btype == "AttnDownBlock2D":
+                plan += _attn2d(f"down_{i}_attn_{j}", f"down_blocks.{i}.attentions.{j}")
+        if i < len(chans) - 1:
+            plan += _conv(f"down_{i}_downsample.conv", f"down_blocks.{i}.downsamplers.0.conv")
+        prev = c_out
+    plan += _resnet("mid_res_0", "mid_block.resnets.0", False)
+    plan += _attn2d("mid_attn", "mid_block.attentions.0")
+    plan += _resnet("mid_res_1", "mid_block.resnets.1", False)
+    rev = tuple(reversed(chans))
+    for i, (btype, c_out) in enumerate(zip(cfg.up_block_types, rev)):
+        for j in range(cfg.layers_per_block + 1):
+            # the concatenated input never has c_out channels: a shortcut
+            plan += _resnet(f"up_{i}_res_{j}", f"up_blocks.{i}.resnets.{j}", True)
+            if btype == "AttnUpBlock2D":
+                plan += _attn2d(f"up_{i}_attn_{j}", f"up_blocks.{i}.attentions.{j}")
+        if i < len(rev) - 1:
+            plan += _conv(f"up_{i}_upsample.conv", f"up_blocks.{i}.upsamplers.0.conv")
+    plan += _norm("norm_out", "conv_norm_out")
+    return plan + _conv("conv_out", "conv_out")
 
 
 def _transformer(ours: str, theirs: str) -> Plan:
@@ -153,21 +208,27 @@ def vae_plan(cfg: AutoencoderKLConfig) -> Plan:
     return plan + _conv("decoder.conv_out", "decoder.conv_out")
 
 
+def _keys(theirs: Union[str, Tuple[str, ...]]) -> Tuple[str, ...]:
+    return theirs if isinstance(theirs, tuple) else (theirs,)
+
+
+def _check_keys(have, want, what: str) -> None:
+    missing, unmapped = sorted(set(want) - set(have)), sorted(set(have) - set(want))
+    if missing or unmapped:
+        raise ValueError(f"{what} does not match the config: missing {missing[:8]} "
+                         f"({len(missing)}), unmapped {unmapped[:8]} ({len(unmapped)})")
+
+
 def _import(sd: Mapping[str, torch.Tensor], plan: Plan, cfg, what: str) -> Dict[str, torch.Tensor]:
     from phendiff_tpu_torch.models.convert import _expected
 
-    theirs = {t for _, t in plan}
-    missing = sorted(theirs - set(sd))
-    unmapped = sorted(set(sd) - theirs)
-    if missing or unmapped:
-        raise ValueError(f"{what} checkpoint does not match the config: missing "
-                         f"{missing[:8]} ({len(missing)}), unmapped {unmapped[:8]} "
-                         f"({len(unmapped)})")
+    _check_keys(sd, [k for _, t in plan for k in _keys(t)], f"{what} checkpoint")
     expected = _expected(cfg)
     out = {}
     for ours, t in plan:
-        v = sd[t]
-        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+        parts = [v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+                 for v in (sd[k] for k in _keys(t))]
+        v = parts[0] if len(parts) == 1 else torch.cat(parts)
         if v.shape != expected[ours]:
             raise ValueError(f"{t}: checkpoint shape {tuple(v.shape)} != "
                              f"{tuple(expected[ours])} of {ours}")
@@ -176,6 +237,40 @@ def _import(sd: Mapping[str, torch.Tensor], plan: Plan, cfg, what: str) -> Dict[
         raise ValueError(f"{what}: the plan misses module keys "
                          f"{sorted(set(expected) - set(out))[:8]}")
     return out
+
+
+def _export(params: Mapping[str, torch.Tensor], plan: Plan, what: str) -> Dict[str, torch.Tensor]:
+    _check_keys(params, [ours for ours, _ in plan], f"{what} parameters")
+    out = {}
+    for ours, t in plan:
+        v = params[ours].detach()
+        for k, part in zip(_keys(t), v.chunk(len(_keys(t)))):
+            out[k] = part.contiguous()
+    return out
+
+
+def export_unet2d(params: Mapping[str, torch.Tensor], cfg: UNet2DConfig) -> Dict[str, torch.Tensor]:
+    """A ``CondUNet2D(cfg)`` state dict -> a diffusers UNet2DModel state dict."""
+    return _export(params, unet2d_plan(cfg), "pixel UNet")
+
+
+def import_unet2d(sd: Mapping[str, torch.Tensor], cfg: UNet2DConfig) -> Dict[str, torch.Tensor]:
+    """A diffusers UNet2DModel state dict -> a ``CondUNet2D(cfg)`` state dict
+    (float32)."""
+    return _import(sd, unet2d_plan(cfg), cfg, "pixel UNet")
+
+
+def export_sd_unet(params: Mapping[str, torch.Tensor], cfg: SDUNetConfig) -> Dict[str, torch.Tensor]:
+    """An ``SDUNet(cfg)`` state dict -> a diffusers UNet2DConditionModel
+    state dict."""
+    return _export(params, sd_unet_plan(cfg), "SD UNet")
+
+
+def export_vae(params: Mapping[str, torch.Tensor],
+               cfg: AutoencoderKLConfig) -> Dict[str, torch.Tensor]:
+    """An ``AutoencoderKL(cfg)`` state dict -> a diffusers AutoencoderKL
+    state dict."""
+    return _export(params, vae_plan(cfg), "VAE")
 
 
 def import_sd_unet(sd: Mapping[str, torch.Tensor], cfg: SDUNetConfig) -> Dict[str, torch.Tensor]:

@@ -2,7 +2,12 @@
 timing, and device-time profiles of the port on the card
 (``obs/forward_profile.py``, imported from its module)."""
 
-from phendiff_tpu_torch.obs.images import side_by_side, to_pil  # noqa: F401
+from phendiff_tpu_torch.obs.images import (  # noqa: F401
+    image_grid,
+    latents_to_grayscale,
+    side_by_side,
+    to_pil,
+)
 from phendiff_tpu_torch.obs.logging_utils import setup_logger  # noqa: F401
 from phendiff_tpu_torch.obs.profiling import (  # noqa: F401
     StepTimer,

@@ -395,15 +395,18 @@ def profile_sd(batch: int = 64, res: int = 128, forwards: int = 3) -> dict:
 
 
 def sd_train_step(pipe, remat: bool = False, components_to_train=("denoiser", "class_embedding"),
-                  proba_uncond: float = 0.1, mixed_precision: str = "bf16"):
+                  proba_uncond: float = 0.1, mixed_precision: str = "bf16",
+                  moment_dtype: str = "float32"):
     """``for_sd_pipeline``'s step on ``pipe`` (the optimizer of ``bench.py``'s
-    ``bench_sd_train``): ``(step, state, kwargs, optimizer)``, where
-    ``kwargs`` are the Trainer's (``sd_trainer_kwargs``)."""
+    ``bench_sd_train``, Adam's first moment in ``moment_dtype``):
+    ``(step, state, kwargs, optimizer)``, where ``kwargs`` are the Trainer's
+    (``sd_trainer_kwargs``)."""
     from phendiff_tpu_torch.train.train_loop import (
         OptimizerConfig, TrainConfig, init_train_state, make_optimizer, make_train_step)
     from phendiff_tpu_torch.train.trainer import TrainerConfig, sd_trainer_kwargs
 
-    cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig(learning_rate=1e-5))
+    cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig(
+        learning_rate=1e-5, moment_dtype=moment_dtype))
     kw = sd_trainer_kwargs(
         pipe, TrainerConfig(mixed_precision=mixed_precision, remat=remat, train=cfg),
         components_to_train)

@@ -12,7 +12,10 @@ kernels where CUDA is present) in the Chrome/TensorBoard format;
 card, as an NVTX range; ``force_sync`` waits for the devices holding
 the given tensors.  ``StepTimer``'s ticks are host times of step
 dispatch: the training loop synchronises with the card only when it reads
-metrics, so a mean over many steps is the step time.
+metrics, so a mean over many steps is the step time.  ``events_ms`` and
+``graph_ms`` time a function on the card: CUDA events around back-to-back
+Python calls (host time included where it exceeds the device's), and
+device time alone, the calls captured in one CUDA graph and replayed.
 """
 
 from __future__ import annotations
@@ -74,6 +77,46 @@ def force_sync(*tensors) -> None:
     devices = {t.device for t in _tensors(tensors) if t.device.type == "cuda"}
     for dev in devices:
         torch.cuda.synchronize(dev)
+
+
+def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` on the card over ``iters`` back-to-back calls,
+    by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with no host time: ``iters`` calls
+    captured in one CUDA graph (after 3 warm-up calls on a side stream),
+    replayed ``replays`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 class StepTimer:

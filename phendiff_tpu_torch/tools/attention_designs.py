@@ -26,6 +26,7 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
+from phendiff_tpu_torch.obs.profiling import events_ms, graph_ms
 from phendiff_tpu_torch.ops import _build
 from phendiff_tpu_torch.ops import flash_attention as fa
 
@@ -33,43 +34,7 @@ HEADS = (5, 10, 20, 20)  # SD-2.1's heads of 64 by level
 CALLS = (5, 5, 5, 1)  # self-attention calls by level in one UNet forward
 RUNS = {"sd_512px_b8": (8, 64), "sd_128px_b64": (64, 16), "sd_train_128px_b32": (32, 16)}
 DESIGNS = ("mma_sync", "wgmma")
-
-
-def graph_ms(fn, iters: int = 10, replays: int = 5) -> float:
-    """Mean device time of ``fn``: ``iters`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
-
-
-def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+ITERS = 10  # calls a CUDA graph
 
 
 def time_shape(b: int, s: int, h: int) -> dict:
@@ -85,13 +50,14 @@ def time_shape(b: int, s: int, h: int) -> dict:
     for design in DESIGNS + DESIGNS[::-1]:
         o, lse = fa._launch(q, k, v, scale, with_lse=True, design=design)
         times.setdefault(design, {"fwd": [], "bwd": []})
-        times[design]["fwd"].append(graph_ms(lambda: fa._launch(q, k, v, scale, design=design)))
+        times[design]["fwd"].append(graph_ms(
+            lambda: fa._launch(q, k, v, scale, design=design), ITERS))
         times[design]["bwd"].append(graph_ms(
-            lambda: fa._launch_bwd(q, k, v, o, lse, g, scale, design=design)))
+            lambda: fa._launch_bwd(q, k, v, o, lse, g, scale, design=design), ITERS))
     rec.update({f"{key}_{p}_ms": min(t[p]) for key, t in times.items() for p in ("fwd", "bwd")})
     rec["runs"] = times
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rec["sdpa_fwd_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    rec["sdpa_fwd_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), ITERS)
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt)
     gt = g.transpose(1, 2)

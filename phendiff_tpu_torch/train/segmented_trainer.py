@@ -123,9 +123,12 @@ class SegmentedSDTrainer:
 
         opt_cfg = config.train.optimizer
         full = active == {"denoiser", "class_embedding"} and not attention_fine_tuning
-        # per-leaf AdamW: the step clips by the global norm itself
-        self.optimizer = Optimizer(dataclasses.replace(opt_cfg, max_grad_norm=None),
-                                   None if full else trainable_mask)
+        # per-leaf AdamW: the step clips by the global norm itself.  Its
+        # first moment is f32 whatever ``moment_dtype`` says, as the JAX
+        # route's per-stage optax.adamw is built without mu_dtype
+        self.optimizer = Optimizer(
+            dataclasses.replace(opt_cfg, max_grad_norm=None, moment_dtype="float32"),
+            None if full else trainable_mask)
         self.lr = self.optimizer.lr
         max_norm = opt_cfg.max_grad_norm if opt_cfg.max_grad_norm else None
         self.step_fn = SegmentedSDTrainStep(

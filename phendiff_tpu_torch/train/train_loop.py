@@ -39,8 +39,11 @@ averaged over the data group only, the global norm sums the sharded
 leaves' squares over the model group and counts the replicated leaves
 once, and AdamW and the EMA update the local tensors.  ``encode_fn`` maps pixel batches to the diffusion space (the SD
 family's VAE encode), outside the gradient for a frozen VAE or inside it
-when the VAE trains.  Adam's first moment is always f32 (the
-JAX package's ``moment_dtype`` option measured slower and is not ported).
+when the VAE trains.  Adam's first moment is f32, or bf16 with
+``OptimizerConfig.moment_dtype="bfloat16"`` (optax's ``mu_dtype``, with its
+roundings); the second moment and the master parameters stay f32.  The
+update runs over chunks of the tensor list, so its f32 temporaries take
+at most ``UPDATE_CHUNK`` elements each, not a copy of every moment.
 """
 
 from __future__ import annotations
@@ -61,6 +64,11 @@ from phendiff_tpu_torch.train.ema import EMAConfig, ema_update
 Params = Dict[str, torch.Tensor]
 TrainableMask = Optional[Callable[[Params], Mapping[str, bool]]]
 
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Elements a chunk of the update covers: its three f32 temporaries (the
+# clipped gradient, the update and the denominator) take 768 MiB at most.
+UPDATE_CHUNK = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -79,6 +87,13 @@ class OptimizerConfig:
     lr_warmup_steps: int = 500
     total_steps: int = 100_000  # horizon for decaying schedules
     lr_scale: float = 1.0  # sqrt(data-parallel size), set by the Trainer
+    # dtype of Adam's first moment (optax's mu_dtype): "float32" | "bfloat16"
+    moment_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.moment_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"moment_dtype must be one of {sorted(MOMENT_DTYPES)}, "
+                             f"not {self.moment_dtype!r}")
 
 
 def _ramp(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -164,6 +179,8 @@ class Optimizer:
         self.lr = make_lr_schedule(cfg)
         self.trainable_mask = trainable_mask
         self.sharded = frozenset(sharded)
+        # the factor optax applies to a bf16 first moment
+        self._b1_bf16 = float(torch.tensor(cfg.adam_beta1, dtype=torch.bfloat16))
 
     def trainable_names(self, params: Params):
         if self.trainable_mask is None:
@@ -173,8 +190,22 @@ class Optimizer:
 
     def init(self, params: Params) -> AdamWState:
         names = self.trainable_names(params)
-        zeros = lambda: {n: torch.zeros_like(params[n], dtype=torch.float32) for n in names}
-        return AdamWState(count=0, mu=zeros(), nu=zeros())
+        mu_dtype = MOMENT_DTYPES[self.cfg.moment_dtype]
+        return AdamWState(
+            count=0,
+            mu={n: torch.zeros_like(params[n], dtype=mu_dtype) for n in names},
+            nu={n: torch.zeros_like(params[n], dtype=torch.float32) for n in names})
+
+    def clip_factor(self, g: Sequence[torch.Tensor],
+                    names: Sequence[str]) -> Optional[torch.Tensor]:
+        """The global-norm clip's factor, min(1, max_grad_norm / norm), for
+        the f32 gradients ``g`` of the trainable tensors ``names`` (None
+        without a clip)."""
+        max_norm = self.cfg.max_grad_norm
+        if max_norm is None:
+            return None
+        norm = global_norm(g, [n in self.sharded for n in names])
+        return torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamWState, params: Params) -> None:
@@ -184,29 +215,52 @@ class Optimizer:
         if not names:  # every tensor frozen (a stage under a trainable mask)
             state.count += 1
             return
-        p = [params[n] for n in names]
         g = [grads[n].float() for n in names]
-        if cfg.max_grad_norm is not None:
-            norm = global_norm(g, [n in self.sharded for n in names])
-            clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
-                               cfg.max_grad_norm / norm)
-            g = torch._foreach_mul(g, clip)
-        mu, nu = [state.mu[n] for n in names], [state.nu[n] for n in names]
+        clip = self.clip_factor(g, names)
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
         count = state.count + 1
-        denom = torch._foreach_div(nu, 1.0 - b2**count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, cfg.adam_epsilon)
-        upd = torch._foreach_div(mu, 1.0 - b1**count)
-        torch._foreach_div_(upd, denom)
-        if cfg.adam_weight_decay:
-            torch._foreach_add_(upd, p, alpha=cfg.adam_weight_decay)
-        torch._foreach_add_(p, upd, alpha=-self.lr(state.count))
+        lr = self.lr(state.count)
+        for lo, hi in _chunks(g, UPDATE_CHUNK):
+            gc = g[lo:hi] if clip is None else torch._foreach_mul(g[lo:hi], clip)
+            mu = [state.mu[n] for n in names[lo:hi]]
+            nu = [state.nu[n] for n in names[lo:hi]]
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, gc, gc, value=1.0 - b2)
+            if mu[0].dtype == torch.float32:
+                torch._foreach_mul_(mu, b1)
+                torch._foreach_add_(mu, gc, alpha=1.0 - b1)
+                upd = torch._foreach_div(mu, 1.0 - b1**count)
+            else:
+                # optax: mu <- (1 - b1) * g + b1 * mu in f32, with b1 * mu
+                # rounded to bf16 first (JAX's weak typing keeps a Python
+                # float times a bf16 array bf16, b1 itself rounded to bf16);
+                # the update uses that f32 sum, the state its bf16 rounding
+                torch._foreach_mul_(mu, self._b1_bf16)
+                upd = torch._foreach_mul(gc, 1.0 - b1)
+                torch._foreach_add_(upd, mu)
+                torch._foreach_copy_(mu, upd)
+                torch._foreach_div_(upd, 1.0 - b1**count)
+            denom = torch._foreach_div(nu, 1.0 - b2**count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, cfg.adam_epsilon)
+            torch._foreach_div_(upd, denom)
+            p = [params[n] for n in names[lo:hi]]
+            if cfg.adam_weight_decay:
+                torch._foreach_add_(upd, p, alpha=cfg.adam_weight_decay)
+            torch._foreach_add_(p, upd, alpha=-lr)
         state.count = count
+
+
+def _chunks(tensors: Sequence[torch.Tensor], limit: int):
+    """Consecutive [lo, hi) runs of ``tensors`` of at most ``limit``
+    elements each (a larger tensor alone)."""
+    lo, n = 0, 0
+    for i, t in enumerate(tensors):
+        if n and n + t.numel() > limit:
+            yield lo, i
+            lo, n = i, 0
+        n += t.numel()
+    yield lo, len(tensors)
 
 
 def make_optimizer(cfg: OptimizerConfig, trainable_mask: TrainableMask = None,
@@ -242,13 +296,21 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: Mapping) -> None:
-        """Copy a ``state_dict`` into this state's tensors, in place."""
-        self.step = int(sd["step"])
-        for mine, theirs in ((self.params, sd["params"]), (self.ema_params, sd["ema_params"]),
-                             (self.opt_state.mu, sd["opt_state"]["mu"]),
-                             (self.opt_state.nu, sd["opt_state"]["nu"])):
+        """Copy a ``state_dict`` into this state's tensors, in place.  Raises
+        if its names or dtypes differ from this state's (a checkpoint of
+        bf16 first moments does not load into f32 ones, nor the reverse)."""
+        pairs = ((self.params, sd["params"]), (self.ema_params, sd["ema_params"]),
+                 (self.opt_state.mu, sd["opt_state"]["mu"]),
+                 (self.opt_state.nu, sd["opt_state"]["nu"]))
+        for mine, theirs in pairs:
             if mine.keys() != theirs.keys():
                 raise ValueError("state dict does not match this state's tensors")
+            for n, t in mine.items():
+                if theirs[n].dtype != t.dtype:
+                    raise ValueError(f"state dict holds {n} as {theirs[n].dtype}, this "
+                                     f"state as {t.dtype}")
+        self.step = int(sd["step"])
+        for mine, theirs in pairs:
             for n, t in mine.items():
                 t.copy_(theirs[n])
         self.opt_state.count = int(sd["opt_state"]["count"])

@@ -192,13 +192,20 @@ def test_trainer_config_from_args_matches_jax(extra):
     (["--model_type", "StableDiffusion", "--pretrained_model_name_or_path", "/tmp/p",
       "--learn_denoiser_from_scratch", "--model_parallel", "2", "--segmented_sd", "on"],
      "parallelism"),
-    (["--adam_moment_dtype", "bfloat16"], "float32"),
 ])
 def test_flags_the_port_does_not_run_raise(extra, match):
     args = A.build_parser().parse_args(BASE + extra)
     A.check_args(args)
     with pytest.raises(NotImplementedError, match=match):
         train_cli.trainer_config_from_args(args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adam_moment_dtype_reaches_the_optimizer_config_as_in_jax(dtype):
+    jargs, targs = _parse_both(BASE + ["--adam_moment_dtype", dtype])
+    got = train_cli.trainer_config_from_args(targs).train.optimizer.moment_dtype
+    want = jax_train_cli.trainer_config_from_args(jargs).train.optimizer.moment_dtype
+    assert got == want == dtype
 
 
 @pytest.mark.parametrize("extra,field,value", [

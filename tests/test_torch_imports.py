@@ -3,7 +3,9 @@
 ``triton``, no source imports the root ``tools/`` scripts, no kernel is
 built, and entry points default to the card.  The
 build directory may hold the native loader library (host C++, built by the
-CPU tests that read images), never a CUDA kernel library without a card."""
+CPU tests that read images), never a CUDA kernel library without a card.
+Every public function and class of the JAX package has a namesake in the
+port, but for the JAX or TPU machinery listed in ``BY_DESIGN``."""
 
 import ast
 import os
@@ -109,3 +111,48 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# Public names of the JAX package with no namesake in the port, and why.
+_LANE_PACK = "TPU lane packing of narrow channels (ops/lane_pack.py); the card needs none"
+BY_DESIGN = {
+    **dict.fromkeys(("channel_of_slot", "default_enabled", "pack", "pack_conv_kernel",
+                     "pack_downsample_kernel", "pack_upsample_kernel", "packed_conv",
+                     "packed_downsample_conv", "packed_upsample_conv", "tile_channel_param",
+                     "unpack", "Conv2DParams"), _LANE_PACK),
+    "make_streams": "jax.random key streams; the port's KeyStream and derived seeds",
+    "flatten_params": "Flax trees; the port's state dicts (models/convert.py)",
+    "unflatten_params": "Flax trees; the port's state dicts (models/convert.py)",
+    "attention_xla": "the port's plain version is attention_plain",
+    "set_tp_mesh": "GSPMD mesh for attention; parallel/tp.py shards the modules",
+    "fits_vmem": "TPU VMEM budget; the port's gn_plan / gn_route",
+    "data_sharding": "GSPMD shardings; one process a card (parallel/mesh.py)",
+    "replicated": "GSPMD shardings; one process a card (parallel/mesh.py)",
+    "tp_shardings": "GSPMD shardings; parallel/tp.py shard_params",
+    "shard_train_state": "GSPMD shardings; the Trainer's tp_plan and shard_params",
+    "force_platform_from_env": "JAX platform selection; the port's --device",
+    "setup_compilation_cache": "XLA compilation cache; eager PyTorch compiles nothing",
+    "ddim_sample_stepwise": "a host loop over jitted steps; the port's loops are host loops",
+    "ddib_stepwise": "a host loop over jitted steps; the port's loops are host loops",
+    "probe_sd_monolithic_compile": "the TPU transport's compile probe; eager PyTorch has none",
+    "convert_torch_weights": "torch Inception weights to Flax; the port loads them as they are",
+    "load_torch_state_dict": "the port's metrics/inception.py::load_state_dict",
+}
+
+
+def _public_names(package):
+    names = set()
+    for d, _, files in os.walk(os.path.join(ROOT, package)):
+        for f in files:
+            if f.endswith(".py"):
+                tree = ast.parse(open(os.path.join(d, f)).read())
+                names |= {n.name for n in tree.body
+                          if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                          and not n.name.startswith("_")}
+    return names
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    jax_names, port_names = _public_names("phendiff_tpu"), _public_names("phendiff_tpu_torch")
+    assert sorted(jax_names - port_names - set(BY_DESIGN)) == []
+    assert sorted(set(BY_DESIGN) & port_names) == []  # the list names no ported function

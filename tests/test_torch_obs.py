@@ -1,7 +1,8 @@
 """The port's observability hooks on the CPU: ``WandbTracker`` against a
 stub ``wandb`` module (the JAX package's tracker makes the same calls on
 it), the JSONL fallback where ``wandb`` cannot be imported, ``trace_if``
-writing a profiler trace, ``annotate`` spans in it, and ``force_sync``.
+writing a profiler trace, ``annotate`` spans in it, and ``force_sync``;
+``image_grid`` and ``latents_to_grayscale`` against the JAX package's.
 """
 
 import glob
@@ -12,8 +13,11 @@ import types
 import numpy as np
 import torch
 
+import pytest
+
+from phendiff_tpu.obs import images as jax_images
 from phendiff_tpu.obs import trackers as jax_trackers
-from phendiff_tpu_torch.obs import profiling, trackers
+from phendiff_tpu_torch.obs import images, profiling, trackers
 
 
 def _stub_wandb(calls):
@@ -124,3 +128,30 @@ def test_step_timer_reports_rates(monkeypatch):
         timer.tick()
     s = timer.stats(batch_size=8)
     assert s["perf/step_time_s"] == 0.5 and s["perf/samples_per_sec"] == 16.0
+
+
+@pytest.mark.parametrize("batch,cols,normalize,dtype", [
+    (5, None, "clip", np.float32), (6, 4, "minmax", np.float32),
+    (3, 2, "channel_minmax", np.float32), (4, None, "clip", np.uint8), (2, 3, "clip", "gray"),
+])
+def test_image_grid_matches_jax(batch, cols, normalize, dtype):
+    rng = np.random.default_rng(batch)
+    if dtype == np.uint8:
+        x = rng.integers(0, 256, (batch, 6, 5, 3), dtype=np.uint8)
+    else:
+        x = (rng.standard_normal((batch, 6, 5, 1 if dtype == "gray" else 3)) * 0.8).astype(
+            np.float32)
+    got = images.image_grid(x, cols, normalize)
+    want = jax_images.image_grid(x, cols, normalize)
+    assert got.size == want.size and got.mode == want.mode == "RGB"
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_latents_to_grayscale_matches_jax():
+    rng = np.random.default_rng(3)
+    z = (rng.standard_normal((3, 4, 4, 4)) * 3).astype(np.float32)
+    z[1] = 0.5  # a constant sample: the 1e-12 floor of the range
+    got = images.latents_to_grayscale(z)
+    want = jax_images.latents_to_grayscale(z)
+    assert got.shape == (3, 4, 4, 1) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

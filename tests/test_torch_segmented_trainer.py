@@ -92,6 +92,18 @@ def test_training_runs_clips_and_checkpoints(tiny_image_root, paths):
     assert all(torch.equal(p, unet_before[n]) for n, p in pipe.unet.named_parameters())
 
 
+def test_bf16_moment_option_keeps_f32_moments_as_the_jax_route(tiny_image_root, paths):
+    """The JAX segmented trainer builds its per-stage optax.adamw without
+    mu_dtype, so its first moments stay f32 whatever the option says."""
+    cfg = make_config(tiny_image_root, train=TrainConfig(optimizer=OptimizerConfig(
+        learning_rate=1e-3, total_steps=50, moment_dtype="bfloat16")))
+    trainer = SegmentedSDTrainer(make_pipe(), cfg, paths)
+    assert trainer.optimizer.cfg.moment_dtype == "float32"
+    moments = [t for st in trainer.state.opt_state.values() for t in (*st.mu.values(),
+                                                                      *st.nu.values())]
+    assert moments and {t.dtype for t in moments} == {torch.float32}
+
+
 def test_resume_restores_exact_state(tiny_image_root, paths):
     t1 = SegmentedSDTrainer(make_pipe(), make_config(tiny_image_root), paths)
     out1 = t1.run()

@@ -12,7 +12,8 @@ Each process lays out ``make_mesh(2)`` and runs, on the same inputs: the
 mesh helpers, a forward of both families (``tests/test_tp.py``'s
 ``TINY_ATTN`` and ``TINY_SD``), three train steps of ``TINY_ATTN`` (global
 batch 8, ``adam_epsilon=1e-3``, the JAX step's draws injected) and, at
-1 x 2, ``Trainer.run`` with a checkpoint and a resume.  The world-1
+1 x 2, ``Trainer.run`` with a checkpoint and a resume, with f32 and with
+bf16 first moments.  The world-1
 results are the same scenarios run in the pytest process without a group,
 and JAX computes its forwards and steps on ``make_mesh(jax.devices()[:2],
 model_parallel=2)`` meanwhile.
@@ -186,6 +187,33 @@ def _trainer_scenario(data, root, mp, run_it):
     return out
 
 
+def _full_state_snapshot(trainer):
+    full = trainer.full_state()
+    return {"params": _snapshot(full.params), "mu": _snapshot(full.opt_state.mu),
+            "nu": _snapshot(full.opt_state.nu), "count": full.opt_state.count}
+
+
+def _bf16_moment_trainer_scenario(data, root, mp):
+    """``Trainer.run`` with Adam's first moment in bf16: the checkpoint
+    gathers the bf16 moments over the model group, and a resume cuts them
+    again; the full state before and after, and each rank's moment dtypes."""
+    opt = dict(train=T.TrainConfig(proba_uncond=0.1, optimizer=T.OptimizerConfig(
+        **OPT, moment_dtype="bfloat16")))
+    trainer = _trainer(data, root, "bf16", mp, **opt)
+    trainer.run()
+    out = {"saved": _full_state_snapshot(trainer),
+           "local_mu_dtypes": {str(t.dtype) for t in trainer.state.opt_state.mu.values()},
+           "local_nu_dtypes": {str(t.dtype) for t in trainer.state.opt_state.nu.values()}}
+    resumed = _trainer(data, root, "bf16", mp, num_epochs=2, resume_from_checkpoint="latest",
+                       **opt)
+    out["resume_start"] = resumed.maybe_resume()
+    out["resumed"] = _full_state_snapshot(resumed)
+    out["resumed_local_mu_dtypes"] = {str(t.dtype)
+                                      for t in resumed.state.opt_state.mu.values()}
+    out["final_steps"] = resumed.run().step
+    return out
+
+
 def worker(argv):
     inputs_path, out_dir, world, rank, init_file = argv
     torch.set_num_threads(1)
@@ -201,6 +229,8 @@ def worker(argv):
         "train": _train_scenario(inputs, MP),
         "trainer": _trainer_scenario(inputs["data"], root, MP, run_it=world == "2"),
     }
+    if world == "2":
+        result["bf16_trainer"] = _bf16_moment_trainer_scenario(inputs["data"], root, MP)
     torch.save(result, os.path.join(out_dir, f"{tag}_rank{rank}.pt"))
     mesh.destroy()
 
@@ -542,6 +572,30 @@ def test_trainer_checkpoint_is_the_full_tree_and_resumes(runs):
     for n, t in state.params.items():
         assert t.shape == full[n].shape
         assert torch.equal(t.detach(), two["final_params"][n]), n
+
+
+def test_trainer_with_bf16_moments_checkpoints_and_resumes_bit_equal(runs):
+    """At 1 x 2 the checkpoint gathers the bf16 first moments over gloo and
+    the resume cuts them again: every tensor of the full state comes back
+    bit for bit, the first moments still bf16 on both model ranks."""
+    for name in _ranks(2):
+        b = runs[name]["bf16_trainer"]
+        assert b["local_mu_dtypes"] == b["resumed_local_mu_dtypes"] == {"torch.bfloat16"}
+        assert b["local_nu_dtypes"] == {"torch.float32"}
+        assert (tuple(b["resume_start"]), b["final_steps"]) == ((1, 0), 8)
+        saved, resumed = b["saved"], b["resumed"]
+        assert saved["count"] == resumed["count"] == 4
+        assert {str(t.dtype) for t in saved["mu"].values()} == {"torch.bfloat16"}
+        for part in ("params", "mu", "nu"):
+            assert saved[part].keys() == resumed[part].keys() == runs["inputs"]["params"].keys()
+            for n, t in saved[part].items():
+                assert t.shape == runs["inputs"]["params"][n].shape, (part, n)
+                assert torch.equal(resumed[part][n], t), (part, n)
+    # both model ranks gathered the same full tree
+    r0, r1 = (runs[name]["bf16_trainer"]["saved"] for name in _ranks(2))
+    for part in ("params", "mu", "nu"):
+        for n, t in r0[part].items():
+            assert torch.equal(r1[part][n], t), (part, n)
 
 
 def test_trainer_at_2x2_shards_the_loader_by_data_rank(runs):

@@ -185,6 +185,130 @@ def test_optimizer_matches_optax(clipped, masked):
         np.testing.assert_array_equal(tparams["b"].numpy(), params["b"])
 
 
+def _optax_mu(jstate):
+    """The first moments in an optax state (chain or multi_transform)."""
+    return optax.tree_utils.tree_get(jstate, "mu")
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+@pytest.mark.parametrize("clipped,masked", [(False, False), (True, False), (True, True)])
+def test_bf16_moment_optimizer_matches_optax(clipped, masked, chunk, monkeypatch):
+    """Three updates with ``moment_dtype="bfloat16"`` against optax's
+    ``mu_dtype=bfloat16``, whole and in chunks of 16 elements.  Parameters
+    to the f32 test's tolerance (the update reads the same f32 moment).
+    The stored bf16 moment: unclipped, bit equal to optax's (the same
+    roundings: b1 * mu in bf16, the sum in f32, then to bf16); clipped,
+    within one bf16 ulp, since the clip factor comes from a norm summed in
+    another order, and a gradient one f32 ulp away can round the moment to
+    the other bf16 neighbour (about one element in 65536; that element's
+    next update then moves by ~0.4% of lr)."""
+    if chunk is not None:
+        monkeypatch.setattr(T, "UPDATE_CHUNK", chunk)
+    rng = np.random.default_rng(5)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 2, 2)}
+    params = {n: rng.standard_normal(s).astype(np.float32) for n, s in shapes.items()}
+    mask = {"a": True, "b": False, "c": True} if masked else None
+    cfg_kw = dict(learning_rate=1e-2, max_grad_norm=0.5 if clipped else 1e3,
+                  lr_scheduler="linear", lr_warmup_steps=1, total_steps=5,
+                  moment_dtype="bfloat16")
+    jopt = JT.make_optimizer(JT.OptimizerConfig(**cfg_kw), mask)
+    jparams = {n: jnp.asarray(v) for n, v in params.items()}
+    jstate = jopt.init(jparams)
+    topt = T.make_optimizer(T.OptimizerConfig(**cfg_kw), (lambda p: mask) if masked else None)
+    tparams = {n: torch.from_numpy(v.copy()) for n, v in params.items()}
+    tstate = topt.init(tparams)
+    assert {t.dtype for t in tstate.mu.values()} == {torch.bfloat16}
+    assert {t.dtype for t in tstate.nu.values()} == {torch.float32}
+    for _ in range(3):
+        grads = {n: rng.standard_normal(s).astype(np.float32) for n, s in shapes.items()}
+        upd, jstate = jopt.update({n: jnp.asarray(g) for n, g in grads.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        topt.update({n: torch.from_numpy(g) for n, g in grads.items()}, tstate, tparams)
+    for n in shapes:
+        np.testing.assert_allclose(tparams[n].numpy(), np.asarray(jparams[n]), rtol=1e-6,
+                                   atol=1e-7)
+    jmu = _optax_mu(jstate)
+    for n, mu in tstate.mu.items():
+        want = np.asarray(jmu[n].astype(jnp.float32))
+        assert jmu[n].dtype == jnp.bfloat16
+        if not clipped:
+            np.testing.assert_array_equal(mu.float().numpy(), want, err_msg=n)
+        ulp = np.spacing(np.abs(want).astype(jnp.bfloat16)).astype(np.float32)
+        assert np.all(np.abs(mu.float().numpy() - want) <= ulp), n
+    assert tstate.count == 3
+    if masked:
+        np.testing.assert_array_equal(tparams["b"].numpy(), params["b"])
+        assert set(tstate.mu) == {"a", "c"}
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_update_in_chunks_equals_one_chunk(moment_dtype, monkeypatch):
+    """The chunked update is the same arithmetic element for element: bit
+    equal to one chunk, for chunks of one tensor and of several."""
+    rng = np.random.default_rng(6)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 2, 2), "d": (7,)}
+    cfg = T.OptimizerConfig(learning_rate=1e-2, max_grad_norm=0.5, moment_dtype=moment_dtype)
+    params = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for n, s in shapes.items()}
+    grads = [{n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for n, s in shapes.items()} for _ in range(3)]
+    runs = []
+    for chunk in (1 << 30, 13, 1):
+        monkeypatch.setattr(T, "UPDATE_CHUNK", chunk)
+        opt = T.make_optimizer(cfg)
+        p = {n: t.clone() for n, t in params.items()}
+        state = opt.init(p)
+        for g in grads:
+            opt.update(g, state, p)
+        runs.append((p, state))
+    for p, state in runs[1:]:
+        for n in shapes:
+            for got, want in ((p, runs[0][0]), (state.mu, runs[0][1].mu),
+                              (state.nu, runs[0][1].nu)):
+                assert torch.equal(got[n], want[n]), n
+
+
+def test_moment_dtype_is_checked():
+    with pytest.raises(ValueError, match="moment_dtype"):
+        T.OptimizerConfig(moment_dtype="float16")
+
+
+def test_bf16_moment_state_resumes_bit_equal_and_refuses_another_dtype(tmp_path):
+    """A bf16-moment TrainState saved and restored through the checkpoint
+    manager is bit equal, moments in bf16; loading it into an f32-moment
+    state (or the reverse) raises and leaves the state as it was."""
+    from phendiff_tpu_torch.train.checkpoints import CheckpointManager
+
+    rng = np.random.default_rng(7)
+    shapes = {"a": (3, 4), "b": (5,)}
+    params = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for n, s in shapes.items()}
+    bf16 = T.make_optimizer(T.OptimizerConfig(learning_rate=1e-2, moment_dtype="bfloat16"))
+    state = T.init_train_state(params, bf16)
+    for _ in range(2):
+        g = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for n, s in shapes.items()}
+        bf16.update(g, state.opt_state, state.params)
+        state.step += 1
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(2, state)
+    fresh = T.init_train_state(params, bf16)
+    ckpt.restore(fresh)
+    assert fresh.step == 2 and fresh.opt_state.count == 2
+    for mine, theirs in ((fresh.params, state.params), (fresh.ema_params, state.ema_params),
+                         (fresh.opt_state.mu, state.opt_state.mu),
+                         (fresh.opt_state.nu, state.opt_state.nu)):
+        for n in shapes:
+            assert mine[n].dtype == theirs[n].dtype and torch.equal(mine[n], theirs[n]), n
+    assert {t.dtype for t in fresh.opt_state.mu.values()} == {torch.bfloat16}
+    f32 = T.init_train_state(params, T.make_optimizer(T.OptimizerConfig()))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ckpt.restore(f32)
+    assert f32.step == 0 and all(not t.any() for t in f32.opt_state.mu.values())
+    with pytest.raises(ValueError, match="float32"):
+        fresh.load_state_dict(f32.state_dict())
+
+
 def test_ema_matches_jax():
     cfg = E.EMAConfig(inv_gamma=1.0, power=0.75, max_decay=0.9999)
     jcfg = jax_ema.EMAConfig(inv_gamma=1.0, power=0.75, max_decay=0.9999)

@@ -246,6 +246,24 @@ def test_loader_matches_jax_loader(tiny_image_root, monkeypatch):
             np.testing.assert_array_equal(gi, wi)
 
 
+@pytest.mark.parametrize("normalize,flip_h,flip_v,antialias", [
+    (True, False, False, True), (True, True, False, True), (True, True, True, False),
+    (False, False, True, True),
+])
+def test_resize_normalize_matches_the_batch_form_and_jax(monkeypatch, normalize, flip_h,
+                                                         flip_v, antialias):
+    monkeypatch.setattr(jax_native, "get_lib", native.get_lib)
+    img = np.random.default_rng(1).integers(0, 256, (23, 17, 3), dtype=np.uint8)
+    kw = dict(normalize=normalize, antialias=antialias)
+    got = native.resize_normalize(img, (9, 12), flip_h=flip_h, flip_v=flip_v, **kw)
+    assert got.shape == (9, 12, 3) and got.dtype == np.float32
+    batch = native.batch_resize_normalize([img], (9, 12), flips=np.array([[flip_h, flip_v]]),
+                                          **kw)
+    np.testing.assert_array_equal(got, batch[0])
+    np.testing.assert_array_equal(
+        got, jax_native.resize_normalize(img, (9, 12), flip_h=flip_h, flip_v=flip_v, **kw))
+
+
 def test_native_library_builds_under_a_content_hash():
     if not native.available():
         pytest.skip("no C++ compiler: the loader uses its numpy + PIL fallback")
