@@ -1,5 +1,5 @@
-"""Observability: trackers, images, logging, profiling hooks and step
-timing, and device-time profiles of the port on the card
+"""Observability: trackers, images, logging, the port's spans, profiling
+hooks and step timing, and device-time profiles of the port on the card
 (``obs/forward_profile.py``, imported from its module)."""
 
 from phendiff_tpu_torch.obs.images import (  # noqa: F401
@@ -13,6 +13,8 @@ from phendiff_tpu_torch.obs.profiling import (  # noqa: F401
     StepTimer,
     annotate,
     force_sync,
+    recorder,
+    recording,
     trace_if,
 )
 from phendiff_tpu_torch.obs.trackers import (  # noqa: F401

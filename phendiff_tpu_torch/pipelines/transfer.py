@@ -26,6 +26,8 @@ rows: the inversion rows under the source embedding, then the generation
 rows under the target embedding.  Two details hold as in the JAX package:
 the network's time is clamped to >= 0 while t_eval = -1 keeps its
 final-alpha lookup, and x0-clipping applies on the generation rows only.
+Each denoiser call is a ``transfer/denoise`` span, which records its
+latency (``obs/profiling.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from phendiff_tpu_torch.core import scheduler as S
+from phendiff_tpu_torch.obs.profiling import annotate
 from phendiff_tpu_torch.pipelines import conditional_ddim as cd
 from phendiff_tpu_torch.pipelines.conditional_ddim import DenoiserFn
 
@@ -74,7 +77,8 @@ def ddib(
     for te, tt, is_gen in ddib_rows(schedule.config, num_inference_steps).tolist():
         emb = target_emb if is_gen else source_emb
         t_net = torch.full((b,), max(te, 0), dtype=torch.int64, device=x.device)
-        model_out = denoiser(x, t_net, emb)
+        with annotate("transfer/denoise", device=x.device):
+            model_out = denoiser(x, t_net, emb)
         x0, eps = S.predict_x0_eps(schedule, model_out, te, x)
         if is_gen:
             x0 = S._maybe_clip_x0(schedule, x0)

@@ -10,7 +10,8 @@ clip at ``max_grad_norm`` and a per-stage EMA, checkpoints of the whole
 per-stage state (step, params, EMA, one optimizer state a stage) with
 rotation and an exact resume, EMA-weighted evaluation through the
 segmented stages and the best-model save (gated on the mean main metric),
-and metrics read back one step late (``perf/t_*`` phase times).
+and metrics read back one step late (``perf/t_*`` phase times and
+``perf/host_ms/<span>`` from the run's spans).
 
 Components are frozen by the optimizer's trainable mask (the port's
 counterpart of the JAX trainer's ``multi_transform``): frozen tensors get
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,14 +35,21 @@ from phendiff_tpu_torch.models.autoencoder_kl import decode_from_latents, encode
 from phendiff_tpu_torch.models.embeddings import ClassEmbedding
 from phendiff_tpu_torch.models.sd_segmented import SegmentedSDUNet
 from phendiff_tpu_torch.models.sd_unet import SDUNet
-from phendiff_tpu_torch.obs.profiling import StepTimer
+from phendiff_tpu_torch.obs.profiling import StepTimer, annotate, recording
 from phendiff_tpu_torch.obs.trackers import make_tracker
 from phendiff_tpu_torch.pipelines.conditional_ddim import GuidanceConfig, ddim_sample
 from phendiff_tpu_torch.train.checkpoints import CheckpointManager
 from phendiff_tpu_torch.train.eval_loop import Evaluator, get_initial_best_metric, is_it_best_model
 from phendiff_tpu_torch.train.segmented_train import CtxEmbed, SegmentedSDTrainStep
 from phendiff_tpu_torch.train.train_loop import AdamWState, Optimizer, Params, make_draws
-from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, attention_param_mask, build_data
+from phendiff_tpu_torch.train.trainer import (
+    RunPaths,
+    TrainerConfig,
+    attention_param_mask,
+    batches,
+    build_data,
+    step_times,
+)
 
 TABLE = "class_embedding.embedding.weight"
 
@@ -233,11 +240,11 @@ class SegmentedSDTrainer:
         if pending is None:
             return
         step_no, epoch, metrics, times = pending
-        t0 = time.perf_counter()
-        keys = sorted(k for k, v in metrics.items() if v.ndim == 0)
-        packed = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+        with recording(), annotate("train/metrics") as fetch:
+            keys = sorted(k for k, v in metrics.items() if v.ndim == 0)
+            packed = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
         host = dict(zip(keys, packed))
-        times["perf/t_await_s"] = time.perf_counter() - t0
+        times["perf/t_await_s"] = fetch.seconds
         host["epoch"] = epoch
         host["lr"] = float(self.lr(step_no))
         host.update(times)
@@ -253,6 +260,12 @@ class SegmentedSDTrainer:
         return encode_to_latents(self.pipe.vae, images, noise=draws.enc_noise)
 
     def run(self) -> SegmentedState:
+        """Train to the configured end; spans record throughout (the
+        log's ``perf/*`` phase figures are read from them)."""
+        with recording() as rec:
+            return self._run(rec)
+
+    def _run(self, rec) -> SegmentedState:
         cfg, st = self.config, self.state
         first_epoch, skip = self.maybe_resume()
         timer = StepTimer()
@@ -262,22 +275,21 @@ class SegmentedSDTrainer:
         latent_c = self.pipe.vae_config.latent_channels
         for epoch in range(first_epoch, cfg.num_epochs):
             skip_batches = skip if epoch == first_epoch else 0
-            t_iter = time.perf_counter()
-            for images, labels in self.loader.epoch(epoch, skip_batches):
-                t_data_end = time.perf_counter()
-                images = torch.from_numpy(images).to(self.device, non_blocking=True)
-                labels = torch.from_numpy(labels).long().to(self.device, non_blocking=True)
+            for _, (images, labels), data in batches(self.loader, epoch, skip_batches,
+                                                     self.device):
                 b, h, w, _ = images.shape
                 draws = make_draws(cfg.seed, st.step, (b, h // self._down, w // self._down,
                                                        latent_c),
                                    t_count, cfg.train.proba_uncond, self.device, posterior=True)
-                latents = self._latents(images, draws)
-                _, _, _, metrics = self.step_fn(st.params, st.opt_state, latents, labels, draws,
-                                                ema_params=st.ema_params, step=st.step)
+                before = rec.totals()
+                with annotate("train/step", device=images.device) as step:
+                    with annotate("train/encode"):
+                        latents = self._latents(images, draws)
+                    _, _, _, metrics = self.step_fn(st.params, st.opt_state, latents, labels,
+                                                    draws, ema_params=st.ema_params, step=st.step)
                 st.step += 1
-                timer.tick()
-                times = {"perf/t_data_s": t_data_end - t_iter,
-                         "perf/t_dispatch_s": time.perf_counter() - t_data_end}
+                timer.tick(step)
+                times = step_times(data, step, rec.since(before))
                 self._flush_metrics(pending, timer)
                 pending = (st.step, epoch, metrics, times)
                 if st.step % cfg.checkpointing_steps == 0:
@@ -291,7 +303,6 @@ class SegmentedSDTrainer:
                 if cfg.max_train_steps and st.step >= cfg.max_train_steps:
                     done = True
                     break
-                t_iter = time.perf_counter()
             self._flush_metrics(pending, timer)
             pending = None
             precise = (cfg.precise_first_n_epochs is not None

@@ -44,6 +44,13 @@ when the VAE trains.  Adam's first moment is f32, or bf16 with
 roundings); the second moment and the master parameters stay f32.  The
 update runs over chunks of the tensor list, so its f32 temporaries take
 at most ``UPDATE_CHUNK`` elements each, not a copy of every moment.
+
+A step is one ``train/step`` span (it records the step's latency) over
+the spans of its phases (``obs/profiling.py``):
+``train/encode``, ``train/forward`` (class embedding, CFG drop, loss),
+``train/backward`` (``autograd.grad``, zero fill), ``train/optimizer``
+(clip factor, AdamW) and ``train/ema``; the all-reduce and the
+``grad_norm`` metric are the step's own time.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch.distributed as dist
 
 from phendiff_tpu_torch.core import scheduler as S
 from phendiff_tpu_torch.core.rng import derive_seed
+from phendiff_tpu_torch.obs.profiling import annotate
 from phendiff_tpu_torch.parallel import mesh
 from phendiff_tpu_torch.parallel.mesh import all_reduce_mean_
 from phendiff_tpu_torch.train.ema import EMAConfig, ema_update
@@ -422,42 +430,49 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, draws: StepDraws):
         images, labels = batch
-        if images.dtype == torch.uint8:
-            # uint8 transport: normalise to [-1, 1] on the device
-            images = images.float() / 127.5 - 1.0
-        params = state.params
-        clean = images
-        if encode_fn is not None and encode_inside_grad:
-            clean = encode_fn(params, images, draws)
-        elif encode_fn is not None:
-            with torch.no_grad():
-                clean = encode_fn(images, draws)
-        class_emb = embed_fn(params, labels)
-        if config.proba_uncond > 0.0:
-            class_emb = class_emb * (1.0 - float(draws.uncond))
-        loss = diffusion_loss(model_apply, params, schedule, clean, class_emb,
-                              draws.noise, draws.timesteps)
-        names = [n for n, p in params.items() if p.requires_grad]
-        got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
-        got = dict(zip(names, got))
-        # a parameter outside the graph (or frozen by the model, as the
-        # Fourier weight is) has a zero gradient, as under jax.grad
-        grads = {n: got[n] if got.get(n) is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        # the mean over the data group (a no-op in one process): one flat
-        # all-reduce of the computed gradients and the loss
-        loss = loss.detach()
-        all_reduce_mean_([grads[n] for n in names] + [loss])
-        grad_norm = global_norm(list(grads.values()), [n in opt.sharded for n in grads])
-        opt.update(grads, state.opt_state, params)
-        state.step += 1
-        ema_update(config.ema, state.ema_params, params, state.step)
-        metrics = {
-            "loss": loss,
-            "grad_norm": grad_norm,
-            "lr": lr_sched(state.step),
-            "nonfinite": (~(torch.isfinite(loss) & torch.isfinite(grad_norm))).int(),
-        }
+        with annotate("train/step", device=images.device):
+            if images.dtype == torch.uint8:
+                # uint8 transport: normalise to [-1, 1] on the device
+                images = images.float() / 127.5 - 1.0
+            params = state.params
+            clean = images
+            if encode_fn is not None:
+                with annotate("train/encode"):
+                    if encode_inside_grad:
+                        clean = encode_fn(params, images, draws)
+                    else:
+                        with torch.no_grad():
+                            clean = encode_fn(images, draws)
+            with annotate("train/forward"):
+                class_emb = embed_fn(params, labels)
+                if config.proba_uncond > 0.0:
+                    class_emb = class_emb * (1.0 - float(draws.uncond))
+                loss = diffusion_loss(model_apply, params, schedule, clean, class_emb,
+                                      draws.noise, draws.timesteps)
+            with annotate("train/backward"):
+                names = [n for n, p in params.items() if p.requires_grad]
+                got = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+                got = dict(zip(names, got))
+                # a parameter outside the graph (or frozen by the model, as the
+                # Fourier weight is) has a zero gradient, as under jax.grad
+                grads = {n: got[n] if got.get(n) is not None else torch.zeros_like(p)
+                         for n, p in params.items()}
+            # the mean over the data group (a no-op in one process): one flat
+            # all-reduce of the computed gradients and the loss
+            loss = loss.detach()
+            all_reduce_mean_([grads[n] for n in names] + [loss])
+            grad_norm = global_norm(list(grads.values()), [n in opt.sharded for n in grads])
+            with annotate("train/optimizer"):
+                opt.update(grads, state.opt_state, params)
+            state.step += 1
+            with annotate("train/ema"):
+                ema_update(config.ema, state.ema_params, params, state.step)
+            metrics = {
+                "loss": loss,
+                "grad_norm": grad_norm,
+                "lr": lr_sched(state.step),
+                "nonfinite": (~(torch.isfinite(loss) & torch.isfinite(grad_norm))).int(),
+            }
         return state, metrics
 
     return train_step

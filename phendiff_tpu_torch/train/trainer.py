@@ -43,10 +43,8 @@ import dataclasses
 import math
 import os
 import re
-import time
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -68,7 +66,7 @@ from phendiff_tpu_torch.models.autoencoder_kl import (
 from phendiff_tpu_torch.models.embeddings import ClassEmbedding, pad_to_clip_sequence
 from phendiff_tpu_torch.models.sd_unet import SDUNet
 from phendiff_tpu_torch.models.unet2d import CondUNet2D
-from phendiff_tpu_torch.obs.profiling import StepTimer
+from phendiff_tpu_torch.obs.profiling import StepTimer, annotate, recording
 from phendiff_tpu_torch.obs.trackers import make_tracker
 from phendiff_tpu_torch.parallel import tp
 from phendiff_tpu_torch.parallel.mesh import (
@@ -204,6 +202,36 @@ def build_data(config: TrainerConfig):
     return index, ImageFolderLoader(index, loader_cfg), eval_index
 
 
+def batches(loader, epoch: int, skip: int, device):
+    """The epoch's ``(host batch, device batch, span)``: each batch's wait
+    on the loader and its copy to ``device`` are one ``train/data`` span,
+    recorded whether or not the caller records."""
+    it = iter(loader.epoch(epoch, skip))
+    while True:
+        with recording(), annotate("train/data") as span:
+            host = next(it, None)
+            if host is not None:
+                images, labels = host
+                batch = (torch.from_numpy(images).to(device, non_blocking=True),
+                         torch.from_numpy(labels).long().to(device, non_blocking=True))
+        if host is None:
+            return
+        yield host, batch, span
+
+
+def step_times(data, step, spent) -> dict:
+    """A step's phase figures for the log from its spans: ``perf/t_data_s``
+    (the ``train/data`` span), ``perf/t_dispatch_s`` (from that span's close
+    to the close of the ``train/step`` span ``step``: the draws and the
+    step's launches) and ``perf/host_ms/<span>`` for each span inside the
+    step (``spent``: the recorder's totals over the step)."""
+    times = {"perf/t_data_s": data.seconds,
+             "perf/t_dispatch_s": (step.end_ns - data.end_ns) / 1e9}
+    times.update({f"perf/host_ms/{name}": t.host_ns / 1e6
+                  for name, t in spent.items() if name != "train/step"})
+    return times
+
+
 class Trainer:
     def __init__(
         self,
@@ -327,12 +355,12 @@ class Trainer:
         host fetch, whose duration is ``perf/t_await_s`` on the newest."""
         if not pending:
             return
-        t0 = time.perf_counter()
-        keys = sorted(k for k, v in pending[0][2].items() if isinstance(v, torch.Tensor))
-        packed = torch.stack([
-            torch.stack([m[k].float() for k in keys]) for _, _, m, _ in pending
-        ]).cpu().numpy()
-        t_await = time.perf_counter() - t0
+        with recording(), annotate("train/metrics") as fetch:
+            keys = sorted(k for k, v in pending[0][2].items() if isinstance(v, torch.Tensor))
+            packed = torch.stack([
+                torch.stack([m[k].float() for k in keys]) for _, _, m, _ in pending
+            ]).cpu().numpy()
+        t_await = fetch.seconds
         for (step_no, epoch, metrics, times), row in zip(pending, packed):
             host = {k: v for k, v in metrics.items() if not isinstance(v, torch.Tensor)}
             host.update(zip(keys, map(float, row)))
@@ -345,11 +373,13 @@ class Trainer:
                 self.tracker.alert("NaN", f"non-finite loss/grad at step {step_no}")
         pending.clear()
 
-    def _to_device(self, images: np.ndarray, labels: np.ndarray):
-        return (torch.from_numpy(images).to(self.device, non_blocking=True),
-                torch.from_numpy(labels).long().to(self.device, non_blocking=True))
-
     def run(self) -> TrainState:
+        """Train to the configured end; spans record throughout (the
+        log's ``perf/*`` phase figures are read from them)."""
+        with recording() as rec:
+            return self._run(rec)
+
+    def _run(self, rec) -> TrainState:
         cfg = self.config
         first_epoch, skip = self.maybe_resume()
         global_step = self.state.step
@@ -362,23 +392,20 @@ class Trainer:
 
         for epoch in range(first_epoch, cfg.num_epochs):
             skip_batches = skip if epoch == first_epoch else 0
-            t_iter = time.perf_counter()
-            for images, labels in self.loader.epoch(epoch, skip_batches):
-                t_data_end = time.perf_counter()
-                batch = self._to_device(images, labels)
+            for (images, labels), batch, data in batches(self.loader, epoch, skip_batches,
+                                                         self.device):
                 # the global batch's draws, of which this process keeps its rows
                 b, *rest = self.diffusion_shape(tuple(images.shape))
                 world_shape = (b * data_size(), *rest)
                 draws = make_draws(cfg.seed, self.state.step, world_shape, t_count, p_uncond,
                                    self.device, posterior=self.posterior
                                    ).rows(local_rows(world_shape[0]))
+                before = rec.totals()
                 self.state, metrics = self._step_fn(self.state, batch, draws)
                 global_step += 1
-                timer.tick()
-                times = {
-                    "perf/t_data_s": t_data_end - t_iter,
-                    "perf/t_dispatch_s": time.perf_counter() - t_data_end,
-                }
+                step = rec.last("train/step")
+                timer.tick(step)
+                times = step_times(data, step, rec.since(before))
                 if len(pending) >= flush_every:
                     self._flush_metrics(pending, timer)
                 pending.append((global_step, epoch, metrics, times))
@@ -392,7 +419,6 @@ class Trainer:
                 if cfg.max_train_steps and global_step >= cfg.max_train_steps:
                     done = True
                     break
-                t_iter = time.perf_counter()
             self._flush_metrics(pending, timer)
             precise = (cfg.precise_first_n_epochs is not None
                        and epoch < cfg.precise_first_n_epochs)

@@ -1,7 +1,8 @@
 """The port's observability hooks on the CPU: ``WandbTracker`` against a
 stub ``wandb`` module (the JAX package's tracker makes the same calls on
 it), the JSONL fallback where ``wandb`` cannot be imported, ``trace_if``
-writing a profiler trace, ``annotate`` spans in it, and ``force_sync``;
+writing a profiler trace with the port's spans in it (a train step's among
+them), and ``force_sync``;
 ``image_grid`` and ``latents_to_grayscale`` against the JAX package's.
 """
 
@@ -88,18 +89,38 @@ def test_make_tracker_falls_back_to_jsonl_without_wandb(tmp_path, monkeypatch):
         assert json.loads(f.readline())["loss"] == 1.5
 
 
+def _linear_train_step():
+    """The port's train step over a one-weight model, and its inputs."""
+    from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.train import train_loop as T
+
+    cfg = T.TrainConfig()
+    opt = T.make_optimizer(cfg.optimizer)
+    step = T.make_train_step(lambda p, x, t, ce: x * p["w"] + ce[:, None, None, :],
+                             lambda p, labels: p["e"][labels],
+                             S.make_schedule(S.SchedulerConfig(num_train_timesteps=10),
+                                             device="cpu"), cfg, opt)
+    state = T.init_train_state({"w": torch.ones(3, requires_grad=True),
+                                "e": torch.zeros(2, 3, requires_grad=True)}, opt)
+    batch = (torch.rand(2, 4, 4, 3), torch.tensor([0, 1]))
+    return step, state, batch, T.make_draws(0, 0, (2, 4, 4, 3), 10, 0.0, "cpu")
+
+
 def test_trace_if_writes_a_trace_on_capture_steps_only(tmp_path):
     x = torch.randn(16, 16)
     with profiling.trace_if(str(tmp_path / "off"), step=3, capture_steps=(10,)):
         x @ x
     assert not (tmp_path / "off").exists()
+    step, state, batch, draws = _linear_train_step()
     with profiling.trace_if(str(tmp_path / "on"), step=10, capture_steps=(10,)):
         with profiling.annotate("engine/transfer"):
             x @ x
+        step(state, batch, draws)
     (trace,) = glob.glob(str(tmp_path / "on" / "*.pt.trace.json"))
     with open(trace) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "engine/transfer" in names
+    assert {"engine/transfer", "train/step", "train/backward"} <= names
+    profiling.recorder().clear()
     with profiling.trace_if(None, step=10, capture_steps=(10,)):
         pass
 
