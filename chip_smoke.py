@@ -574,7 +574,9 @@ def gn_plan_record(torch, b, s, c, groups, act, backward=False):
     from phendiff_tpu_torch.ops import gn_kernels
 
     plan = gn_kernels.gn_plan(s, c, groups, 2, backward, b if backward else 1)
-    mangled = f"gn_{'bwd' if backward else 'fwd'}_clusterI13__nv_bfloat16Lb{int(act == 'silu')}E"
+    # the forward's instantiation without the addend (ADD = false)
+    mangled = (f"gn_{'bwd' if backward else 'fwd'}_clusterI13__nv_bfloat16Lb{int(act == 'silu')}E"
+               + ("" if backward else "Lb0EE"))
     regs = [p.get("registers") for fn, p in GN_PTXAS.items() if mangled in fn]
     return {"plan": plan._asdict(), "max_active_clusters": gn_kernels.max_active_clusters(
         b, s, c, groups, torch.bfloat16, act, backward), "registers": regs[0] if regs else None}
@@ -643,6 +645,35 @@ def gn_check(torch, b, s, c, groups, act, iters=20, dtype_name="bfloat16"):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         **(gn_plan_record(torch, b, s, c, groups, act) if dtype == torch.bfloat16 else {}),
     }
+    emit(rec)
+    return rec
+
+
+def gn_addend_check(torch, b, s, c, groups, iters=20):
+    """The forward kernel with an addend (a ResnetBlock's time embedding)
+    against itself on the materialised sum: output, mean and rstd bit-equal;
+    device times of the addend call, of the broadcast add plus the call that
+    it replaces, and of the same call without the addend."""
+    from phendiff_tpu_torch.ops.gn_kernels import _launch, fused_group_norm
+
+    g = torch.Generator(device="cuda").manual_seed(s + c + 1)
+    x = (torch.randn(b, s, c, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    addend = torch.randn(b, c, generator=g, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(c, generator=g, device="cuda")
+    bias = torch.randn(c, generator=g, device="cuda")
+    args = (scale, bias, groups, 1e-5, "silu", torch.bfloat16)
+    before = fused_group_norm.addend_launches
+    got = _launch(x, *args, addend)
+    want = _launch(x + addend[:, None, :], *args)
+    torch.cuda.synchronize()
+    ok = (fused_group_norm.addend_launches - before == 1
+          and all(torch.equal(u, w) for u, w in zip(got, want)))
+    rec = {"phase": "kernel_check", "kernel": "group_norm_silu_addend",
+           "shape": {"B": b, "S": s, "C": c, "G": groups, "act": "silu"}, "ok": bool(ok),
+           "ms": graph_ms(lambda: _launch(x, *args, addend), iters),
+           "add_then_gn_ms": graph_ms(lambda: _launch(x + addend[:, None, :], *args), iters),
+           "gn_ms": graph_ms(lambda: _launch(x, *args), iters),
+           "bound_ms": 1e3 * (2 * x.nbytes + addend.nbytes) / HBM_BYTES_PER_S}
     emit(rec)
     return rec
 
@@ -3343,7 +3374,7 @@ def main() -> None:
 
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.config import super_small
-    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, plain_kernels
+    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, plain_kernels, unet_calls
     from phendiff_tpu_torch.ops.flash_attention import flash_attention
     from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
@@ -3377,13 +3408,20 @@ def main() -> None:
 
     # the GroupNorm calls of one forward, by shape, and the launches of one
     per_forward = group_norm_calls(RES)
+    addend_per_forward = unet_calls(ucfg, RES)["group_norm_addend"]
     flash_attention.launches = fused_group_norm.launches = 0
+    fused_group_norm.addend_launches = fused_group_norm.addend_materialised = 0
     denoise(images, torch.full((BATCH,), 500, device="cuda"), src)
     torch.cuda.synchronize()
     attn_per_forward, gn_per_forward = flash_attention.launches, fused_group_norm.launches
     if sum(per_forward.values()) != 41 or gn_per_forward != 41 or attn_per_forward != 6:
         fail(f"expected 41 GroupNorm and 6 attention calls per forward, got "
              f"{sum(per_forward.values())} recorded, {gn_per_forward} and {attn_per_forward}")
+    # the 17 ResnetBlocks' time embeddings go into the GroupNorm kernel
+    addend_counts = (fused_group_norm.addend_launches, fused_group_norm.addend_materialised)
+    if sum(addend_per_forward.values()) != 17 or addend_counts != (17, 0):
+        fail(f"expected 17 GroupNorm launches with an addend and none materialised per "
+             f"forward, got {sum(addend_per_forward.values())} recorded, {addend_counts}")
 
     checks_ok = True
     attn = attention_check(torch, BATCH, 1024, 32, 8, sfu_rate)
@@ -3400,6 +3438,13 @@ def main() -> None:
             rec = gn_bwd_check(torch, BATCH, s, c, groups, act, sfu_rate)
             gn_bwd_recs[(s, c, groups, act)] = rec
             checks_ok &= rec["ok"]
+    addend_recs = {}
+    for s, c, groups, _, _ in sorted(addend_per_forward):
+        addend_recs[(s, c, groups)] = rec = gn_addend_check(torch, BATCH, s, c, groups)
+        checks_ok &= rec["ok"]
+    emit({"phase": "gn_addend", "calls_per_forward": sum(addend_per_forward.values()),
+          **{k: sum(n * addend_recs[key[:3]][k] for key, n in addend_per_forward.items())
+             for k in ("ms", "add_then_gn_ms", "gn_ms", "bound_ms")}})
     copy_check(torch, BATCH, *max(((s, c) for s, c, _, _ in per_forward),
                                   key=lambda sc: sc[0] * sc[1]))
     bwd = attention_bwd_check(torch, BATCH, 1024, 32, 8, sfu_rate)

@@ -41,6 +41,15 @@
 // warp's shuffles reduce the rows that share them.  The per-element work is
 // a few FMAs and, with SiLU, one fast exp and one fast reciprocal.
 //
+// The forward optionally normalises x + a, with a [B, C] per (sample,
+// channel) (a ResnetBlock's time embedding), so the caller need not write
+// the broadcast sum to HBM and read it back.  A block holds one sample, so a
+// thread loads its 8 channels of a once, and the statistics pass adds them
+// as it reads each row, rounds the sum to the input's dtype (as PyTorch's add
+// would) and writes it back over x in the tile, for the normalising pass to
+// read unchanged.  Entries without an addend run the kernel compiled without
+// it (template flag ADD).
+//
 // The backward (gn_bwd_cluster) holds x and g the same way, one launch a
 // call, and is shaped by three limits the H100 showed (PERF.md):
 // - Residency.  Its per-channel constants live in shared memory (ka = rs
@@ -364,12 +373,60 @@ __device__ void tile_sums(cg::cluster_group& cluster, const float (&a)[8],
 // overflows.
 __device__ __forceinline__ float silu(float y) { return __fdividef(y, 1.f + __expf(-y)); }
 
-template <typename T, bool SILU>
+// A thread's 8 channels of the addend, as loaded: 16 bytes of bf16 or 32 of
+// f32.
+template <typename T>
+struct Addend8 {
+  uint4 v[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Addend8<T> load_addend8(const T* p) {
+  Addend8<T> a;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)) / 2; ++i)
+    a.v[i] = reinterpret_cast<const uint4*>(p)[i];
+  return a;
+}
+
+// x + a rounded to T, as PyTorch's add of two T tensors rounds it, written
+// back over x in the tile (the normalising pass reads it there) and returned
+// in f as f32.  bf16: packed bf16 adds, which round the exact sum once;
+// PyTorch rounds the f32 sum, whose 24 bits are more than twice bf16's 8 + 2,
+// and so lands on the same value.
+__device__ __forceinline__ void add_in_place8(__nv_bfloat16* p, const Addend8<__nv_bfloat16>& a,
+                                              float* f) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a.v[0]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __hadd2(h[i], ha[i]);
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ void add_in_place8(float* p, const Addend8<float>& a, float* f) {
+  load8(p, f);
+  const float* fa = reinterpret_cast<const float*>(a.v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] += fa[i];
+  store8(p, f);
+}
+
+// With ADD, the kernel normalises x + addend[b, c] (addend: [B, C] in T)
+// instead of x: each thread keeps its 8 channels' addend in registers, and
+// the statistics pass writes the sum, rounded to T, over x in the tile, so
+// the normalising pass is the same and the sum never reaches HBM.
+template <typename T, bool SILU, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__ scale,
-               const float* __restrict__ bias, T* __restrict__ out,
-               float* __restrict__ mean_out, float* __restrict__ rstd_out, int S, int C,
-               int G, int cb, int rpb, float eps) {
+gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const T* __restrict__ addend,
+               const float* __restrict__ scale, const float* __restrict__ bias,
+               T* __restrict__ out, float* __restrict__ mean_out,
+               float* __restrict__ rstd_out, int S, int C, int G, int cb, int rpb, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.num_blocks());
@@ -392,6 +449,10 @@ gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__
 
   // sums of x and x^2 per channel, box by box as the boxes land
   const VecMap m = vec_map(cb);
+  Addend8<T> a8;
+  if constexpr (ADD) {
+    if (m.active) a8 = load_addend8(addend + b * C + c0 + 8 * m.v);
+  }
   float s[8], q[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) s[i] = q[i] = 0.f;
@@ -403,7 +464,10 @@ gn_fwd_cluster(const __grid_constant__ CUtensorMap tx, const float* __restrict__
         mbar_wait(smem_u32(bars + landed), 0);
       }
       float f[8];
-      load8(xs + r * cb + 8 * m.v, f);
+      if constexpr (ADD)
+        add_in_place8(xs + r * cb + 8 * m.v, a8, f);
+      else
+        load8(xs + r * cb + 8 * m.v, f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         s[i] += f[i];
@@ -736,17 +800,17 @@ gn_bwd_cluster(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   if (k > 1) cluster_wait();
 }
 
-template <typename T, bool SILU, bool BWD>
+template <typename T, bool SILU, bool BWD, bool ADD = false>
 auto kernel_of() {
   if constexpr (BWD)
     return gn_bwd_cluster<T, SILU>;
   else
-    return gn_fwd_cluster<T, SILU>;
+    return gn_fwd_cluster<T, SILU, ADD>;
 }
 
 // Per kernel, once per device: allow the full shared memory, prefer it over
 // L1, and allow clusters above 8.
-template <typename T, bool SILU, bool BWD>
+template <typename T, bool SILU, bool BWD, bool ADD = false>
 cudaError_t prepare() {
   static unsigned long long ready = 0;  // one bit per device
   int dev = 0;
@@ -754,7 +818,7 @@ cudaError_t prepare() {
   if (e != cudaSuccess) return e;
   const unsigned long long bit = 1ull << (dev & 63);
   if (ready & bit) return cudaSuccess;
-  const auto kernel = kernel_of<T, SILU, BWD>();
+  const auto kernel = kernel_of<T, SILU, BWD, ADD>();
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -852,19 +916,20 @@ int encode_rows(CUtensorMap* map, const void* base, long long rows, int C, int c
   return r == CUDA_SUCCESS ? 0 : kErrEncode - static_cast<int>(r);
 }
 
-template <typename T, bool SILU>
-int launch_fwd(const void* x, const float* scale, const float* bias, void* out, float* mean,
-               float* rstd, int B, int S, int C, int G, float eps, int cb, int k, int threads,
-               int smem, cudaStream_t st) {
-  cudaError_t e = prepare<T, SILU, false>();
+template <typename T, bool SILU, bool ADD>
+int launch_fwd(const void* x, const void* addend, const float* scale, const float* bias,
+               void* out, float* mean, float* rstd, int B, int S, int C, int G, float eps,
+               int cb, int k, int threads, int smem, cudaStream_t st) {
+  cudaError_t e = prepare<T, SILU, false, ADD>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rpb = (S + k - 1) / k;
   CUtensorMap tx;
   const int err = encode_rows<T>(&tx, x, static_cast<long long>(B) * S, C, cb, box_rows(rpb));
   if (err != 0) return err;
   ClusterLaunch l(B, C, cb, k, threads, smem, st);
-  e = cudaLaunchKernelEx(&l.cfg, gn_fwd_cluster<T, SILU>, tx, scale, bias,
-                         static_cast<T*>(out), mean, rstd, S, C, G, cb, rpb, eps);
+  e = cudaLaunchKernelEx(&l.cfg, gn_fwd_cluster<T, SILU, ADD>, tx,
+                         static_cast<const T*>(addend), scale, bias, static_cast<T*>(out),
+                         mean, rstd, S, C, G, cb, rpb, eps);
   return static_cast<int>(e);
 }
 
@@ -1345,26 +1410,35 @@ int launch_stream_bwd(const void* x, const void* g, const float* scale, const fl
 
 }  // namespace
 
-// Forward.  x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; out:
-// [B, S, C] contiguous in the same dtype; scale, bias: f32 [C]; mean, rstd:
-// f32 [B, G] (written).  (cb, k, threads, smem) is the launch plan; pointers
-// are 16-byte aligned (the caller checks).  Returns 0 on success, else a
-// CUDA error code, kErrPlan (-1) for a plan that breaks a constraint, or
-// kErrEncode - CUresult for a TMA descriptor that could not be encoded.
-extern "C" int phd_gn_fwd(const void* x, int dtype, const float* scale, const float* bias,
-                          void* out, float* mean, float* rstd, int B, int S, int C, int G,
-                          float eps, int silu, int cb, int k, int threads, int smem,
-                          void* stream) {
+// Forward.  x: [B, S, C] contiguous, dtype code 0 = f32, 1 = bf16; addend:
+// null, or [B, C] contiguous in x's dtype, added to x (the sum rounded to
+// that dtype) before it is normalised; out: [B, S, C] contiguous in the same
+// dtype; scale, bias: f32 [C]; mean, rstd: f32 [B, G] (written).
+// (cb, k, threads, smem) is the launch plan; pointers are 16-byte aligned
+// (the caller checks).  Returns 0 on success, else a CUDA error code,
+// kErrPlan (-1) for a plan that breaks a constraint, or kErrEncode - CUresult
+// for a TMA descriptor that could not be encoded.
+extern "C" int phd_gn_fwd(const void* x, const void* addend, int dtype, const float* scale,
+                          const float* bias, void* out, float* mean, float* rstd, int B,
+                          int S, int C, int G, float eps, int silu, int cb, int k,
+                          int threads, int smem, void* stream) {
   const int esize = dtype == 1 ? 2 : 4;
   const int err = check_plan(esize, B, S, C, G, cb, k, threads, smem);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  if (addend != nullptr) {
+    if (dtype == 1)
+      return silu ? launch_fwd<bf16, true, true>(x, addend, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+                  : launch_fwd<bf16, false, true>(x, addend, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+    return silu ? launch_fwd<float, true, true>(x, addend, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+                : launch_fwd<float, false, true>(x, addend, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+  }
   if (dtype == 1)
-    return silu ? launch_fwd<bf16, true>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
-                : launch_fwd<bf16, false>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
-  return silu ? launch_fwd<float, true>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
-              : launch_fwd<float, false>(x, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+    return silu ? launch_fwd<bf16, true, false>(x, nullptr, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+                : launch_fwd<bf16, false, false>(x, nullptr, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
+  return silu ? launch_fwd<float, true, false>(x, nullptr, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st)
+              : launch_fwd<float, false, false>(x, nullptr, scale, bias, out, mean, rstd, B, S, C, G, eps, cb, k, threads, smem, st);
 }
 
 // Backward.  x, g: [B, S, C] contiguous in one dtype (code as above); mean,

@@ -178,13 +178,12 @@ class ResnetBlock(nn.Module):
             norm2 = dict(num_groups=self.groups2 // tp.size, eps=self.eps,
                          scale=tp.slice(self.norm2_scale), bias=tp.slice(self.norm2_bias),
                          out_dtype=dt)
-        t = t[:, None, None, :]
         if self.time_scale_shift == "scale_shift":
-            scale, shift = t.chunk(2, dim=-1)
+            scale, shift = t[:, None, None, :].chunk(2, dim=-1)
             h = group_norm(h, **norm2)
             h = F.silu(h * (1 + scale) + shift)
-        else:
-            h = group_norm(h + t, act="silu", **norm2)
+        else:  # group_norm(h + t): the kernel adds t as it loads h where it can
+            h = group_norm(h, addend=t, act="silu", **norm2)
         h = self.conv2(h) if tp is None else TP.row_conv(h, self.conv2)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)

@@ -100,19 +100,22 @@ def record_calls(run: Callable[[], object]) -> dict:
     """Run ``run()`` with GroupNorm and attention routed through their plain
     versions (so on the meta device: no data, no kernels) and record every
     call by shape: ``{"group_norm": {(S, C, G, act, itemsize): calls},
-    "attention": {(S_q, S_kv, H, D, itemsize): calls},
-    "single_head_attention": calls}``.  ``gn_kernels.gn_route`` and
-    ``attention.takes_kernel`` say which kernel (or route) each call takes
-    on the card."""
+    "group_norm_addend": {(S, C, G, act, itemsize): calls}`` (those of the
+    GroupNorm calls that take an addend), ``"attention": {(S_q, S_kv, H, D,
+    itemsize): calls}, "single_head_attention": calls}``.
+    ``gn_kernels.gn_route`` and ``attention.takes_kernel`` say which kernel
+    (or route) each call takes on the card."""
     from phendiff_tpu_torch.ops import attention, group_norm
 
-    gn, attn = collections.Counter(), collections.Counter()
+    gn, addend, attn = collections.Counter(), collections.Counter(), collections.Counter()
     single = attention.single_head_attention.calls
     with plain_kernels():
         plain_gn, plain_attn = group_norm.fused_group_norm, attention.attention_plain
 
         def record_gn(x, scale, bias, **kw):
-            gn[(x.shape[1], x.shape[2], kw["num_groups"], kw["act"], x.element_size())] += 1
+            key = (x.shape[1], x.shape[2], kw["num_groups"], kw["act"], x.element_size())
+            gn[key] += 1
+            addend[key] += kw.get("addend") is not None
             return plain_gn(x, scale, bias, **kw)
 
         def record_attn(q, k, v, scale=None):
@@ -125,7 +128,8 @@ def record_calls(run: Callable[[], object]) -> dict:
             run()
         finally:
             attention.attention_plain = plain_attn
-    return {"group_norm": dict(gn), "attention": dict(attn),
+    return {"group_norm": dict(gn), "group_norm_addend": {k: n for k, n in addend.items() if n},
+            "attention": dict(attn),
             "single_head_attention": attention.single_head_attention.calls - single}
 
 

@@ -27,7 +27,13 @@ states in plain PyTorch.  The TPU package has no backward kernel (its
 ``fused_group_norm.launches`` and ``fused_group_norm_bwd.launches`` count
 cluster-kernel launches (one a call), ``.stream_launches`` the streaming
 variant's calls (three kernels a forward call, two a backward call).
-Every launch runs with the current device set to its input's
+The forward cluster kernel also takes an optional addend [B, C] (a
+ResnetBlock's time embedding): it normalises x + addend, the sum formed on
+chip as the kernel reads x and rounded to x's dtype, so the sum is never
+written out.  Where autograd records, or on the streaming route, the
+wrapper forms the sum first (``route_addend``);
+``fused_group_norm.addend_launches`` and ``.addend_materialised`` count the
+two.  Every launch runs with the current device set to its input's
 (``_build.on_tensor_device``), so a tensor on another card than the
 current one launches, and sets the kernels up, on its own card.
 
@@ -226,8 +232,13 @@ def group_norm_plain(
     eps: float,
     act: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
+    addend: Optional[torch.Tensor] = None,  # [B, C]
 ) -> torch.Tensor:
-    """GroupNorm over [B, S, C] with the JAX package's XLA-path semantics."""
+    """GroupNorm over [B, S, C] with the JAX package's XLA-path semantics;
+    with ``addend``, of ``x + addend[:, None, :]`` (PyTorch's add, so a sum
+    of two bf16 tensors is rounded to bf16)."""
+    if addend is not None:
+        x = x + addend[:, None, :]
     b, s, c = x.shape
     xf = x.float().reshape(b, s, num_groups, c // num_groups)
     mean, rstd = _grouped_stats(xf, eps)
@@ -290,7 +301,7 @@ def _fwd_entry():
     fn = _build.load("group_norm_silu").phd_gn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     return fn
@@ -393,9 +404,11 @@ def max_active_clusters(b, s, c, num_groups, dtype, act=None, backward=False) ->
 
 
 @_build.on_tensor_device
-def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
+def _launch(x, scale, bias, num_groups, eps, act, out_dtype, addend=None):
     """Forward kernel, the cluster one or the streaming variant as
-    ``gn_route`` says: (out, mean, rstd), mean and rstd f32 [B, G]."""
+    ``gn_route`` says: (out, mean, rstd), mean and rstd f32 [B, G].  An
+    ``addend`` ([B, C] in x's dtype, the cluster route only) is added to x
+    inside the kernel, the sum rounded to x's dtype."""
     b, s, c = x.shape
     if out_dtype != x.dtype:
         raise TypeError(
@@ -408,9 +421,16 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
     x = _check_input(x, num_groups)
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if addend is not None:
+        if addend.shape != (b, c) or addend.dtype != x.dtype:
+            raise ValueError(f"addend must be [B, C] = [{b}, {c}] in {x.dtype}, got "
+                             f"{tuple(addend.shape)} in {addend.dtype}")
+        addend = _check_input(addend.to(x.device))
     out = torch.empty((b, s, c), dtype=out_dtype, device=x.device)
     stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
     if gn_route(s, c, num_groups, x.element_size()) == "stream":
+        if addend is not None:
+            raise ValueError("the streaming group_norm variant takes no addend")
         nsplit = _stream_splits(b, s, c, x.element_size())
         work = torch.empty(2 * b * nsplit * c, dtype=torch.float32, device=x.device)
         err = _stream_fwd_entry()(
@@ -423,13 +443,14 @@ def _launch(x, scale, bias, num_groups, eps, act, out_dtype):
         return out, stats[0], stats[1]
     plan = gn_plan(s, c, num_groups, x.element_size())
     err = _fwd_entry()(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        b, s, c, num_groups, float(eps), int(act == "silu"),
+        x.data_ptr(), None if addend is None else addend.data_ptr(), _DTYPE_CODES[x.dtype],
+        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), b, s, c, num_groups, float(eps), int(act == "silu"),
         plan.cb, plan.k, plan.threads, plan.smem, _stream(x),
     )
     _build.check(err, "group_norm_silu launch")
     fused_group_norm.launches += 1
+    fused_group_norm.addend_launches += addend is not None
     return out, stats[0], stats[1]
 
 
@@ -503,6 +524,26 @@ class _FusedGroupNorm(torch.autograd.Function):
         return dx, dscale, dbias, None, None, None, None
 
 
+def _records(*tensors) -> bool:
+    """Whether autograd records a graph through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def route_addend(x, scale, bias, addend, num_groups):
+    """The (x, addend) a CUDA call hands the forward kernel.  The addend
+    goes into the kernel where no autograd graph is recorded (the backward
+    kernel takes none), the cluster route holds the shape and the addend is
+    in x's dtype; otherwise the sum ``x + addend[:, None, :]`` is formed
+    first, as the caller would have (``.addend_materialised``), and the
+    addend is None."""
+    _, s, c = x.shape
+    if (not _records(x, scale, bias, addend) and addend.dtype == x.dtype
+            and gn_route(s, c, num_groups, x.element_size()) == "cluster"):
+        return x, addend
+    fused_group_norm.addend_materialised += 1
+    return x + addend[:, None, :], None
+
+
 def fused_group_norm(
     x: torch.Tensor,  # [B, S, C]
     scale: Optional[torch.Tensor],  # [C]
@@ -512,24 +553,30 @@ def fused_group_norm(
     eps: float,
     act: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
+    addend: Optional[torch.Tensor] = None,  # [B, C]
 ) -> torch.Tensor:
-    """GroupNorm (+ affine + SiLU) over [B, S, C], differentiable.
+    """GroupNorm (+ affine + SiLU) over [B, S, C], differentiable; with
+    ``addend``, of ``x + addend[:, None, :]``.
 
     A CUDA tensor goes through the kernels (``out_dtype`` equal to x's; the
     cluster kernels or, where ``gn_route`` says so, the streaming variant)
-    or raises; a CPU tensor goes through ``group_norm_plain``.
+    or raises; a CPU tensor goes through ``group_norm_plain``.  On the card
+    the addend goes into the forward kernel where it can
+    (``.addend_launches``); elsewhere the sum is formed first
+    (``.addend_materialised``), as ``route_addend`` says.  Both give the
+    same bits.
     """
     out_dtype = out_dtype or torch.float32
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups=num_groups, eps=eps, act=act,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, addend=addend)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm runs on cuda or cpu, not {x.device}")
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, scale, bias)
-    ):
+    if addend is not None:
+        x, addend = route_addend(x, scale, bias, addend, num_groups)
+    if _records(x, scale, bias):
         return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps, act, out_dtype)
-    return _launch(x, scale, bias, num_groups, eps, act, out_dtype)[0]
+    return _launch(x, scale, bias, num_groups, eps, act, out_dtype, addend)[0]
 
 
 def _num_splits(b: int, s: int, c: int) -> int:
@@ -619,6 +666,8 @@ def channel_moments(x: torch.Tensor):
 
 fused_group_norm.launches = 0
 fused_group_norm.stream_launches = 0
+fused_group_norm.addend_launches = 0  # forward launches that took an addend
+fused_group_norm.addend_materialised = 0  # calls with an addend that formed the sum first
 fused_group_norm_bwd.launches = 0
 fused_group_norm_bwd.stream_launches = 0
 fused_group_norm_bwd.g_copies = 0  # output gradients the backward had to make contiguous

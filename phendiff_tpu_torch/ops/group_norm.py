@@ -5,7 +5,10 @@ Counterpart of ``phendiff_tpu/ops/group_norm.py`` on its unpacked path
 An NHWC map is handed to ``fused_group_norm`` as a [B, H*W, C] view: on a
 CUDA tensor that is the hand-written kernel, on a CPU tensor the plain
 version ``group_norm_plain``.  Statistics, affine and activation are float32;
-``out_dtype`` is the storage dtype of the result (default float32).
+``out_dtype`` is the storage dtype of the result (default float32).  An
+``addend`` [B, C] normalises ``x + addend[:, None, None, :]`` instead of x;
+on the card, outside autograd, the forward kernel adds it as it loads x, so
+the sum is never written out (``fused_group_norm``).
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ def group_norm(
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
+    addend: Optional[torch.Tensor] = None,  # [B, C]
 ) -> torch.Tensor:
     b, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     out = fused_group_norm(
         x.reshape(b, h * w, c), scale, bias,
-        num_groups=num_groups, eps=eps, act=act, out_dtype=out_dtype,
+        num_groups=num_groups, eps=eps, act=act, out_dtype=out_dtype, addend=addend,
     )
     return out.reshape(b, h, w, c)

@@ -21,6 +21,8 @@ terms in another order).  Through autograd, kernel against the plain path,
 bf16 dx agrees to one bf16 ulp (each side rounds its own f32 dx) and to
 rel L2 1e-4.  The forward's [B, G] mean and rstd agree with the plain
 statistics to f32 rounding of differently ordered sums (rtol, atol 1e-5).
+With an addend the forward kernel is bit-equal (output, mean and rstd) to
+itself on the materialised sum, which PyTorch rounds the same way.
 
 The attention backward is held against ``flash_attention_bwd_plain`` by
 relative L2 error per gradient: in bf16 the kernel takes the row term from
@@ -187,6 +189,41 @@ def test_group_norm_kernel_matches_plain(cuda, s, c, groups, act):
     with pytest.raises(TypeError):  # the kernel writes the input's dtype
         fused_group_norm(x32, scale, bias, num_groups=groups, eps=1e-5,
                          out_dtype=torch.bfloat16)
+
+
+# The second GroupNorm of every ResnetBlock, which takes the time embedding
+# as its addend: (B, S, C, G) of ddim_super_small_128 at batch 128 (clusters
+# of 16, 4 and 1 blocks in bf16) and of sd21_128 at batch 256 (one block)
+GN_ADDEND_SHAPES = [(128, 16384, 64, 32), (128, 4096, 128, 32), (128, 1024, 256, 32),
+                    (256, 256, 320, 32), (256, 64, 640, 32), (256, 16, 1280, 32),
+                    (256, 4, 1280, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,c,groups", GN_ADDEND_SHAPES)
+def test_group_norm_addend_is_bit_equal_to_the_materialised_sum(cuda, b, s, c, groups, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + c)
+    x = (torch.randn(b, s, c, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    addend = torch.randn(b, c, generator=g, device=cuda).to(dtype)
+    scale = torch.randn(c, generator=g, device=cuda)
+    bias = torch.randn(c, generator=g, device=cuda)
+    total = x + addend[:, None, :]
+    for act in (None, "silu"):
+        before = fused_group_norm.addend_launches
+        got = gn_launch(x, scale, bias, groups, 1e-5, act, dtype, addend)
+        want = gn_launch(total, scale, bias, groups, 1e-5, act, dtype)
+        torch.cuda.synchronize()
+        assert fused_group_norm.addend_launches == before + 1
+        for u, w in zip(got, want):  # output, mean, rstd
+            assert torch.equal(u, w)
+        kw = dict(num_groups=groups, eps=1e-5, act=act, out_dtype=dtype)
+        assert torch.equal(fused_group_norm(x, scale, bias, addend=addend, **kw), want[0])
+    # recorded by autograd: the sum is formed first, the same bits
+    before = fused_group_norm.addend_materialised
+    out = fused_group_norm(x, scale.requires_grad_(), bias, addend=addend, **kw)
+    assert fused_group_norm.addend_materialised == before + 1
+    assert torch.equal(out.detach(), want[0])
 
 
 GN_BWD_DX_REL_L2 = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
@@ -396,6 +433,42 @@ def test_unet_on_the_card_runs_through_both_kernels(cuda, dtype):
     assert fused_group_norm.launches - gn0 == 21
     assert flash_attention.launches - attn0 == 4
     assert out.dtype == torch.float32 and out.shape == x.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_unet_forward_with_the_addend_is_bit_equal_to_the_materialised_sum(cuda, monkeypatch):
+    """The ddim_super_small_128 UNet: under no_grad its 17 ResnetBlocks hand
+    the time embedding to the GroupNorm kernel, and the output has the bits
+    of the forward that forms each sum first; under autograd all 17 form it."""
+    from phendiff_tpu_torch.core.precision import cast_matmul_weights
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+
+    model = CondUNet2D(super_small(), dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(0))
+    model = cast_matmul_weights(model.to(cuda))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 128, 128, 3, generator=g, device=cuda)
+    t = torch.tensor([10, 300, 600, 999], device=cuda)
+    labels = torch.tensor([0, 1, 0, 1], device=cuda)
+
+    def counts():
+        return fused_group_norm.addend_launches, fused_group_norm.addend_materialised
+
+    before = counts()
+    with torch.no_grad():
+        got = model(x, t, class_labels=labels)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (17, 0)
+    with monkeypatch.context() as m:  # the sum formed before the call
+        m.setattr(group_norm_mod, "fused_group_norm", lambda xx, s, b, addend=None, **kw: (
+            fused_group_norm(xx if addend is None else xx + addend[:, None, :], s, b, **kw)))
+        with torch.no_grad():
+            want = model(x, t, class_labels=labels)
+    assert torch.equal(got, want)
+    before = counts()
+    model(x, t, class_labels=labels).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 17)
 
 
 @pytest.mark.cuda

@@ -45,6 +45,7 @@ from phendiff_tpu_torch.ops.gn_kernels import (  # noqa: E402
     group_norm_bwd_plain,
     group_norm_plain,
     group_stats_plain,
+    route_addend,
 )
 from phendiff_tpu_torch.ops.group_norm import group_norm  # noqa: E402
 
@@ -137,6 +138,67 @@ def test_group_norm_bf16_out_and_no_affine_match_xla():
     flat = torch.ones(1, 16, 8)
     out = group_norm_plain(flat, None, torch.full((8,), 0.5), num_groups=2, eps=1e-5)
     assert torch.equal(out, torch.full_like(out, 0.5))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_with_addend_normalises_the_rounded_sum(act, dtype):
+    """An addend [B, C] gives the bits of the call on the materialised sum
+    (PyTorch's add, rounded to x's dtype) through every wrapper, and the JAX
+    package's group_norm of the same sum."""
+    rng = np.random.default_rng(11)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    x = torch.from_numpy((rng.standard_normal((2, 4, 4, 24)) * 3 + 1).astype(np.float32)).to(td)
+    t = torch.from_numpy(rng.standard_normal((2, 24)).astype(np.float32)).to(td)
+    scale, bias = (torch.from_numpy(rng.standard_normal(24).astype(np.float32)) for _ in range(2))
+    kw = dict(num_groups=4, eps=1e-5, act=act, out_dtype=td)
+    total = x + t[:, None, None, :]
+    assert total.dtype == td
+    want = group_norm(total, scale=scale, bias=bias, **kw)
+    assert torch.equal(group_norm(x, scale=scale, bias=bias, addend=t, **kw), want)
+    flat = x.reshape(2, 16, 24)
+    for fn in (group_norm_plain, fused_group_norm):
+        got = fn(flat, scale, bias, addend=t, **kw)
+        assert torch.equal(got, fn(flat + t[:, None, :], scale, bias, **kw))
+        assert torch.equal(got.reshape(want.shape), want)
+    want_jax = jax_group_norm(
+        jnp.asarray(x.float().numpy(), jd) + jnp.asarray(t.float().numpy(), jd)[:, None, None, :],
+        num_groups=4, eps=1e-5, scale=jnp.asarray(scale.numpy()), bias=jnp.asarray(bias.numpy()),
+        act=act, out_dtype=jd)
+    tol = dict(atol=F32_ATOL) if dtype == "float32" else dict(rtol=BF16_RTOL, atol=1e-3)
+    np.testing.assert_allclose(want.float().numpy(),
+                               np.asarray(want_jax.astype(jnp.float32)), **tol)
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("no_grad", True), ("params_record_under_no_grad", True), ("x_records", False),
+    ("addend_records", False), ("params_record", False), ("addend_in_f32", False),
+    ("streaming_route", False),
+])
+def test_route_addend_hands_the_kernel_the_addend_only_outside_autograd(case, takes):
+    """The CUDA route's choice, made on CPU tensors: the kernel takes the
+    addend unless autograd records, the shape takes the streaming variant
+    or the addend's dtype is not x's; then the sum is formed and counted."""
+    rng = np.random.default_rng(3)
+    c, groups = (512, 1) if case == "streaming_route" else (24, 4)
+    x = torch.from_numpy(rng.standard_normal((2, 16, c)).astype(np.float32)).to(torch.bfloat16)
+    addend = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32))
+    addend = addend if case == "addend_in_f32" else addend.to(torch.bfloat16)
+    scale, bias = torch.ones(c), torch.zeros(c)
+    x.requires_grad_(case == "x_records")
+    addend.requires_grad_(case == "addend_records")
+    scale.requires_grad_(case.startswith("params_record"))
+    if case == "streaming_route":
+        assert gn_kernels.gn_route(16, c, groups, 2) == "stream"
+    before = gn_kernels.fused_group_norm.addend_materialised
+    with torch.set_grad_enabled(case != "params_record_under_no_grad"):
+        got_x, got_addend = route_addend(x, scale, bias, addend, groups)
+    assert (got_x is x and got_addend is addend) == takes
+    assert gn_kernels.fused_group_norm.addend_materialised - before == (not takes)
+    if not takes:
+        assert got_addend is None
+        assert torch.equal(got_x.detach(), (x + addend[:, None, :]).detach())
+        assert got_x.requires_grad == (case in ("x_records", "addend_records"))
 
 
 def test_wrappers_reject_other_devices():
@@ -520,6 +582,23 @@ def test_attention_routes_count_the_calls_that_skip_the_kernel():
                                  jnp.asarray(kv.numpy()))), atol=1e-6)
     multi_head_attention(q, q, q)  # self-attention at D <= 64: the kernel's route
     assert multi_head_attention.xla_route_calls - before == 1
+
+
+@pytest.mark.parametrize("preset,resnets", [("ddim_super_small_128", 17), ("sd21_latent16", 22)])
+def test_every_resnet_block_hands_its_time_embedding_to_the_second_group_norm(preset, resnets):
+    """The recorder's addend calls: one a ResnetBlock (its second GroupNorm,
+    with SiLU), each on the cluster route, so on the card, outside autograd,
+    each takes the addend into the kernel and no broadcast add is launched."""
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls
+
+    rec = (unet_calls(super_small(), 128) if preset.startswith("ddim")
+           else sd_unet_calls(SDUNetConfig(), 16))
+    assert sum(rec["group_norm_addend"].values()) == resnets
+    for (s, c, groups, act, isz), n in rec["group_norm_addend"].items():
+        assert act == "silu" and n <= rec["group_norm"][(s, c, groups, act, isz)]
+        assert gn_kernels.gn_route(s, c, groups, isz) == "cluster"
 
 
 def test_plain_kernels_route_the_unet_through_plain_versions_and_restore():
