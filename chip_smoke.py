@@ -11,7 +11,8 @@ failure exits non-zero before the final line:
    ``nvcc`` per source, all in parallel, with registers and spills per
    compiled function (``ptxas -v``; the GroupNorm kernels' also on their
    own); a spill in any GroupNorm kernel, or a spill or stack frame in any
-   tensor-core (bf16) attention kernel (6 mma.sync, 3 wgmma), fails the run;
+   tensor-core (bf16) attention kernel (6 mma.sync; 4 wgmma: the D = 64
+   and D = 72 forward, the D = 64 backward's two), fails the run;
 3. kernel checks at the main paths' shapes: each kernel against its plain
    PyTorch version on the same inputs, two calls bit-equal, with its time,
    the plain version's, one library call's (a yardstick the port never
@@ -180,10 +181,19 @@ failure exits non-zero before the final line:
     its checkpoint resumed and its save loaded; ``ComparisonExperiment``
     with ``segmented_sd`` (ddib and guided, 10 steps, batch 8, f32) within
     SEG_CMP_LEVELS uint8 levels of the one-module route.
+30. dit: DiT-XL/2 at 512 px (``models/dit.py``, random weights, bf16),
+    one forward at batch 32 from zeroed attention counters: its 28
+    self-attention calls (B 32, S 1024, H 16, D 72) each one launch of the
+    D = 72 warpgroup kernel, none on the plain route, the output finite,
+    and the forward's time.  The D = 72 forward itself is held against its
+    plain version in phase 3, at that shape in bf16 and at S 300 and 17 in
+    bf16 and f32.
 
 Then a JSON line of all kernels (the D = 64 warpgroup attention kernels as
 rows of their own: their forward's launches on the 512 px SD transfer, their
-backward's on the SD train step, which fail the run if either is 0), the
+backward's on the SD train step, which fail the run if either is 0; the
+D = 72 forward as a row of its own, its times per DiT-XL/2 forward at batch
+32 and its launches on phase 30's forward), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``.  Exits non-zero without CUDA.
 """
@@ -259,6 +269,11 @@ DESIGN = {
                             "m64n64k16 with P in registers and v read transposed; the next "
                             "tile's QK^T and this tile's PV issued together, the two "
                             "warpgroups unsynchronised",
+    "flash_attn_fwd_wgmma_d72": "bf16 D = 72 (DiT-XL/2), forward only, every S: the D = 64 "
+                                "warpgroup forward with a 16-column tail tile per k/v tile "
+                                "(32-byte swizzle, TMA zero fill past column 72), Q K^T "
+                                "contracted over 80 in shared memory, P V as m64n64k16 plus "
+                                "m64n16k16",
     "flash_attn_bwd": "bf16 (D = 8, and D = 64 below WGMMA_MIN_S): two mma.sync kernels (dq "
                       "per q tile; dk/dv per key tile from S^T = K Q^T), p recomputed from "
                       "the saved lse, no atomics; f32: CUDA-core FMA",
@@ -464,9 +479,9 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_functions(log) for name, log in logs.items()}
     # the bf16 attention kernels: mma.sync (*_mma_kernel<D>, D = 8 and 64: the
-    # forward, dq and dk/dv) and the D = 64 warpgroup kernels (*_wgmma_kernel);
-    # none may spill or keep a stack frame (local memory, which ptxas does not
-    # count as a spill)
+    # forward, dq and dk/dv) and the warpgroup kernels (*_wgmma_kernel: the
+    # forward at D = 64 and 72, dq and dk/dv at D = 64); none may spill or
+    # keep a stack frame (local memory, which ptxas does not count as a spill)
     mma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
            for fn, props in ptxas[name].items() if "_mma_kernel" in fn}
     wgmma = {fn: props for name in ("flash_attn_fwd", "flash_attn_bwd")
@@ -480,8 +495,8 @@ def phase_build():
           "tensor_core_kernels_spilling": spills, "group_norm_kernels": gn,
           "group_norm_kernels_spilling": sorted(fn for fn, p in gn.items()
                                                 if p.get("spill_bytes", 0))})
-    if len(mma) != 6 or len(wgmma) != 3 or spills:
-        fail(f"tensor-core attention kernels: expected 6 mma.sync and 3 wgmma kernels without "
+    if len(mma) != 6 or len(wgmma) != 4 or spills:
+        fail(f"tensor-core attention kernels: expected 6 mma.sync and 4 wgmma kernels without "
              f"spills or stack frames, got {mma} and {wgmma}")
     if any(p.get("spill_bytes", 0) for p in gn.values()):
         fail(f"GroupNorm kernels spill: {gn}")
@@ -3356,6 +3371,51 @@ def phase_sd_segmented(torch, env, sd_folder, data):
     return {f"sd_segmented_{k}": v["launches"] for k, v in rec["train"].items()}
 
 
+def phase_dit(torch):
+    """DiT-XL/2 at 512 px (random weights, bf16) at batch 32: one forward's
+    attention launches from zeroed counters (its 28 calls each one launch
+    of the D = 72 warpgroup kernel, none on the plain route) and the
+    forward's time."""
+    from phendiff_tpu_torch.models.dit import DiT, DiTConfig
+    from phendiff_tpu_torch.ops.attention import multi_head_attention
+    from phendiff_tpu_torch.ops.flash_attention import flash_attention
+    from phendiff_tpu_torch.pipelines.latent_vae import build_on
+
+    cfg = DiTConfig()
+    model = build_on(lambda: DiT(cfg, dtype=torch.bfloat16), torch.device("cuda"))
+    model = model.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    model = model.to(torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(BATCH, cfg.input_size, cfg.input_size, cfg.in_channels, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.full((BATCH,), 500, device="cuda")
+    y = torch.arange(BATCH, device="cuda") % cfg.num_classes
+    with torch.no_grad():
+        model(x, t, y)  # warm-up
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention.wgmma_launches = 0
+        plain_before = multi_head_attention.xla_route_calls
+        out = model(x, t, y)
+        torch.cuda.synchronize()
+        launches = attn_launches(flash_attention)
+        plain_route = multi_head_attention.xla_route_calls - plain_before
+        ms = cuda_ms(lambda: model(x, t, y), iters=5, warmup=1)
+    rec = {"phase": "dit", "batch": BATCH, "res": 8 * cfg.input_size, "depth": cfg.depth,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+           "params": sum(p.numel() for p in model.parameters()),
+           "attention_calls": cfg.depth, "launches": launches,
+           "plain_route_calls": plain_route, "finite": bool(torch.isfinite(out).all()),
+           "ms_per_forward": ms}
+    emit(rec)
+    if launches != attn_launches_for("wgmma", cfg.depth) or plain_route or not rec["finite"]:
+        fail(f"DiT-XL/2's forward: expected {cfg.depth} launches of the D = 72 warpgroup kernel "
+             f"and none on the plain route, got {launches} and {plain_route} (finite: "
+             f"{rec['finite']})")
+    del model, x, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mean_of(xs) -> float:
     return sum(xs) / len(xs) if xs else float("nan")
 
@@ -3427,6 +3487,13 @@ def main() -> None:
     attn = attention_check(torch, BATCH, 1024, 32, 8, sfu_rate)
     checks_ok &= attn["ok"]
     checks_ok &= attention_check(torch, 2, 4096, 10, 64, sfu_rate)["ok"]
+    # DiT-XL/2's heads of 72 (the warpgroup kernel at every S in bf16): its
+    # transfer's shape, then a partial 128-key tile and S below one tile
+    dit_attn = attention_check(torch, BATCH, 1024, 16, 72, sfu_rate)
+    checks_ok &= dit_attn["ok"]
+    for s_ragged in (300, 17):
+        for dtype_name in ("bfloat16", "float32"):
+            checks_ok &= attention_check(torch, 2, s_ragged, 3, 72, sfu_rate, dtype_name)["ok"]
     # float32 compute (a pipeline loaded without cast_params) runs the same kernel
     checks_ok &= attention_check(torch, BATCH, 1024, 32, 8, sfu_rate, "float32")["ok"]
     gn_recs, gn_bwd_recs = {}, {}
@@ -3590,6 +3657,9 @@ def main() -> None:
     # -- 29. the stage-per-device SD route -------------------------------------
     seg_launches = phase_sd_segmented(torch, env, sd_folder, sd_data)
 
+    # -- 30. DiT-XL/2's forward on the D = 72 kernel ----------------------------
+    dit = phase_dit(torch)
+
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
     # GroupNorm backward's 41 calls have the forward's shapes).
@@ -3719,6 +3789,21 @@ def main() -> None:
             "launches_by_path": by_path["flash_attn_fwd_wgmma"],
             "sd_per_unet_forward": sd_attn_per_forward(0, "wgmma"),
             "design": DESIGN["flash_attn_fwd_wgmma"],
+        },
+        {
+            # DiT-XL/2's heads of 72, forward only: ms etc. per DiT-XL/2
+            # forward at batch 32, 512 px (its 28 calls at B 32, S 1024,
+            # H 16, each as phase 3's check at that shape); launches on
+            # phase 30's forward
+            "name": "flash_attn_fwd_wgmma_d72", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "phendiff_tpu/ops/flash_attention.py:77",
+            "launches": dit["launches"]["wgmma"], "max_abs_err": dit_attn["max_abs_err"],
+            **{k: dit["attention_calls"] * dit_attn[k]
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": contract_bound(dit_attn["bound_by"]),
+            "launches_by_path": {"dit_forward_b32": dit["launches"]["wgmma"]},
+            "design": DESIGN["flash_attn_fwd_wgmma_d72"],
         },
         {
             "name": "flash_attn_bwd", "route": "cuda",

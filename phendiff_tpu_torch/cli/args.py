@@ -30,7 +30,9 @@ import torch
 from phendiff_tpu_torch.core.device import resolve_device
 from phendiff_tpu_torch.parallel.mesh import init_distributed
 
-MODEL_TYPES = ("DDIM", "StableDiffusion")
+# DiT (models/dit.py) has no JAX counterpart: its pipelines run the
+# comparison, and training refuses it (check_args)
+MODEL_TYPES = ("DDIM", "StableDiffusion", "DiT")
 COMPONENTS = ("denoiser", "autoencoder", "class_embedding")
 PREDICTION_TYPES = ("epsilon", "sample", "v_prediction")
 
@@ -220,6 +222,12 @@ def check_args(args) -> List[str]:
     torch-only ones); returns a list of warnings, raises ValueError on hard
     errors."""
     warnings: List[str] = []
+
+    if args.model_type == "DiT":
+        raise ValueError(
+            "training a DiT is not supported: its learned-sigma loss (the variational "
+            "bound term) and the D = 72 attention backward are not ported; a DiT "
+            "pipeline folder runs the class-transfer comparison (cli/img2img_cli.py)")
 
     # data source (args_checker :80-84)
     if args.dataset_name is None and args.train_data_dir is None:

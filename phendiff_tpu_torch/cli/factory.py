@@ -5,6 +5,8 @@ Counterpart of ``phendiff_tpu/cli/factory.py``:
 * DDIM from a pretrained pipeline folder, or from JSON denoiser/scheduler
   configs;
 * StableDiffusion from a pretrained folder;
+* DiT from a pretrained ``DiTImg2ImgPipeline`` folder (its patch grid fixes
+  the definition: 8 x ``input_size`` px);
 * noise-scheduler config precedence: command-line values >
   ``noise_scheduler_config_path`` JSON > the pretrained config;
 * ``sample_size`` set from the requested definition (divided by the VAE's
@@ -28,6 +30,7 @@ from phendiff_tpu_torch.core.scheduler import SchedulerConfig
 from phendiff_tpu_torch.models.config import UNet2DConfig
 from phendiff_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+from phendiff_tpu_torch.pipelines.dit_img2img import DiTImg2ImgPipeline
 from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
 
 SCHEDULER_CL_OVERRIDES = (
@@ -101,4 +104,14 @@ def load_initial_pipeline(args, dtype: torch.dtype = torch.float32, device: Devi
                 torch.Generator(device=dev).manual_seed(args.seed))
         return dataclasses.replace(pipe, unet_config=unet_cfg, scheduler_config=sched_cfg,
                                    unet=unet)
+    if args.model_type == "DiT":
+        pipe = DiTImg2ImgPipeline.from_pretrained(
+            args.pretrained_model_name_or_path, dtype=dtype, device=dev)
+        dit_cfg = pipe.dit_config
+        if dit_cfg.input_size != definition // 8:
+            raise ValueError(f"a DiT of input_size {dit_cfg.input_size} takes "
+                             f"{8 * dit_cfg.input_size} px, not {definition}")
+        sched_cfg = override_scheduler_config(
+            pipe.scheduler_config, args, args.noise_scheduler_config_path)
+        return dataclasses.replace(pipe, scheduler_config=sched_cfg)
     raise ValueError(f"unknown model_type: {args.model_type}")

@@ -1,4 +1,4 @@
-// Hopper building blocks of the D = 64 bf16 attention kernels
+// Hopper building blocks of the D = 64 (and D = 72 forward) bf16 attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): warpgroup products (wgmma), tiles
 // fed by the Tensor Memory Accelerator (TMA) through an mbarrier ring, and
 // the host side that encodes the tensor maps.
@@ -16,6 +16,16 @@
 //     16 rows, 2048 bytes.
 // In both, 8-row groups lie 1024 bytes apart (the stride byte offset); the
 // leading byte offset is unused at 64 columns (one swizzle atom wide).
+//
+// D = 72 (DiT-XL/2's heads, forward only).  A 144-byte row is no swizzle
+// atom, so a k or v tile is two: columns 0..63 as above, and a tail tile of
+// columns 64..79 with the 32-byte swizzle (chunk c of row r at c ^ ((r / 4)
+// % 2), 8-row groups 256 bytes apart), which TMA reads from a map whose
+// inner extent is 72, so columns 72..79 arrive as zeros: Q K^T pads its
+// contraction to 80 in shared memory, never in device memory.  Q K^T is the
+// four k16 steps over the main tile and one over the tail (K-major); P V is
+// m64n64 over the main tile and m64n16 over the tail (MN-major, a k16 step
+// 512 bytes), whose columns 72..79 are zeros and are not written.
 //
 // Registers.  A is always in registers: q * scale, g, k, v loaded once a
 // block (phd::load_a, the mma.sync A layout, which is wgmma's per warp of
@@ -83,6 +93,18 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Box of a (D, H, S, B) map at (x0, h, s0, b): a column block of rows s0 ..
+// of one (batch, head); columns past the map's D and rows past S arrive as
+// zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                        int x0, int h, int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(h), "r"(s0), "r"(b), "r"(bar)
+      : "memory");
+}
+
 // Box of a flat f32 map at element x0.
 __device__ __forceinline__ void tma_flat(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int x0) {
@@ -131,20 +153,27 @@ __device__ __forceinline__ void init_ring(uint32_t bars) {
 // The producer thread's loop: tile `it` (rows it N .. of one batch and
 // head, from maps m0 and m1, and with r0 the flat rows flat0 + it N of r0
 // and r1) into stage it % STAGES once the consumers released the tile
-// it - STAGES.
-template <int N, int STAGES>
+// it - STAGES.  TAIL (D = 72): the bytes of each tail tile, read from maps
+// t0m and t1m at column 64 after the two main tiles.
+template <int N, int STAGES, int TAIL = 0>
 __device__ __forceinline__ void produce(uint32_t ring, uint32_t rows, uint32_t bars,
                                         int ntiles, const CUtensorMap* m0,
                                         const CUtensorMap* m1, const CUtensorMap* r0,
-                                        const CUtensorMap* r1, int h, int b, int flat0) {
-  constexpr uint32_t TILE = N * 128, ROW = N * 4;
+                                        const CUtensorMap* r1, int h, int b, int flat0,
+                                        const CUtensorMap* t0m = nullptr,
+                                        const CUtensorMap* t1m = nullptr) {
+  constexpr uint32_t TILE = N * 128, ROW = N * 4, STAGE = 2 * TILE + 2 * TAIL;
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % STAGES;
     if (it >= STAGES) mbar_wait(bars + 8 * (STAGES + st), ((it / STAGES) & 1) ^ 1);
-    const uint32_t full = bars + 8 * st, t0 = ring + 2 * st * TILE;
-    mbar_expect_tx(full, 2 * TILE + (r0 ? 2 * ROW : 0));
+    const uint32_t full = bars + 8 * st, t0 = ring + st * STAGE;
+    mbar_expect_tx(full, STAGE + (r0 ? 2 * ROW : 0));
     tma_rows(t0, m0, full, h, it * N, b);
     tma_rows(t0 + TILE, m1, full, h, it * N, b);
+    if constexpr (TAIL > 0) {
+      tma_box(t0 + 2 * TILE, t0m, full, 64, h, it * N, b);
+      tma_box(t0 + 2 * TILE + TAIL, t1m, full, 64, h, it * N, b);
+    }
     if (r0) {
       const uint32_t rw = rows + 2 * st * ROW;
       tma_flat(rw, r0, full, flat0 + it * N);
@@ -187,6 +216,15 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kstep) {
 
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kstep) {
   return desc(tile + 2048u * kstep);
+}
+
+// Descriptor of a [rows, 16] bf16 tail tile with the 32-byte swizzle: 8-row
+// groups 256 bytes apart (both byte offsets, the one a layout one atom wide
+// leaves unread included).  K-major it is one k16 step; MN-major a k16
+// step is 16 rows, 512 bytes.
+__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (16ull << 16) | (16ull << 32) |
+         (3ull << 62);
 }
 
 __device__ __forceinline__ void fence() {
@@ -235,6 +273,20 @@ __device__ __forceinline__ void mma_n64(float* d, const uint32_t* a, uint64_t b,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(acc));
 }
 
+// d (64 x 16, f32) = a (64 x 16, bf16 registers) * B (16 x 16 from `b`)
+// + (acc ? d : 0); TB = 1 reads B transposed (MN-major).
+template <int TB>
+__device__ __forceinline__ void mma_n16(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %14, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %13;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(acc));
+}
+
 // d (64 x 128, f32) = a (64 x 16, bf16 registers) * B (16 x 128 from `b`)
 // + (acc ? d : 0).
 template <int TB>
@@ -273,6 +325,22 @@ __device__ __forceinline__ void mma_abt(float* d, const uint32_t* a, uint32_t ti
     else
       mma_n64<0>(d, a + 4 * k, desc_kmajor(tile, k), k > 0);
   }
+}
+
+// d (64 x N) += a (64 x 16: the fifth k16 step of q * scale) * tail^T, the
+// tail tile [N, 16] K-major: Q K^T's columns 64..79 at D = 72.
+template <int N>
+__device__ __forceinline__ void mma_abt_tail(float* d, const uint32_t* a, uint32_t tail) {
+  static_assert(N == 128, "the D = 72 forward reads 128-key tiles");
+  mma_n128<0>(d, a, desc32(tail), 1);
+}
+
+// d (64 x 16) += P (64 x R in registers) * tail, the tail tile [R, 16] read
+// transposed: P V's columns 64..79 at D = 72.
+template <int R>
+__device__ __forceinline__ void mma_pb_tail(float* d, const uint32_t* p, uint32_t tail) {
+#pragma unroll
+  for (int k = 0; k < R / 16; ++k) mma_n16<1>(d, p + 4 * k, desc32(tail + 512u * k), 1);
 }
 
 // d (64 x 64) += P (64 x R in registers: R / 16 k16 steps of 4) * tile, the
@@ -348,23 +416,26 @@ inline int encoder(EncodeTiledFn* out) {
 // A bf16 [B, S, H, 64] tensor addressed by (batch, seq, head) strides in
 // elements, as a 4-D map (64, H, S, B) read in boxes of `rows` rows of one
 // (batch, head), 128-byte swizzle, zeros past S.  The q/k/v column slices
-// of the fused qkv projection are read in place.  Returns 0, a CUDA error,
-// or kErrEncode - CUresult.
+// of the fused qkv projection are read in place.  With `tail` (D = 72) the
+// map is (72, H, S, B) read in boxes of 16 columns, 32-byte swizzle, so a
+// box at column 64 holds columns 64..71 and zeros.  Returns 0, a CUDA
+// error, or kErrEncode - CUresult.
 inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H,
-                       long long sb, long long ss, long long sh, int rows) {
+                       long long sb, long long ss, long long sh, int rows, bool tail = false) {
   EncodeTiledFn encode;
   const int e = encoder(&encode);
   if (e != 0) return e;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t dims[4] = {tail ? 72u : 64u, static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {tail ? 16u : 64u, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            tail ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode - static_cast<int>(r);
 }

@@ -4,8 +4,9 @@
 // phendiff_tpu/ops/flash_attention.py: o = softmax(q k^T * scale) v for
 // q, k, v of layout [B, S, H, D] in bf16 or f32 (the TPU kernel, too, runs
 // in its input dtype), with f32 softmax and f32 accumulation, and nothing
-// of size [S, S] written to device memory.  D is 8 (the main path) or 64
-// (the SD path); the caller zero-pads other head dims up.  Three designs,
+// of size [S, S] written to device memory.  D is 8 (the main path), 64
+// (the SD path) or 72 (DiT-XL/2, forward only); the caller zero-pads other
+// head dims up.  Three designs,
 // chosen by the caller (ops/flash_attention.py::attention_design) and
 // passed in as `design`:
 //
@@ -16,8 +17,10 @@
 // per score 4*D = 256 flops at 989 TFLOP/s take 0.26 ps, one exp2 at
 // 16 x 132 x 1.98e9 a second 0.24 ps.
 //
-// 1. bf16 D = 64 at S >= the route's threshold: warpgroup products
-// (flash_fwd_wgmma_kernel, helpers in attn_wgmma.cuh).  A block of three
+// 1. bf16 D = 64 at S >= the route's threshold, and bf16 D = 72 at every
+// S: warpgroup products (flash_fwd_wgmma_kernel, helpers in attn_wgmma.cuh;
+// at D = 72 each k and v tile has a 16-column tail tile, attn_wgmma.cuh's
+// header says how).  A block of three
 // warpgroups owns 128 q rows of one (batch, head):
 //   * the producer warpgroup (24 registers a thread by setmaxnreg) has one
 //     thread issue TMA loads of 128-key k and v tiles, 128-byte swizzled,
@@ -43,7 +46,8 @@
 // 128-key ones at every SD shape.  The K/V tiles are re-read from L2 by
 // each of the S / 128 blocks of a (batch, head).
 //
-// 2. bf16 otherwise: mma.sync tensor cores (flash_fwd_mma_kernel).  The TPU
+// 2. bf16 otherwise (D = 8, and D = 64 below the threshold): mma.sync
+// tensor cores (flash_fwd_mma_kernel).  The TPU
 // kernel held a whole [BQ, S] score row in VMEM; a Hopper block cannot, so
 // k and v stream through shared memory and each q row keeps an online
 // softmax (running max m, running sum l, rescaled f32 accumulator):
@@ -220,26 +224,39 @@ __global__ void __launch_bounds__(MMA_THREADS, phd::MMA_MIN_BLOCKS<D>) flash_fwd
   }
 }
 
-// ---- bf16, D = 64, warpgroup products ------------------------------------------
+// ---- bf16, D = 64 and 72, warpgroup products ------------------------------------
 
 constexpr int WG_BN = 128;                      // keys a stage
 constexpr int WG_STAGES = 3;                    // stages of the ring
-constexpr int WG_TILE = WG_BN * 64 * 2;         // bytes of one k or v tile
-// The ring (k then v tile a stage), its 2 x WG_STAGES mbarriers, and room
-// to align the ring to 1024 bytes (the 128-byte swizzle's period).
-constexpr int WG_SMEM = 1024 + 2 * WG_STAGES * WG_TILE + 16 * WG_STAGES;
+constexpr int WG_TILE = WG_BN * 64 * 2;         // bytes of one k or v tile (columns 0..63)
+constexpr int WG_TAIL = WG_BN * 16 * 2;         // bytes of a D = 72 tail tile (64..79)
+// A stage: the k then v tile, at D = 72 their tail tiles after them.
+template <int D>
+constexpr int WG_STAGE = 2 * WG_TILE + (D == 72 ? 2 * WG_TAIL : 0);
+// The ring, its 2 x WG_STAGES mbarriers, and room to align the ring to 1024
+// bytes (the 128-byte swizzle's period).
+template <int D>
+constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE<D> + 16 * WG_STAGES;
 
+// D = 64, or 72 with the tail tiles of attn_wgmma.cuh (ktail and vtail: the
+// maps at column 64; at D = 64 they are not read).
+template <int D>
 __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap ktail, const __grid_constant__ CUtensorMap vtail,
     const bf16* __restrict__ q, bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
     long long q_sb, long long q_ss, long long q_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale) {
+  static_assert(D == 64 || D == 72, "the warpgroup forward takes D = 64 or 72");
   namespace wg = phd::wg;
+  constexpr bool TAIL = D == 72;
+  constexpr int STAGE = WG_STAGE<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t ring = (phd::smem_u32(smem_raw) + 1023u) & ~1023u;
-  // stage st: k tile at ring + 2 st WG_TILE, its v tile next; full[st] at
-  // bars + 8 st, empty[st] at bars + 8 (WG_STAGES + st)
-  const uint32_t bars = ring + 2 * WG_STAGES * WG_TILE;
+  // stage st: k tile at ring + st STAGE, its v tile next (then, at D = 72,
+  // the k and v tails); full[st] at bars + 8 st, empty[st] at
+  // bars + 8 (WG_STAGES + st)
+  const uint32_t bars = ring + WG_STAGES * STAGE;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int ntiles = (S + WG_BN - 1) / WG_BN;
@@ -251,8 +268,15 @@ __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
     if (threadIdx.x == 0) {
       wg::prefetch_map(&kmap);
       wg::prefetch_map(&vmap);
-      wg::produce<WG_BN, WG_STAGES>(ring, 0, bars, ntiles, &kmap, &vmap, nullptr, nullptr, h,
-                                    b, 0);
+      if constexpr (TAIL) {
+        wg::prefetch_map(&ktail);
+        wg::prefetch_map(&vtail);
+        wg::produce<WG_BN, WG_STAGES, WG_TAIL>(ring, 0, bars, ntiles, &kmap, &vmap, nullptr,
+                                               nullptr, h, b, 0, &ktail, &vtail);
+      } else {
+        wg::produce<WG_BN, WG_STAGES>(ring, 0, bars, ntiles, &kmap, &vmap, nullptr, nullptr,
+                                      h, b, 0);
+      }
     }
   } else {
     wg::consumer_registers();
@@ -261,11 +285,17 @@ __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
     const int g = lane >> 2, t = lane & 3;
     const int r_g = blockIdx.x * wg::ROWS + (role - 1) * 64 + warp * 16 + g;  // rows r_g, r_g + 8
 
-    uint32_t qa[16];
-    phd::load_a<64>(qa, q + b * q_sb + h * q_sh, q_ss, r_g, S, t, phd::round_bf16(scale));
+    // q * scale: 4 k16 steps, at D = 72 a fifth whose columns 72..79 are 0
+    constexpr int QA = TAIL ? 20 : 16;
+    uint32_t qa[QA];
+    phd::load_a<D>(qa, q + b * q_sb + h * q_sh, q_ss, r_g, S, t, phd::round_bf16(scale));
+    if constexpr (TAIL) qa[18] = qa[19] = 0u;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: per-lane partial sums
     float acc[32];
     wg::zero<32>(acc);
+    constexpr int AT = TAIL ? 8 : 1;  // the tail's output columns 64..79
+    float acc_t[AT];
+    wg::zero<AT>(acc_t);
     uint32_t pa[WG_BN / 4];  // the previous tile's p, the A operand of its P V
 
     // Scores of tile `it` into s; then, with `pv`, the previous tile's
@@ -276,12 +306,16 @@ __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
       wg::mbar_wait(bars + 8 * st, (it / WG_STAGES) & 1);
       wg::pin<WG_BN / 2>(s);
       wg::pin<32>(acc);
+      if constexpr (TAIL) wg::pin<AT>(acc_t);
       wg::fence();
-      wg::mma_abt<WG_BN>(s, qa, ring + 2 * st * WG_TILE);
+      wg::mma_abt<WG_BN>(s, qa, ring + st * STAGE);
+      if constexpr (TAIL) wg::mma_abt_tail<WG_BN>(s, qa + 16, ring + st * STAGE + 2 * WG_TILE);
       wg::commit();
       if (pv) {
         const int prev = (it + WG_STAGES - 1) % WG_STAGES;
-        wg::mma_pb<WG_BN>(acc, pa, ring + 2 * prev * WG_TILE + WG_TILE);
+        wg::mma_pb<WG_BN>(acc, pa, ring + prev * STAGE + WG_TILE);
+        if constexpr (TAIL)
+          wg::mma_pb_tail<WG_BN>(acc_t, pa, ring + prev * STAGE + 2 * WG_TILE + WG_TAIL);
         wg::commit();
       }
       if (pv)
@@ -344,22 +378,34 @@ __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
       softmax_of(s, it, alpha0, alpha1);
       wg::wait<0>();  // the previous tile's P V is done: its stage is free
       wg::pin<32>(acc);
+      if constexpr (TAIL) wg::pin<AT>(acc_t);
       wg::mbar_arrive(bars + 8 * (WG_STAGES + (it - 1) % WG_STAGES));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         acc[4 * i] *= alpha0; acc[4 * i + 1] *= alpha0;
         acc[4 * i + 2] *= alpha1; acc[4 * i + 3] *= alpha1;
       }
+      if constexpr (TAIL) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc_t[4 * i] *= alpha0; acc_t[4 * i + 1] *= alpha0;
+          acc_t[4 * i + 2] *= alpha1; acc_t[4 * i + 3] *= alpha1;
+        }
+      }
       wg::to_a<WG_BN>(pa, s);
     }
     {
       const int last = (ntiles - 1) % WG_STAGES;
       wg::pin<32>(acc);
+      if constexpr (TAIL) wg::pin<AT>(acc_t);
       wg::fence();
-      wg::mma_pb<WG_BN>(acc, pa, ring + 2 * last * WG_TILE + WG_TILE);
+      wg::mma_pb<WG_BN>(acc, pa, ring + last * STAGE + WG_TILE);
+      if constexpr (TAIL)
+        wg::mma_pb_tail<WG_BN>(acc_t, pa, ring + last * STAGE + 2 * WG_TILE + WG_TAIL);
       wg::commit();
       wg::wait<0>();
       wg::pin<32>(acc);
+      if constexpr (TAIL) wg::pin<AT>(acc_t);
       wg::mbar_arrive(bars + 8 * (WG_STAGES + last));
     }
 
@@ -375,6 +421,14 @@ __global__ void __launch_bounds__(phd::wg::THREADS, 1) flash_fwd_wgmma_kernel(
       if (r_g + 8 < S)
         *reinterpret_cast<uint32_t*>(ob + (r_g + 8) * o_ss + 8 * n) =
             phd::pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
+    if constexpr (TAIL) {  // columns 64..71; 72..79 are the padding's zeros
+      if (r_g < S)
+        *reinterpret_cast<uint32_t*>(ob + r_g * o_ss + 64) =
+            phd::pack_bf16(acc_t[0] * inv0, acc_t[1] * inv0);
+      if (r_g + 8 < S)
+        *reinterpret_cast<uint32_t*>(ob + (r_g + 8) * o_ss + 64) =
+            phd::pack_bf16(acc_t[2] * inv1, acc_t[3] * inv1);
     }
     if (lse && t == 0) {
       float* lb = lse + static_cast<long long>(bh) * S;
@@ -400,7 +454,7 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     float scale) {
-  static_assert(D % 8 == 0 && D <= 64, "D must be a multiple of 8, at most 64");
+  static_assert(D % 8 == 0 && D <= 72, "D must be a multiple of 8, at most 72");
   constexpr int VEC = D / 8;  // 8-float vectors per row
 
   __shared__ __align__(16) float ks[BK][D];
@@ -514,10 +568,10 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 // q, k, v, o: [B, S, H, D] of one dtype, f32 for kFma and bf16 for the
 // other designs, addressed by (batch, seq, head) strides in elements; the D
 // axis is contiguous.  lse: null, or f32 [B, H, S] for each row's
-// log-sum-exp in base-2 units.  D is 8 or 64; every pointer is 16-byte
+// log-sum-exp in base-2 units.  D is 8, 64 or 72; every pointer is 16-byte
 // aligned and every stride a multiple of 8 (the caller checks).  `design`:
-// phd::kFma (the CUDA-core kernel), kMmaSync (the mma.sync kernel) or
-// kWgmma (the warpgroup kernel, D = 64 only).  Returns the CUDA error of
+// phd::kFma (the CUDA-core kernel), kMmaSync (the mma.sync kernel, D = 8
+// or 64) or kWgmma (the warpgroup kernel, D = 64 or 72).  Returns the CUDA error of
 // the launch (0 on success), or kErrEncode - CUresult for a tensor map the
 // driver refused.
 extern "C" int phd_flash_attn_fwd(
@@ -530,25 +584,39 @@ extern "C" int phd_flash_attn_fwd(
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using phd::kFma, phd::kMmaSync, phd::kWgmma;
-  const bool valid = (D == 8 || D == 64) &&
-                     (design == kFma || design == kMmaSync || (design == kWgmma && D == 64));
+  const bool valid = (D == 8 || D == 64 || D == 72) &&
+                     (design == kFma || (design == kMmaSync && D != 72) ||
+                      (design == kWgmma && D != 8));
   if (!valid) return static_cast<int>(cudaErrorInvalidValue);
 #define PHD_ARGS(T)                                                                   \
   static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),       \
       static_cast<T*>(o), lse, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
       v_sh, o_sb, o_ss, o_sh, scale
   if (design == kWgmma) {
-    static unsigned long long ready = 0;
-    const cudaError_t e = phd::wgh::allow_smem(flash_fwd_wgmma_kernel, WG_SMEM, &ready);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    CUtensorMap kmap, vmap;
+    CUtensorMap kmap, vmap, ktail, vtail;
     int err = phd::wgh::encode_bshd(&kmap, k, B, S, H, k_sb, k_ss, k_sh, WG_BN);
     if (err == 0) err = phd::wgh::encode_bshd(&vmap, v, B, S, H, v_sb, v_ss, v_sh, WG_BN);
+    if (err == 0 && D == 72)
+      err = phd::wgh::encode_bshd(&ktail, k, B, S, H, k_sb, k_ss, k_sh, WG_BN, true);
+    if (err == 0 && D == 72)
+      err = phd::wgh::encode_bshd(&vtail, v, B, S, H, v_sb, v_ss, v_sh, WG_BN, true);
     if (err != 0) return err;
     const dim3 grid((S + phd::wg::ROWS - 1) / phd::wg::ROWS, B * H);
-    flash_fwd_wgmma_kernel<<<grid, phd::wg::THREADS, WG_SMEM, st>>>(
-        kmap, vmap, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, S, H, q_sb, q_ss,
-        q_sh, o_sb, o_ss, o_sh, scale);
+    if (D == 64) {
+      static unsigned long long ready = 0;
+      const cudaError_t e = phd::wgh::allow_smem(flash_fwd_wgmma_kernel<64>, WG_SMEM<64>, &ready);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      flash_fwd_wgmma_kernel<64><<<grid, phd::wg::THREADS, WG_SMEM<64>, st>>>(
+          kmap, vmap, kmap, vmap, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, S, H,
+          q_sb, q_ss, q_sh, o_sb, o_ss, o_sh, scale);
+    } else {
+      static unsigned long long ready = 0;
+      const cudaError_t e = phd::wgh::allow_smem(flash_fwd_wgmma_kernel<72>, WG_SMEM<72>, &ready);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      flash_fwd_wgmma_kernel<72><<<grid, phd::wg::THREADS, WG_SMEM<72>, st>>>(
+          kmap, vmap, ktail, vtail, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, S,
+          H, q_sb, q_ss, q_sh, o_sb, o_ss, o_sh, scale);
+    }
   } else if (design == kMmaSync) {
     const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
     if (D == 8)
@@ -559,8 +627,10 @@ extern "C" int phd_flash_attn_fwd(
     const dim3 grid((S + BQ - 1) / BQ, B * H);
     if (D == 8)
       flash_fwd_kernel<8><<<grid, BQ, 0, st>>>(PHD_ARGS(float));
-    else
+    else if (D == 64)
       flash_fwd_kernel<64><<<grid, BQ, 0, st>>>(PHD_ARGS(float));
+    else
+      flash_fwd_kernel<72><<<grid, BQ, 0, st>>>(PHD_ARGS(float));
   }
 #undef PHD_ARGS
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,8 @@
 """Img2img class-transfer comparison experiment engine.
 
 Counterpart of ``phendiff_tpu/experiments/comparison.py`` for
-``ConditionalDDIMPipeline`` and ``SDImg2ImgPipeline`` folders on one device:
+``ConditionalDDIMPipeline`` and ``SDImg2ImgPipeline`` folders on one device,
+and for ``DiTImg2ImgPipeline`` folders (which the JAX engine lacks):
 
 * loads the train (and test) image-folder splits, file names kept for
   output naming, and each named pipeline with ``from_pretrained``, its conv
@@ -22,7 +23,9 @@ Counterpart of ``phendiff_tpu/experiments/comparison.py`` for
 An SD pipeline's transfer runs in its VAE's latent space: the images are
 encoded to their posterior means (times ``scaling_factor``), the method
 runs on the latents with the SD denoiser and ``encode_class``'s
-sequences, and the result is decoded.  ``segmented_sd: true`` runs an SD
+sequences, and the result is decoded; a DiT pipeline's likewise, with
+its labels and, for the cfg method, its null class as the unconditional
+branch (it runs the three methods that need no gradient).  ``segmented_sd: true`` runs an SD
 pipeline's UNet as its chain of stages (``models/sd_segmented.py``; the
 guided method's input gradient one stage's graph at a time, through
 ``forward_with_input_vjp``), and ``pipeline_parallel: true`` (which takes
@@ -76,10 +79,13 @@ from phendiff_tpu_torch.parallel.mesh import (
 from phendiff_tpu_torch.parallel.pp import PipelinedSDUNet
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
+from phendiff_tpu_torch.pipelines.dit_img2img import DiTImg2ImgPipeline
 from phendiff_tpu_torch.pipelines.io import load_model_index
 from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
 
 METHODS = T.TRANSFER_METHODS
+# the methods a DiT pipeline runs: its D = 72 attention has no backward kernel
+NO_GRADIENT_METHODS = METHODS[:3]
 logger = logging.getLogger(__name__)
 
 
@@ -151,8 +157,12 @@ def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int,
     model_out`` and ``-> (model_out, vjp_fn)``) the guided method takes its
     input gradient through ``fwd_vjp``."""
     denoiser, schedule = denoiser or pipe.denoiser_fn(), pipe.schedule
-    is_sd = isinstance(pipe, SDImg2ImgPipeline)
-    embed = pipe.encode_class if is_sd else pipe.class_embeddings
+    latent = isinstance(pipe, (SDImg2ImgPipeline, DiTImg2ImgPipeline))
+    embed = pipe.encode_class if latent else pipe.class_embeddings
+    uncond = getattr(pipe, "uncond_class", None)
+    if isinstance(pipe, DiTImg2ImgPipeline) and method not in NO_GRADIENT_METHODS:
+        raise ValueError(f"a DiT pipeline runs the methods that need no gradient "
+                         f"{NO_GRADIENT_METHODS}, not {method}")
 
     def transfer(x, src_emb, tgt_emb, generator):
         if method == "ddib":
@@ -166,6 +176,7 @@ def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int,
                 guidance_scale=params.guidance_scale,
                 frac_diffusion_skipped=params.frac_diffusion_skipped,
                 num_inference_steps=steps,
+                uncond_emb=uncond(tgt_emb) if uncond is not None else None,
             )
         if method == "linear_interp_custom_guidance_inverted_start":
             with pipe.frozen():
@@ -183,9 +194,9 @@ def _make_transfer_fn(pipe, method: str, params: MethodParams, steps: int,
         raise ValueError(f"unknown transfer method: {method}")
 
     def fn(images, src_labels, tgt_labels, generator):
-        x = pipe.encode_images(images) if is_sd else images
+        x = pipe.encode_images(images) if latent else images
         out = transfer(x, embed(src_labels), embed(tgt_labels), generator)
-        return pipe.decode_latents(out) if is_sd else out
+        return pipe.decode_latents(out) if latent else out
 
     return fn
 
@@ -244,7 +255,8 @@ class ComparisonExperiment:
     def _load_pipeline(self, path: str):
         kind = load_model_index(path).get("_class_name")
         classes = {"ConditionalDDIMPipeline": ConditionalDDIMPipeline,
-                   "SDImg2ImgPipeline": SDImg2ImgPipeline}
+                   "SDImg2ImgPipeline": SDImg2ImgPipeline,
+                   "DiTImg2ImgPipeline": DiTImg2ImgPipeline}
         if kind not in classes:
             raise ValueError(f"unknown pipeline kind {kind} at {path}")
         name = self.config.inference_param_dtype

@@ -1,10 +1,11 @@
 """Multi-head attention dispatch.
 
 Counterpart of ``phendiff_tpu/ops/attention.py``.  Callers hand over
-[B, S, H, D] tensors.  Self-attention with D <= 64 on a CUDA tensor goes to
-the fused kernel (``flash_attention``, bf16 or f32, or it raises).
+[B, S, H, D] tensors.  Self-attention with D <= 72 on a CUDA tensor goes to
+the fused kernel (``flash_attention``, bf16 or f32, or it raises; above
+D = 64, DiT-XL/2's heads of 72, forward only).
 Cross-attention (s_q != s_kv, the SD UNet's 77-token class sequence) and
-self-attention with D > 64 (one head of D = 512 in ``ddpm_unconditional_256``,
+self-attention with D > 72 (one head of D = 512 in ``ddpm_unconditional_256``,
 at S = 256 and in the mid block) take ``attention_plain``, the counterpart
 of the JAX package's ``attention_xla`` (bf16 products, f32 softmax, f32
 accumulation), as that package's dispatcher does for them: it sends every
@@ -12,7 +13,7 @@ call below S = 1024 and every cross-attention to XLA.  On a CPU tensor
 every call takes ``attention_plain``.
 
 ``multi_head_attention.xla_route_calls`` counts the calls routed to
-``attention_plain`` by shape (cross-attention or D > 64), on any device.
+``attention_plain`` by shape (cross-attention or D > 72), on any device.
 ``single_head_attention`` is the SD VAE's mid-block attention, one head of
 D = C as f32 products, which the JAX package also computes outside any
 kernel; ``single_head_attention.calls`` counts it.
@@ -30,7 +31,7 @@ __all__ = ["attention_plain", "multi_head_attention", "single_head_attention",
            "takes_kernel"]
 
 # The widest head the attention kernels take (flash_attention raises above).
-KERNEL_MAX_HEAD_DIM = 64
+KERNEL_MAX_HEAD_DIM = 72
 
 
 def takes_kernel(s_q: int, s_kv: int, head_dim: int) -> bool:

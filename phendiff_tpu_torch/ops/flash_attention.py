@@ -22,10 +22,12 @@ to its input's (``_build.on_tensor_device``).
 
 The design a call takes is ``attention_design(s, d, dtype)``, decided
 here and passed to the C entries: bf16 at D = 64 from ``WGMMA_MIN_S``
-tokens runs the warpgroup kernels (``wgmma`` fed by TMA through an
-mbarrier ring, ``csrc/attn_wgmma.cuh``), other bf16 calls the
-``mma.sync`` kernels, f32 the CUDA-core FMA kernels, because the tensor
-cores take f32 only as TF32, which would miss the f32 tolerances.  The
+tokens, and bf16 at D = 72 at every S, runs the warpgroup kernels
+(``wgmma`` fed by TMA through an mbarrier ring, ``csrc/attn_wgmma.cuh``),
+other bf16 calls the ``mma.sync`` kernels, f32 the CUDA-core FMA kernels,
+because the tensor cores take f32 only as TF32, which would miss the f32
+tolerances.  D = 72 (DiT-XL/2) has forward kernels alone (wgmma and fma):
+a call that needs its gradient raises.  The
 design implies the dtype, which the C entries do not see: they refuse
 only a design that does not fit the head dim.  Either way a CUDA tensor
 launches a kernel or raises: no design falls back to another.
@@ -43,8 +45,10 @@ import torch.nn.functional as F
 from phendiff_tpu_torch.ops import _build
 
 # Head dims the kernel is instantiated for (the main path's 8, the SD
-# path's 64); others are zero-padded up.
-_KERNEL_DIMS = (8, 64)
+# path's 64, DiT-XL/2's 72, forward only); others are zero-padded up.
+_KERNEL_DIMS = (8, 64, 72)
+# Head dims with a backward kernel.
+_BACKWARD_DIMS = (8, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 # The kernels' designs, as the C entries number them (csrc/attn_wgmma.cuh,
 # phd::AttnDesign); fma takes f32 tensors, the others bf16.
@@ -64,7 +68,8 @@ def attention_design(s: int, d: int, dtype: torch.dtype) -> str:
         return "fma"
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernels take one of bf16/f32, got {dtype}")
-    return "wgmma" if _kernel_dim(d) == 64 and s >= WGMMA_MIN_S else "mma_sync"
+    kd = _kernel_dim(d)
+    return "wgmma" if kd == 72 or (kd == 64 and s >= WGMMA_MIN_S) else "mma_sync"
 
 
 def attention_plain(
@@ -116,7 +121,7 @@ def _kernel_dim(d: int) -> int:
     for kd in _KERNEL_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"flash_attention kernel supports head dims up to 64, got {d}")
+    raise ValueError(f"flash_attention kernel supports head dims up to 72, got {d}")
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -252,11 +257,13 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None
 ) -> torch.Tensor:
-    """[B, S, H, D] fused self-attention, differentiable.
+    """[B, S, H, D] fused self-attention, differentiable up to D = 64.
 
-    A CUDA tensor goes through the kernels (bf16 or f32, D <= 64; other
-    head dims are zero-padded up to 8 or 64, which adds zero to every
-    score) or raises; a CPU tensor goes through ``attention_plain``.
+    A CUDA tensor goes through the kernels (bf16 or f32, D <= 72; other
+    head dims are zero-padded up to 8, 64 or 72, which adds zero to every
+    score) or raises; above D = 64 (the forward-only D = 72 kernels) a call
+    that needs a gradient raises.  A CPU tensor goes through
+    ``attention_plain``.
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -265,9 +272,13 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     d = q.shape[-1]
     kd = _kernel_dim(d)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if grad and kd not in _BACKWARD_DIMS:
+        raise ValueError(f"flash_attention has no backward kernel at head dim {d} (kernel "
+                         f"dim {kd}): call it under no_grad or on inputs that need no gradient")
     if kd != d:
         q, k, v = (F.pad(t, (0, kd - d)) for t in (q, k, v))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if grad:
         o = _FlashAttention.apply(q, k, v, scale)
     else:
         o = _launch(q, k, v, scale)

@@ -39,32 +39,20 @@ from phendiff_tpu_torch.core import scheduler as S
 from phendiff_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from phendiff_tpu_torch.core.precision import cast_matmul_weights
 from phendiff_tpu_torch.core.rng import derive_seed
-from phendiff_tpu_torch.models.autoencoder_kl import (
-    AutoencoderKL,
-    AutoencoderKLConfig,
-    decode_from_latents,
-    encode_to_latents,
-)
+from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
 from phendiff_tpu_torch.models.convert import from_flax_params, to_flax_params
 from phendiff_tpu_torch.models.embeddings import ClassEmbedding, pad_to_clip_sequence
 from phendiff_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
 from phendiff_tpu_torch.models.unet2d import init_flax_weights
 from phendiff_tpu_torch.pipelines import conditional_ddim as sampler
 from phendiff_tpu_torch.pipelines import io
+from phendiff_tpu_torch.pipelines.latent_vae import VAELatents, build_on
 
 CLIP_SEQ_LEN = 77
 
 
-def _build(module_fn, device: torch.device) -> torch.nn.Module:
-    """A module built on the meta device, then given storage on ``device``
-    (no default initialisation of the full-width weights on the host)."""
-    with torch.device("meta"):
-        module = module_fn()
-    return module.to_empty(device=device)
-
-
 @dataclasses.dataclass
-class SDImg2ImgPipeline:
+class SDImg2ImgPipeline(VAELatents):
     unet_config: SDUNetConfig
     vae_config: AutoencoderKLConfig
     scheduler_config: S.SchedulerConfig
@@ -93,10 +81,10 @@ class SDImg2ImgPipeline:
         unless ``device`` says otherwise."""
         dev = resolve_device(device)
         gens = [torch.Generator(device=dev).manual_seed(derive_seed(seed, i)) for i in range(3)]
-        unet = _build(lambda: SDUNet(unet_config, dtype=dtype), dev).init_weights(gens[0])
-        vae = _build(lambda: AutoencoderKL(vae_config, dtype=dtype), dev).init_weights(gens[1])
+        unet = build_on(lambda: SDUNet(unet_config, dtype=dtype), dev).init_weights(gens[0])
+        vae = build_on(lambda: AutoencoderKL(vae_config, dtype=dtype), dev).init_weights(gens[1])
         ce = init_flax_weights(
-            _build(lambda: ClassEmbedding(num_classes, class_embedding_dim), dev), gens[2])
+            build_on(lambda: ClassEmbedding(num_classes, class_embedding_dim), dev), gens[2])
         return cls(unet_config, vae_config, scheduler_config, unet, vae, ce)
 
     @classmethod
@@ -120,7 +108,7 @@ class SDImg2ImgPipeline:
         ce_raw = parts["class_embedding"][0]
 
         def load(module_fn, name):
-            module = _build(module_fn, dev)
+            module = build_on(module_fn, dev)
             module.load_state_dict(from_flax_params(parts[name][1], module))
             return module
 
@@ -251,18 +239,6 @@ class SDImg2ImgPipeline:
                 p.requires_grad_(flag)
 
     # -- latent plumbing -----------------------------------------------------
-    @torch.no_grad()
-    def encode_images(self, images: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[-1, 1] NHWC images -> scaled latents in the VAE's dtype: the
-        posterior's mean, or a sample of it drawn from ``generator``."""
-        return encode_to_latents(self.vae, images.to(self.device), generator)
-
-    @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Scaled latents -> [-1, 1] NHWC images in the VAE's dtype."""
-        return decode_from_latents(self.vae, latents.to(self.device))
-
     def prepare_latents(self, image: Optional[torch.Tensor], batch_size: int,
                         generator: Optional[torch.Generator]) -> torch.Tensor:
         res, c = self.unet_config.sample_size, self.unet_config.in_channels

@@ -32,7 +32,7 @@ latency (``obs/profiling.py``).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -111,9 +111,11 @@ def cfg_forward_start(
     frac_diffusion_skipped: float = 0.5,
     num_inference_steps: int = 100,
     guidance_equation: str = "imagen",
+    uncond_emb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Partial forward noising (drawn from ``generator``) + CFG
-    regeneration toward the target class."""
+    regeneration toward the target class; the unconditional branch takes
+    ``uncond_emb`` (zeros by default)."""
     return cd.ddim_sample(
         denoiser, schedule, target_emb,
         start_image=images,
@@ -122,6 +124,7 @@ def cfg_forward_start(
         num_inference_steps=num_inference_steps,
         frac_diffusion_skipped=frac_diffusion_skipped,
         guidance=cd.GuidanceConfig(guidance_scale, guidance_equation),
+        uncond_emb=uncond_emb,
     )
 
 

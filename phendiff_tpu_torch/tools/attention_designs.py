@@ -16,10 +16,21 @@ with the sums over a UNet forward (input backward) for each design, the
 route's choice and SDPA, then the ``nvidia-smi`` name and power limit.
 
     python -m phendiff_tpu_torch.tools.attention_designs
+
+``--dit`` times the forward alone at DiT-XL/2's shape instead (batch 32 at
+512 px: 16 heads of 72 over 1024 tokens; q, k, v views of one fused
+[B, S, 3, H, 72] qkv): the warpgroup kernel (the one bf16 design at
+D = 72) and SDPA's forward (which rounds D = 72 up to its own kernel's
+head dim), a, b, b, a, each as device time of 10 calls in a CUDA graph,
+with the kernel's worst gap to ``attention_plain`` and each one's share of
+the roofline at D = 72.
+
+    python -m phendiff_tpu_torch.tools.attention_designs --dit
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -29,6 +40,9 @@ import torch.nn.functional as F
 from phendiff_tpu_torch.obs.profiling import events_ms, graph_ms
 from phendiff_tpu_torch.ops import _build
 from phendiff_tpu_torch.ops import flash_attention as fa
+
+# the bf16 tensor cores' dense peak, FLOP/s (H100 SXM data sheet)
+BF16_PEAK = 989e12
 
 HEADS = (5, 10, 20, 20)  # SD-2.1's heads of 64 by level
 CALLS = (5, 5, 5, 1)  # self-attention calls by level in one UNet forward
@@ -66,11 +80,41 @@ def time_shape(b: int, s: int, h: int) -> dict:
     return rec
 
 
+def time_dit(b: int = 32, s: int = 1024, h: int = 16, d: int = 72) -> dict:
+    """ms of the warpgroup forward at DiT-XL/2's shape, and SDPA's."""
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(s + h)
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dt)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = d**-0.5
+    rec = {"batch": b, "S": s, "heads": h, "D": d, "route": fa.attention_design(s, d, dt)}
+    got = fa._launch(q, k, v, scale, design="wgmma").float()
+    rec["wgmma_max_abs_gap"] = float((got - fa.attention_plain(q, k, v).float()).abs().max())
+    del got
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    calls = {"wgmma": lambda: fa._launch(q, k, v, scale, design="wgmma"),
+             "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+    times: dict = {"wgmma": [], "sdpa": []}
+    for key in ("wgmma", "sdpa", "sdpa", "wgmma"):
+        times[key].append(graph_ms(calls[key], ITERS))
+    flops = 4.0 * b * h * s * s * d
+    for key, t in times.items():
+        rec[f"{key}_fwd_ms"] = min(t)
+        rec[f"{key}_roofline_pct"] = 100.0 * flops / BF16_PEAK / (min(t) / 1e3)
+    rec["runs"] = times
+    return rec
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dit", action="store_true", help="DiT-XL/2's D = 72 forward alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_designs needs an NVIDIA GPU")
     _build.build(["flash_attn_fwd", "flash_attn_bwd"])
-    for run, (b, latent) in RUNS.items():
+    if args.dit:
+        print(json.dumps(time_dit()), flush=True)
+    for run, (b, latent) in ({} if args.dit else RUNS).items():
         recs = []
         for level, (h, n) in enumerate(zip(HEADS, CALLS)):
             rec = time_shape(b, (latent >> level) ** 2, h)

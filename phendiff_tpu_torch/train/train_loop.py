@@ -48,9 +48,10 @@ at most ``UPDATE_CHUNK`` elements each, not a copy of every moment.
 A step is one ``train/step`` span (it records the step's latency) over
 the spans of its phases (``obs/profiling.py``):
 ``train/encode``, ``train/forward`` (class embedding, CFG drop, loss),
-``train/backward`` (``autograd.grad``, zero fill), ``train/optimizer``
-(clip factor, AdamW) and ``train/ema``; the all-reduce and the
-``grad_norm`` metric are the step's own time.
+``train/backward`` (``autograd.grad``, zero fill), ``train/allreduce`` (the
+mean over the data group, a unit span that records its latency),
+``train/optimizer`` (clip factor, AdamW) and ``train/ema``; the
+``grad_norm`` metric is the step's own time.
 """
 
 from __future__ import annotations
@@ -460,7 +461,8 @@ def make_train_step(
             # the mean over the data group (a no-op in one process): one flat
             # all-reduce of the computed gradients and the loss
             loss = loss.detach()
-            all_reduce_mean_([grads[n] for n in names] + [loss])
+            with annotate("train/allreduce", device=images.device):
+                all_reduce_mean_([grads[n] for n in names] + [loss])
             grad_norm = global_norm(list(grads.values()), [n in opt.sharded for n in grads])
             with annotate("train/optimizer"):
                 opt.update(grads, state.opt_state, params)

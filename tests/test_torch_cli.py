@@ -92,8 +92,11 @@ def test_parser_takes_every_flag_of_the_jax_parser():
     assert set(jax_opts) <= set(port_opts)
     for opt, a in jax_opts.items():
         b = port_opts[opt]
+        # the port's model types are the JAX parser's and DiT, which the JAX
+        # package lacks
+        choices = tuple(a.choices) + ("DiT",) if opt == "--model_type" else a.choices
         assert (b.dest, b.choices, b.default, b.nargs, b.required, b.const, type(b)) == (
-            a.dest, a.choices, a.default, a.nargs, a.required, a.const, type(a)), opt
+            a.dest, choices, a.default, a.nargs, a.required, a.const, type(a)), opt
         assert getattr(b.type, "__name__", b.type) == getattr(a.type, "__name__", a.type), opt
     flags = _launch_script_flags()
     assert "--proba_uncond" in flags and "--definition" in flags
@@ -140,6 +143,18 @@ CHECK_CASES = [
     (["--debug", "--nb_generated_images", "40"], {}, BASE),
     (["--debug", "--max_num_steps", "5", "--train_batch_size", "32"], {}, SD),
 ]
+
+
+def test_training_refuses_dit():
+    args = A.build_parser().parse_args(
+        ["--run_name", "t", "--model_type", "DiT", "--train_data_dir", "/tmp/x",
+         "--pretrained_model_name_or_path", "/tmp/p", "--eval_save_model_every_epochs", "1"])
+    with pytest.raises(ValueError, match="training a DiT is not supported"):
+        A.check_args(args)
+    with pytest.raises(ValueError, match="training a DiT is not supported"):
+        train_cli.main(["--run_name", "t", "--model_type", "DiT", "--train_data_dir", "/tmp/x",
+                        "--pretrained_model_name_or_path", "/tmp/p",
+                        "--eval_save_model_every_epochs", "1", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("extra,attrs,base", CHECK_CASES)

@@ -31,7 +31,10 @@ than the plain version, so single bf16 roundings of ds flip (5e-3); in f32 the t
 rounding and the exp2 approximation (1e-5; 7e-7 measured).  Gradients of a
 whole UNet in f32 through the kernels match the plain path to rel L2 1e-3
 per tensor (f32 rounding through a few dozen layers).  Channel moments are f32 sums
-of up to 8192 terms in another order (rtol 1e-4, atol 1e-2).
+of up to 8192 terms in another order (rtol 1e-4, atol 1e-2).  The D = 72
+forward (DiT-XL/2's heads) takes the attention tolerances above; a tiny
+DiT on the card against its CPU forward agrees to rel L2 1e-4 in f32 and
+3e-2 in bf16 (bf16 activations through two blocks, ~5e-3).
 """
 
 import math
@@ -518,6 +521,112 @@ def test_flash_attention_takes_the_design_attention_design_names(cuda, s, h, d, 
     took = [(n - n0, w - w0) for (n, w), (n0, w0) in zip(counts(), before)]
     assert took == [(1, int(want == "wgmma"))] * 2
     assert (want == "wgmma") == (dtype == torch.bfloat16 and d == 64 and s >= WGMMA_MIN_S)
+
+
+def _dit_qkv(cuda, b, s, h, dtype, seed):
+    """q, k, v [B, S, H, 72] as DiT hands them over: views of one fused
+    [B, S, 3, H, 72] qkv projection."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, 72, generator=g, device=cuda).to(dtype)
+    return qkv, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+@pytest.mark.parametrize("b,s,h", [(2, 1024, 16), (2, 300, 3), (1, 1000, 4), (2, 17, 2)])
+def test_flash_attention_d72_forward_matches_plain(cuda, b, s, h, dtype, design):
+    """DiT-XL/2's heads (D = 72) at its shape and at ragged S (one
+    partial 128-key tile, S below one tile), each dtype's design forced and
+    through ``flash_attention``'s route, once a call."""
+    from phendiff_tpu_torch.ops import flash_attention as fa
+
+    _, (q, k, v) = _dit_qkv(cuda, b, s, h, dtype, s + h)
+    out = fa._launch(q, k, v, 72**-0.5, design=design)
+    torch.cuda.synchronize()
+    ref = attention_plain(q, k, v)
+    assert out.shape == (b, s, h, 72) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[dtype])
+    before = (flash_attention.launches, flash_attention.wgmma_launches)
+    routed = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = fa.attention_design(s, 72, dtype)
+    assert (flash_attention.launches - before[0], flash_attention.wgmma_launches - before[1]) \
+        == (1, int(want == "wgmma"))
+    assert want == design
+    torch.testing.assert_close(routed.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_d72_refuses_the_mma_sync_design(cuda):
+    """D = 72 has no mma.sync kernel: the C entry refuses the design and
+    launches nothing."""
+    from phendiff_tpu_torch.ops import flash_attention as fa
+
+    _, (q, k, v) = _dit_qkv(cuda, 1, 300, 2, torch.bfloat16, 3)
+    with pytest.raises(RuntimeError):
+        fa._launch(q, k, v, 72**-0.5, design="mma_sync")
+
+
+@pytest.mark.cuda
+def test_flash_attention_d72_reads_the_qkv_views_in_place(cuda):
+    """No copy of q, k or v: the call allocates its output alone."""
+    from phendiff_tpu_torch.ops import flash_attention as fa
+
+    _, (q, k, v) = _dit_qkv(cuda, 4, 1024, 16, torch.bfloat16, 5)
+    assert all(fa._aligned(t) for t in (q, k, v)) and not q.is_contiguous()
+    flash_attention(q, k, v)  # the kernels built and loaded
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    out_bytes = out.numel() * out.element_size()
+    slack = 1 << 20
+    assert torch.cuda.max_memory_allocated(cuda) - before <= out_bytes + slack
+    assert q.numel() * q.element_size() > slack  # a copy of q, k or v would show
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_d72_with_a_gradient_raises(cuda, dtype):
+    qkv, (q, k, v) = _dit_qkv(cuda, 1, 256, 2, dtype, 9)
+    qkv.requires_grad_()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim 72"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dim 72"):
+        attention_mod.multi_head_attention(q, k, v)
+    assert flash_attention.launches == launches  # nothing launched, no other route taken
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_attention.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dit_on_the_card_takes_the_d72_kernel(cuda, dtype):
+    """A DiT of DiT-XL/2's head dim: every self-attention call on the
+    kernel (none on the plain route), against its own CPU forward."""
+    from phendiff_tpu_torch.models.dit import DiT, DiTConfig
+
+    cfg = DiTConfig(input_size=32, hidden_size=144, depth=2, num_heads=2, num_classes=10)
+    torch.manual_seed(0)
+    model = DiT(cfg).init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 32, 32, 4)
+    t, y = torch.tensor([10, 900]), torch.tensor([1, 10])
+    with torch.no_grad():
+        want = model(x, t, y)
+        model.to(cuda)
+        model.dtype = dtype
+        xla, launches = attention_mod.multi_head_attention.xla_route_calls, \
+            flash_attention.launches
+        got = model(x.to(cuda), t.to(cuda), y.to(cuda))
+    torch.cuda.synchronize()
+    assert attention_mod.multi_head_attention.xla_route_calls == xla
+    assert flash_attention.launches == launches + cfg.depth
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_l2(got.float().cpu(), want) < tol
 
 
 GN_AUTOGRAD_DX_REL_L2 = 1e-4

@@ -561,6 +561,19 @@ def test_attention_design_takes_wgmma_only_for_bf16_d64_from_the_threshold():
         attention_design(4096, 64, torch.float16)
 
 
+def test_attention_design_takes_wgmma_for_bf16_d72_at_every_s():
+    """DiT-XL/2's heads of 72 have one bf16 design, the warpgroup kernel,
+    below WGMMA_MIN_S too (D = 72 has no mma.sync kernel); f32 takes fma."""
+    from phendiff_tpu_torch.ops.flash_attention import WGMMA_MIN_S, attention_design
+
+    for s in (1, 17, 256, 300, 1024, 4096, WGMMA_MIN_S - 1):
+        for d in (72, 65):  # 65 is padded up to 72
+            assert attention_design(s, d, torch.bfloat16) == "wgmma"
+            assert attention_design(s, d, torch.float32) == "fma"
+    with pytest.raises(ValueError):
+        attention_design(1024, 73, torch.bfloat16)
+
+
 def test_attention_routes_count_the_calls_that_skip_the_kernel():
     from phendiff_tpu_torch.models.config import UNet2DConfig
     from phendiff_tpu_torch.models.unet2d import CondUNet2D

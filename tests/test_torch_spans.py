@@ -33,7 +33,7 @@ TINY = UNet2DConfig(
     up_block_types=("AttnUpBlock2D", "UpBlock2D"),
     layers_per_block=1, norm_num_groups=4, attention_head_dim=4, num_class_embeds=2,
 )
-PHASES = ["train/forward", "train/backward", "train/optimizer", "train/ema"]
+PHASES = ["train/forward", "train/backward", "train/allreduce", "train/optimizer", "train/ema"]
 
 
 @pytest.fixture(autouse=True)
@@ -264,6 +264,51 @@ def test_ddib_has_a_denoiser_span_a_call(steps):
     # each call ran inside its span, which closed before the next call
     assert [c.count if c else 0 for c in calls] == list(range(4 * steps))
     assert len(calls) == 4 * steps and rec.latency_ms("transfer/denoise") == []
+
+
+def test_a_dit_call_records_its_three_spans_under_the_denoiser_span():
+    from phendiff_tpu_torch.models import dit as D
+
+    cfg = D.DiTConfig(input_size=4, hidden_size=144, depth=2, num_heads=2, num_classes=3)
+    model = D.DiT(cfg).init_weights(torch.Generator().manual_seed(0))
+    sched = S.make_schedule(S.SchedulerConfig(num_train_timesteps=20, clip_sample=False),
+                            device="cpu")
+    x = torch.randn(2, 4, 4, 4)
+    glue, calls = D.glue_launches, D.forward_calls
+    with profiling.recording() as rec:
+        ddib(lambda z, t, y: model.eps_of(model(z, t, y)), sched, x, torch.tensor([0, 1]),
+             torch.tensor([1, 0]), num_inference_steps=2)
+    parts = ["dit/condition", "dit/blocks", "dit/final"]
+    assert _names(rec.spans()) == (parts + ["transfer/denoise"]) * 4
+    for root in rec.spans("transfer/denoise"):
+        inner = [s for s in rec.spans() if s.name in parts
+                 and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns]
+        assert _names(inner) == parts
+    assert D.forward_calls - calls == 4
+    assert D.glue_launches - glue == 4 * (7 * cfg.depth + 2)
+
+
+def test_train_allreduce_is_a_span_of_the_step_under_a_world_one_gloo_group(tmp_path):
+    import torch.distributed as dist
+
+    from phendiff_tpu_torch.parallel import mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdzv'}", rank=0,
+                            world_size=1)
+    try:
+        step, state = _tiny_step(None)
+        images, labels = _batch()
+        draws = T.make_draws(0, 0, (3, 8, 8, 3), 20, 0.5, "cpu")
+        with profiling.recording() as rec:
+            state, metrics = step(state, (images, labels), draws)
+        (root,) = rec.spans("train/step")
+        (reduce,) = rec.spans("train/allreduce")
+        assert _names(rec.spans()[:-1]) == PHASES
+        assert rec.last("train/backward").end_ns <= reduce.start_ns
+        assert reduce.end_ns <= rec.last("train/optimizer").start_ns <= root.end_ns
+        assert np.isfinite(float(metrics["loss"]))
+    finally:
+        mesh.destroy()
 
 
 def test_step_timer_gives_whole_run_rates(monkeypatch):
