@@ -215,6 +215,9 @@ SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
 # tensor-core rate, f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
+# The fused DiT boundary kernel's least share of its byte bound at
+# DiT-XL/2's shape in bf16 (80% measured on an H100 80GB HBM3 at 700 W).
+ADALN_MIN_SHARE_OF_BOUND = 0.75
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 # Special-function unit: 16 exp2 results per clock per SM (CUDA C
@@ -284,6 +287,12 @@ DESIGN = {
                             "scale and the padded lse/delta rows), then dk/dv per 128 keys "
                             "(S^T, dP^T over q*scale/g K-major, dV += P^T G and dK += dS^T Q "
                             "transposed); fixed order, no atomics",
+    "adaln_norm": "DiT's sub-layer boundary in one pass: a warp a row of 1152, each lane 4-5 "
+                  "16-byte vectors of x and y in registers, x' = x + gate y rounded once and "
+                  "written, mean and centred squares over the stored x' by warp shuffles, z = "
+                  "LN(x') (1 + scale) + shift rounded once; the [B, C] rows through L1 at "
+                  "their row stride; 8 warps a block on consecutive rows, 2 rows a warp, 64 "
+                  "registers",
     "group_norm_silu": "one launch: a (sample, channel slice of whole groups) tile split over "
                        "a thread-block cluster, each block's rows in shared memory by TMA "
                        "boxes, f32 sums as the boxes land, combined in rank order through "
@@ -494,12 +503,18 @@ def phase_build():
           "ptxas": ptxas, "mma_kernels": len(mma), "wgmma_kernels": len(wgmma),
           "tensor_core_kernels_spilling": spills, "group_norm_kernels": gn,
           "group_norm_kernels_spilling": sorted(fn for fn, p in gn.items()
+                                                if p.get("spill_bytes", 0)),
+          "adaln_norm_kernels_spilling": sorted(fn for fn, p in ptxas["adaln_norm"].items()
                                                 if p.get("spill_bytes", 0))})
     if len(mma) != 6 or len(wgmma) != 4 or spills:
         fail(f"tensor-core attention kernels: expected 6 mma.sync and 4 wgmma kernels without "
              f"spills or stack frames, got {mma} and {wgmma}")
     if any(p.get("spill_bytes", 0) for p in gn.values()):
         fail(f"GroupNorm kernels spill: {gn}")
+    # five row widths (vectors a lane) x three variants x bf16 and f32
+    adaln = {fn: p for fn, p in ptxas["adaln_norm"].items() if "adaln_norm_kernel" in fn}
+    if len(adaln) != 30 or any(p.get("spill_bytes", 0) for p in adaln.values()):
+        fail(f"DiT boundary kernels: expected 30 without spills, got {adaln}")
 
 
 def bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype) -> str:
@@ -3371,12 +3386,65 @@ def phase_sd_segmented(torch, env, sd_folder, data):
     return {f"sd_segmented_{k}": v["launches"] for k, v in rec["train"].items()}
 
 
+def adaln_check(torch):
+    """The fused DiT boundary kernel at DiT-XL/2's (32, 1024, 1152) in bf16:
+    each variant once against the composition (x' within one bf16 ulp of
+    ``addcmul``'s, z no farther from the f32 composition than the bf16
+    composition is), and the full variant's device time in a CUDA graph
+    against its byte bound (x and y read, x' and z written) and the bf16
+    composition (the library yardstick) and the f32 one (the plain
+    version)."""
+    from phendiff_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_plain
+
+    b, s, c = BATCH, 1024, 1152
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x, y = (torch.randn(b, s, c, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    mod = (0.5 * torch.randn(b, 6, c, generator=g, device="cuda")).to(torch.bfloat16)
+    mod[:, 1::3] += 1
+    shift, scale1p, gate = mod[:, 3], mod[:, 4], mod[:, 2]  # unbind views, row stride 6C
+    xf, gf, yf, sf, cf = (t.float() for t in (x, gate, y, shift, scale1p))
+    worst = {}
+    ok = True
+    with torch.no_grad():
+        for variant, keep in (("full", True), ("no_y", True), ("no_write", False)):
+            gg, yy, g32, y32 = (None,) * 4 if variant == "no_y" else (gate, y, gf, yf)
+            got_x, got_z = adaln_norm(x, gg, yy, shift, scale1p, eps=1e-6, keep_x=keep)
+            plain_x, plain_z = adaln_norm_plain(x, gg, yy, shift, scale1p, eps=1e-6)
+            _, ref_z = adaln_norm_plain(xf, g32, y32, sf, cf, eps=1e-6)
+            rec = {"z_rel_l2": rel_l2(got_z, ref_z), "composition_z_rel_l2": rel_l2(plain_z, ref_z)}
+            if variant == "full":
+                rec["x_ulps"] = int((got_x.view(torch.int16).int()
+                                     - plain_x.view(torch.int16).int()).abs().max())
+            ok &= (rec["z_rel_l2"] <= rec["composition_z_rel_l2"] and rec.get("x_ulps", 0) <= 1
+                   and (got_x is None) == (variant == "no_write"))
+            worst[variant] = rec
+        ms = graph_ms(lambda: adaln_norm(x, gate, y, shift, scale1p, eps=1e-6))
+        library_ms = graph_ms(lambda: adaln_norm_plain(x, gate, y, shift, scale1p, eps=1e-6))
+        plain_ms = graph_ms(lambda: adaln_norm_plain(xf, gf, yf, sf, cf, eps=1e-6), iters=5)
+    bound_ms = 4 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    rec = {"phase": "adaln_check", "shape": [b, s, c], "dtype": "bfloat16", "variants": worst,
+           "ms": ms, "bound_ms": bound_ms, "pct_of_bound": 100 * bound_ms / ms,
+           "library_ms": library_ms, "plain_ms": plain_ms, "ok": ok}
+    emit(rec)
+    if not ok:
+        fail(f"the fused DiT boundary kernel against its composition: {worst}")
+    if bound_ms / ms < ADALN_MIN_SHARE_OF_BOUND:
+        fail(f"the fused DiT boundary kernel reads {100 * bound_ms / ms:.1f}% of its byte bound, "
+             f"below {100 * ADALN_MIN_SHARE_OF_BOUND:.0f}%")
+    return rec
+
+
 def phase_dit(torch):
     """DiT-XL/2 at 512 px (random weights, bf16) at batch 32: one forward's
-    attention launches from zeroed counters (its 28 calls each one launch
-    of the D = 72 warpgroup kernel, none on the plain route) and the
+    launches from zeroed counters (its 28 attention calls each one launch
+    of the D = 72 warpgroup kernel, none on the plain route; its 57
+    sub-layer boundaries each one launch of the fused boundary kernel, none
+    on the composition, so 85 glue launches with the 28 GELUs) and the
     forward's time."""
+    from phendiff_tpu_torch.models import dit as dit_mod
     from phendiff_tpu_torch.models.dit import DiT, DiTConfig
+    from phendiff_tpu_torch.ops.adaln_norm import adaln_norm
     from phendiff_tpu_torch.ops.attention import multi_head_attention
     from phendiff_tpu_torch.ops.flash_attention import flash_attention
     from phendiff_tpu_torch.pipelines.latent_vae import build_on
@@ -3394,23 +3462,30 @@ def phase_dit(torch):
         model(x, t, y)  # warm-up
         torch.cuda.synchronize()
         flash_attention.launches = flash_attention.wgmma_launches = 0
+        adaln_norm.launches = adaln_norm.plain_calls = dit_mod.glue_launches = 0
         plain_before = multi_head_attention.xla_route_calls
         out = model(x, t, y)
         torch.cuda.synchronize()
         launches = attn_launches(flash_attention)
         plain_route = multi_head_attention.xla_route_calls - plain_before
+        boundary = {"glue": dit_mod.glue_launches, "launches": adaln_norm.launches,
+                    "plain_calls": adaln_norm.plain_calls}
         ms = cuda_ms(lambda: model(x, t, y), iters=5, warmup=1)
+    want_boundary = {"glue": 1 + 3 * cfg.depth, "launches": 1 + 2 * cfg.depth, "plain_calls": 0}
     rec = {"phase": "dit", "batch": BATCH, "res": 8 * cfg.input_size, "depth": cfg.depth,
            "heads": cfg.num_heads, "head_dim": cfg.head_dim,
            "params": sum(p.numel() for p in model.parameters()),
            "attention_calls": cfg.depth, "launches": launches,
-           "plain_route_calls": plain_route, "finite": bool(torch.isfinite(out).all()),
+           "plain_route_calls": plain_route, "boundary": boundary,
+           "boundary_expected": want_boundary, "finite": bool(torch.isfinite(out).all()),
            "ms_per_forward": ms}
     emit(rec)
     if launches != attn_launches_for("wgmma", cfg.depth) or plain_route or not rec["finite"]:
         fail(f"DiT-XL/2's forward: expected {cfg.depth} launches of the D = 72 warpgroup kernel "
              f"and none on the plain route, got {launches} and {plain_route} (finite: "
              f"{rec['finite']})")
+    if boundary != want_boundary:
+        fail(f"DiT-XL/2's forward: boundary kernel counts {boundary} != {want_boundary}")
     del model, x, out
     torch.cuda.empty_cache()
     return rec
@@ -3657,7 +3732,8 @@ def main() -> None:
     # -- 29. the stage-per-device SD route -------------------------------------
     seg_launches = phase_sd_segmented(torch, env, sd_folder, sd_data)
 
-    # -- 30. DiT-XL/2's forward on the D = 72 kernel ----------------------------
+    # -- 30. DiT-XL/2's forward on the D = 72 kernel and the boundary kernel ----
+    adaln = adaln_check(torch)
     dit = phase_dit(torch)
 
     # Forward times are per batch-32 UNet forward and backward times per
@@ -3804,6 +3880,20 @@ def main() -> None:
             "bound_by": contract_bound(dit_attn["bound_by"]),
             "launches_by_path": {"dit_forward_b32": dit["launches"]["wgmma"]},
             "design": DESIGN["flash_attn_fwd_wgmma_d72"],
+        },
+        {
+            # DiT's sub-layer boundary, no TPU counterpart: ms etc. per call at
+            # (32, 1024, 1152) bf16 with y and x' written (device time in a
+            # CUDA graph); launches on phase 30's forward
+            "name": "adaln_norm", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/adaln_norm.cu",
+            "replaces": "none (the JAX package has no DiT)",
+            "launches": dit["boundary"]["launches"],
+            **{k: adaln[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                     "pct_of_bound")},
+            "bound_by": "bytes",
+            "launches_by_path": {"dit_forward_b32": dit["boundary"]["launches"]},
+            "design": DESIGN["adaln_norm"],
         },
         {
             "name": "flash_attn_bwd", "route": "cuda",

@@ -29,13 +29,24 @@ loads by name.
   [B, S, H, D] views (no copy) through ``ops.attention.
   multi_head_attention``; the MLP is fc1, tanh-GELU, fc2.
 
+* Sub-layer boundaries: the blocks carry (x, z) from one to the next, z
+  the modulated norm the next sub-layer reads.  Each boundary (a gated
+  residual, then the next norm and modulate) is one call of
+  ``ops.adaln_norm.adaln_norm`` (``_adaln``): on the card one fused kernel
+  launch (or it raises), on the CPU the composition of the three ops.  The
+  leading call norms the embedded tokens for block 0's attention; the one
+  after a block's MLP modulates with the next block's attention shift and
+  scale, and after the last block with the final layer's, whose linear
+  reads that z alone (x' is then not written).
+
 A forward is three spans (``obs/profiling.py``): ``dit/condition`` (the
-embeddings, ``c`` and every adaLN projection), ``dit/blocks`` and
-``dit/final``.  ``glue_launches`` counts the elementwise and LayerNorm ops
-the blocks and the final layer dispatch (norm, modulate, gate-and-residual,
-GELU: 7 a block, 2 in the final layer), each where it runs (``_glue_op``),
-so a kernel that fuses some of them lowers it; ``forward_calls`` counts
-the forwards.
+embeddings, ``c`` and every adaLN projection), ``dit/blocks`` (the
+boundaries included) and ``dit/final``.  ``glue_launches`` counts the
+elementwise and LayerNorm ops the blocks and the final layer dispatch, as
+they dispatch: a fused boundary one, the composition one an op (norm,
+modulate, gate-and-residual: ``adaln_norm_plain.ops``), and GELU one
+(``_glue_op``).  That is 1 + 3 a block on the kernel route and 2 + 7 a
+block on the composition; ``forward_calls`` counts the forwards.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from torch import nn
 from phendiff_tpu_torch.models.embeddings import Dense, sinusoidal_timestep_embedding
 from phendiff_tpu_torch.models.unet2d import init_flax_weights
 from phendiff_tpu_torch.obs.profiling import annotate
+from phendiff_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_plain
 from phendiff_tpu_torch.ops.attention import multi_head_attention
 
 FREQUENCY_EMBEDDING_SIZE = 256
@@ -147,12 +159,6 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
 
 
-@_glue_op
-def modulate(x: torch.Tensor, shift: torch.Tensor, scale1p: torch.Tensor) -> torch.Tensor:
-    """x * (1 + scale) + shift, per sample (``scale1p`` holds 1 + scale)."""
-    return torch.addcmul(shift[:, None], x, scale1p[:, None])
-
-
 class PatchEmbed(nn.Module):
     """Conv(in, hidden, kernel p, stride p) over NHWC latents, then the
     row-major tokens [B, (H/p)(W/p), hidden]."""
@@ -226,20 +232,21 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-@_glue_op
-def _layer_norm(x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], eps=LN_EPS)
-
-
-@_glue_op
-def _gated_residual(x: torch.Tensor, gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x + gate * y, the gate per sample."""
-    return torch.addcmul(x, gate[:, None], y)
+def _adaln(x, gate, y, shift, scale1p, keep_x=True):
+    """(x + gate * y, LN(x + gate * y) * scale1p + shift) per sample (without
+    y: x and its modulated norm; x' None where ``keep_x`` is false), by
+    ``adaln_norm``; counted in ``glue_launches`` as it dispatched: its kernel
+    launches and the composition's ops, each counted where it runs."""
+    global glue_launches
+    before = adaln_norm.launches + adaln_norm_plain.ops
+    out = adaln_norm(x, gate, y, shift, scale1p, eps=LN_EPS, keep_x=keep_x)
+    glue_launches += adaln_norm.launches + adaln_norm_plain.ops - before
+    return out
 
 
 class DiTBlock(nn.Module):
-    """adaLN-Zero block; ``mod`` is this block's [B, 6, C] projection of
-    ``c`` with 1 added to both scales."""
+    """adaLN-Zero block over the residual stream x and z, its norm
+    modulated by this block's attention shift and scale."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float):
         super().__init__()
@@ -247,11 +254,16 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), Dense(hidden_size, 6 * hidden_size))
 
-    def forward(self, x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.unbind(1)
-        x = _gated_residual(x, gate_msa, self.attn(modulate(_layer_norm(x), shift_msa, scale_msa)))
-        return _gated_residual(x, gate_mlp,
-                               self.mlp(modulate(_layer_norm(x), shift_mlp, scale_mlp)))
+    def forward(self, x: torch.Tensor, z: torch.Tensor, mod: torch.Tensor,
+                next_shift: torch.Tensor, next_scale1p: torch.Tensor, keep_x: bool = True):
+        """``mod``: this block's [B, 6, C] projection of ``c`` with 1 added to
+        both scales (its attention shift and scale already went into z).
+        Returns the block's output and its norm modulated by ``next_shift``
+        and ``next_scale1p`` (the next block's attention ones, or the final
+        layer's), the output None where ``keep_x`` is false."""
+        _, _, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.unbind(1)
+        x, z = _adaln(x, gate_msa, self.attn(z), shift_mlp, scale_mlp)
+        return _adaln(x, gate_mlp, self.mlp(z), next_shift, next_scale1p, keep_x=keep_x)
 
 
 class FinalLayer(nn.Module):
@@ -260,9 +272,10 @@ class FinalLayer(nn.Module):
         self.linear = Dense(hidden_size, patch_size * patch_size * out_channels)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), Dense(hidden_size, 2 * hidden_size))
 
-    def forward(self, x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
-        shift, scale1p = mod.unbind(1)
-        return self.linear(modulate(_layer_norm(x), shift, scale1p))
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """The linear of z, the last block's output normed and modulated by
+        this layer's [B, 2, C] projection (``DiT.condition``)."""
+        return self.linear(z)
 
 
 class DiT(nn.Module):
@@ -327,10 +340,14 @@ class DiT(nn.Module):
             mods, fin = self.condition(timesteps, torch.as_tensor(y, device=x.device), dt)
         with annotate("dit/blocks"):
             h = self.x_embedder(x.to(dt)) + self.pos_embed.to(dt)
-            for block, mod in zip(self.blocks, mods):
-                h = block(h, mod)
+            h, z = _adaln(h, None, None, mods[0][:, 0], mods[0][:, 1])
+            # each block's output normed and modulated by the next one's
+            # attention shift and scale, the last block's by the final layer's
+            nexts = [m[:, :2] for m in mods[1:]] + [fin]
+            for i, (block, mod, nxt) in enumerate(zip(self.blocks, mods, nexts)):
+                h, z = block(h, z, mod, nxt[:, 0], nxt[:, 1], keep_x=i + 1 < len(mods))
         with annotate("dit/final"):
-            out = self.final_layer(h, fin)
+            out = self.final_layer(z)
             p, oc = cfg.patch_size, cfg.out_channels
             out = out.reshape(b, hh // p, ww // p, p, p, oc).permute(0, 1, 3, 2, 4, 5)
             out = out.reshape(b, hh, ww, oc).to(x.dtype)

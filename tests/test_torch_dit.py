@@ -246,6 +246,36 @@ def test_glue_counter_counts_the_ops_that_dispatch():
     assert port.glue_launches - g0 == Count.n == 7 * TINY["depth"] + 2
 
 
+def test_forward_is_bit_equal_to_the_block_order_before_the_boundaries():
+    """The forward that carries (x, z) across sub-layer boundaries against
+    the block order it replaced, written out: each block's LN, modulate,
+    attention, gated residual, then the same around the MLP, and the final
+    layer's LN and modulate.  On the CPU every boundary is that
+    composition, so float32 outputs are equal bit for bit."""
+    import torch.nn.functional as F
+
+    def ln(x):
+        return F.layer_norm(x, x.shape[-1:], eps=port.LN_EPS)
+
+    def mod(x, shift, scale1p):
+        return torch.addcmul(shift[:, None], x, scale1p[:, None])
+
+    model, _ = _models()
+    x, t, y = _inputs()
+    with torch.no_grad():
+        mods, fin = model.condition(t, y, torch.float32)
+        h = model.x_embedder(x) + model.pos_embed
+        for block, m in zip(model.blocks, mods):
+            shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = m.unbind(1)
+            h = torch.addcmul(h, gate_msa[:, None], block.attn(mod(ln(h), shift_msa, scale_msa)))
+            h = torch.addcmul(h, gate_mlp[:, None], block.mlp(mod(ln(h), shift_mlp, scale_mlp)))
+        out = model.final_layer.linear(mod(ln(h), fin[:, 0], fin[:, 1]))
+        p, oc = TINY["patch_size"], model.config.out_channels
+        want = out.reshape(3, 4, 4, p, p, oc).permute(0, 1, 3, 2, 4, 5).reshape(3, 8, 8, oc)
+        got = model(x, t, y)
+    assert torch.equal(got, want)
+
+
 def test_pipeline_folder_round_trip(tmp_path):
     vae = AutoencoderKLConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1,
                               norm_num_groups=4, latent_channels=4, sample_size=64)

@@ -34,7 +34,12 @@ per tensor (f32 rounding through a few dozen layers).  Channel moments are f32 s
 of up to 8192 terms in another order (rtol 1e-4, atol 1e-2).  The D = 72
 forward (DiT-XL/2's heads) takes the attention tolerances above; a tiny
 DiT on the card against its CPU forward agrees to rel L2 1e-4 in f32 and
-3e-2 in bf16 (bf16 activations through two blocks, ~5e-3).
+3e-2 in bf16 (bf16 activations through two blocks, ~5e-3).  The fused DiT
+boundary kernel forms x' as ``addcmul`` does (one rounding of f32
+fma(gate, y, x)), so x' sits within one ulp of it; its z, rounded once,
+is no farther from the f32 composition than the bf16 composition (two
+roundings) is, and in f32 within rel L2 1e-6 of the float64 composition
+(f32 rounding of ~10 operations an element, 7.5e-8 measured).
 """
 
 import math
@@ -42,6 +47,7 @@ import math
 import pytest
 import torch
 
+from phendiff_tpu_torch.ops import adaln_norm as adaln_mod
 from phendiff_tpu_torch.ops import attention as attention_mod
 from phendiff_tpu_torch.ops import group_norm as group_norm_mod
 from phendiff_tpu_torch.ops.flash_attention import (
@@ -607,7 +613,9 @@ def test_flash_attention_d72_with_a_gradient_raises(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dit_on_the_card_takes_the_d72_kernel(cuda, dtype):
     """A DiT of DiT-XL/2's head dim: every self-attention call on the
-    kernel (none on the plain route), against its own CPU forward."""
+    kernel (none on the plain route) and every sub-layer boundary one launch
+    of the boundary kernel (none on the composition), against its own CPU
+    forward."""
     from phendiff_tpu_torch.models.dit import DiT, DiTConfig
 
     cfg = DiTConfig(input_size=32, hidden_size=144, depth=2, num_heads=2, num_classes=10)
@@ -621,12 +629,82 @@ def test_dit_on_the_card_takes_the_d72_kernel(cuda, dtype):
         model.dtype = dtype
         xla, launches = attention_mod.multi_head_attention.xla_route_calls, \
             flash_attention.launches
+        boundary = adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls
         got = model(x.to(cuda), t.to(cuda), y.to(cuda))
     torch.cuda.synchronize()
     assert attention_mod.multi_head_attention.xla_route_calls == xla
     assert flash_attention.launches == launches + cfg.depth
+    assert (adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls) == (
+        boundary[0] + 1 + 2 * cfg.depth, boundary[1])
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
     assert _rel_l2(got.float().cpu(), want) < tol
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).long()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "no_y", "no_write"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,c", [(32, 1024, 1152), (1, 17, 144), (2, 33, 384), (2, 33, 768),
+                                   (2, 33, 1024)])
+def test_adaln_norm_kernel_matches_the_composition(cuda, b, s, c, dtype, variant):
+    """DiT-XL/2's boundary shape, a ragged one, and DiT-S/B/L's widths (one
+    to five 8-channel vectors a lane: every width the kernel is built for),
+    each variant, the [B, C]
+    rows as the unbind views of a [B, 6, C] modulation (row stride 6C) read
+    in place: one launch, x' within one ulp of ``addcmul``'s, z as close to
+    the higher-precision composition as the module docstring says."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, y = (torch.randn(b, s, c, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mod = (0.5 * torch.randn(b, 6, c, generator=g, device=cuda)).to(dtype)
+    mod[:, 1::3] += 1
+    _, _, gate, shift, scale1p, _ = mod.unbind(1)
+    assert gate.stride(0) == shift.stride(0) == scale1p.stride(0) == 6 * c
+    if variant == "no_y":
+        gate = y = None
+    keep = variant != "no_write"
+    launches, plain = adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls
+    got_x, got_z = adaln_mod.adaln_norm(x, gate, y, shift, scale1p, eps=1e-6, keep_x=keep)
+    torch.cuda.synchronize()
+    assert (adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls) == (launches + 1,
+                                                                                 plain)
+    want_x, want_z = adaln_mod.adaln_norm_plain(x, gate, y, shift, scale1p, eps=1e-6)
+    hi = torch.float64 if dtype == torch.float32 else torch.float32
+    up = [None if t is None else t.to(hi) for t in (x, gate, y, shift, scale1p)]
+    _, ref_z = adaln_mod.adaln_norm_plain(*up, eps=1e-6)
+    assert got_z.dtype == dtype and got_z.shape == x.shape
+    if variant == "full":
+        assert int((_bits(got_x) - _bits(want_x)).abs().max()) <= 1
+    elif variant == "no_y":
+        assert got_x is x
+    else:
+        assert got_x is None
+    if dtype == torch.bfloat16:
+        assert _rel_l2(got_z, ref_z) <= _rel_l2(want_z, ref_z)
+    else:
+        assert _rel_l2(got_z, ref_z) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["shape", "autograd records", "dtype"])
+def test_adaln_norm_on_the_card_raises_where_the_kernel_cannot(cuda, why):
+    """C % 8 != 0, a recording autograd, or float16: no launch, no
+    composition, an error that names why."""
+    c = 12 if why == "shape" else 16
+    dtype = torch.float16 if why == "dtype" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, y = (torch.randn(2, 9, c, generator=g, device=cuda).to(dtype) for _ in range(2))
+    gate, shift, scale1p = torch.randn(3, 2, c, generator=g, device=cuda).to(dtype)
+    y.requires_grad_(why == "autograd records")
+    assert adaln_mod.refusal(x, gate, y, shift, scale1p) == why
+    counts = (adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls,
+              adaln_mod.adaln_norm_plain.ops)
+    with pytest.raises(TypeError if why == "dtype" else ValueError, match=f"\\({why}\\)"):
+        adaln_mod.adaln_norm(x, gate, y, shift, scale1p, eps=1e-6)
+    assert (adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls,
+            adaln_mod.adaln_norm_plain.ops) == counts
 
 
 GN_AUTOGRAD_DX_REL_L2 = 1e-4
