@@ -121,10 +121,10 @@ failure exits non-zero before the final line:
     (``bench.py::bench_sd_train``'s shape, plus the frozen VAE encode): 10
     timed steps without remat, 3 with it and 3 with Adam's first moment in
     bf16 (its first step against the f32-moment run's, its second step's
-    update against the same update on the host), samples/s, peak
-    memory, device time against wall time, and exact launches against the
-    recorded calls of one step (``obs.forward_profile.sd_train_calls``: the
-    blocks' recomputed forwards under remat);
+    update against the same update on the host), samples/s, peak memory,
+    and exact launches against the recorded calls of one step
+    (``tools.kernel_calls.sd_train_calls``: the blocks' recomputed forwards
+    under remat);
 25. train_cli: ``phendiff_tpu_torch.cli.train_cli.main`` in this process:
     DDIM with ``examples/launch_train_ddim.sh``'s flags and ``--debug``,
     and an SD fine-tune of the folder phase 21 saved (3 steps, one eval);
@@ -529,10 +529,14 @@ def bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype) -> str:
     return "tensor cores" if dtype == torch.bfloat16 else "f32 FMA"
 
 
-def attn_launches(fn) -> dict:
-    """An attention wrapper's launch counters: all its launches, and those of
-    the warpgroup design."""
-    return {"all": fn.launches, "wgmma": fn.wgmma_launches}
+def attn_launches(direction: str) -> dict:
+    """The attention kernels' launch counters in ``direction`` ("fwd" or
+    "bwd"): all their launches, and those of the warpgroup design."""
+    from phendiff_tpu_torch.ops.routes import launch_counts
+
+    counts = launch_counts()
+    return {"all": counts[f"flash_attn_{direction}"],
+            "wgmma": counts[f"flash_attn_{direction}_wgmma"]}
 
 
 def attn_launches_for(design: str, n: int) -> dict:
@@ -553,11 +557,11 @@ def attention_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     # q, k, v as the UNet hands them over: column slices of one fused qkv
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda").to(dtype)
     q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
-    before = attn_launches(flash_attention)
+    before = attn_launches("fwd")
     out = flash_attention(q, k, v)
     again = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    took = {k_: n - before[k_] for k_, n in attn_launches(flash_attention).items()}
+    took = {k_: n - before[k_] for k_, n in attn_launches("fwd").items()}
     ref = attention_plain(q, k, v)
     torch.cuda.synchronize()
     deterministic = bool(torch.equal(out, again))
@@ -799,11 +803,11 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
     scale = d**-0.5
     o, lse = fa._launch(q, k, v, scale, with_lse=True)
-    before = attn_launches(fa.flash_attention_bwd)
+    before = attn_launches("bwd")
     got = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
     again = fa.flash_attention_bwd(q, k, v, o, lse, g, scale)
     torch.cuda.synchronize()
-    took = {k_: n - before[k_] for k_, n in attn_launches(fa.flash_attention_bwd).items()}
+    took = {k_: n - before[k_] for k_, n in attn_launches("bwd").items()}
     ref = fa.flash_attention_bwd_plain(q, k, v, g, scale)
     torch.cuda.synchronize()
     errs = {n: rel_l2(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
@@ -844,21 +848,12 @@ def attention_bwd_check(torch, b, s, h, d, sfu_rate, dtype_name="bfloat16"):
     return rec
 
 
-def reset_launches() -> None:
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
+def read_launches(keys=KERNEL_NAMES) -> dict:
+    """The launch counters of ``keys`` (``ops.routes.launch_counts``)."""
+    from phendiff_tpu_torch.ops.routes import launch_counts
 
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    flash_attention.wgmma_launches = flash_attention_bwd.wgmma_launches = 0
-    fused_group_norm.launches = fused_group_norm_bwd.launches = 0
-
-
-def read_launches() -> dict:
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
-
-    return dict(zip(KERNEL_NAMES, (flash_attention.launches, flash_attention_bwd.launches,
-                                   fused_group_norm.launches, fused_group_norm_bwd.launches)))
+    counts = launch_counts()
+    return {k: counts[k] for k in keys}
 
 
 def launches_for(forwards: int, backwards: int) -> dict:
@@ -907,7 +902,7 @@ def train_parts(torch, pipe, proba_uncond=0.1):
 
 
 def phase_grad_check(torch, pipe):
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels
     from phendiff_tpu_torch.train.train_loop import (
         diffusion_loss, init_train_state, make_draws, make_optimizer, make_train_step)
 
@@ -956,7 +951,7 @@ def phase_grad_check(torch, pipe):
 
 
 def phase_train_path(torch, pipe, env):
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm_bwd
+    from phendiff_tpu_torch.ops.routes import launch_counts, reset_launch_counts
     from phendiff_tpu_torch.train.checkpoints import CheckpointManager
     from phendiff_tpu_torch.train.train_loop import (
         init_train_state, make_draws, make_optimizer, make_train_step)
@@ -983,15 +978,14 @@ def phase_train_path(torch, pipe, env):
     run(TRAIN_WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    fused_group_norm_bwd.g_copies = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     losses = run(TRAIN_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
     want = launches_for(TRAIN_STEPS, TRAIN_STEPS)
-    g_copies = fused_group_norm_bwd.g_copies
+    g_copies = launch_counts()["group_norm_bwd_g_copies"]
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     ckpt_dir = tempfile.mkdtemp(prefix="phd_ckpt_")
@@ -1030,6 +1024,7 @@ def phase_train_path(torch, pipe, env):
 def phase_trainer(torch, pipe):
     """``Trainer.run`` over a folder of 2 x 48 random 128 px PNGs: 3 steps
     at batch 32 and one eval that saves the EMA pipeline."""
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train.train_loop import TrainConfig
     from phendiff_tpu_torch.train.trainer import RunPaths, TrainerConfig, for_ddim_pipeline
@@ -1045,7 +1040,7 @@ def phase_trainer(torch, pipe):
     )
     paths = RunPaths.create(root, "exp", "run0")
     trainer = for_ddim_pipeline(pipe, cfg, paths)
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     state = trainer.run()
     torch.cuda.synchronize()
@@ -1074,7 +1069,7 @@ def phase_guided_check(torch, pipe):
     """One guided step at batch 4 from a fixed latent, weights frozen; the
     batch-independence check also in float32."""
     from phendiff_tpu_torch.core import scheduler as S
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels, reset_launch_counts
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.pipelines.transfer import guided_gradient
 
@@ -1085,7 +1080,7 @@ def phase_guided_check(torch, pipe):
     t = int(S.timestep_pairs(pipe.scheduler_config, STEPS)[0][1])  # the 2nd generation step
     den = pipe.denoiser_fn()
     with pipe.frozen():
-        reset_launches()
+        reset_launch_counts()
         out_k, grad_k = guided_gradient(den, pipe.schedule, x, t, target, emb)
         torch.cuda.synchronize()
         launches = read_launches()
@@ -1126,6 +1121,7 @@ def phase_guided_check(torch, pipe):
 
 def phase_guided_path(torch, pipe, images, src, tgt, env):
     """``guided_inverted_start`` at batch 32, 50 steps, weights frozen."""
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.pipelines.conditional_ddim import ddim_invert
     from phendiff_tpu_torch.pipelines.transfer import check_gaussianity, guided_inverted_start
 
@@ -1134,7 +1130,7 @@ def phase_guided_path(torch, pipe, images, src, tgt, env):
         guided_inverted_start(den, pipe.schedule, images, src, tgt, num_inference_steps=2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches()
+        reset_launch_counts()
         t0 = time.perf_counter()
         out = guided_inverted_start(den, pipe.schedule, images, src, tgt,
                                     num_inference_steps=STEPS)
@@ -1170,6 +1166,7 @@ def phase_guided_path(torch, pipe, images, src, tgt, env):
 def phase_cfg_path(torch, pipe, images, tgt, env):
     """``cfg_forward_start`` at batch 32, 50 steps, frac 0.5, guidance 2.5."""
     from phendiff_tpu_torch.core import scheduler as S
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.pipelines.transfer import cfg_forward_start
 
     den = pipe.denoiser_fn()
@@ -1177,7 +1174,7 @@ def phase_cfg_path(torch, pipe, images, tgt, env):
     cfg_forward_start(den, pipe.schedule, images, tgt, gen, num_inference_steps=4)
     torch.cuda.synchronize()
     forwards = len(S.timestep_pairs(pipe.scheduler_config, STEPS, 0.5)[0])
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = cfg_forward_start(den, pipe.schedule, images, tgt, gen, guidance_scale=2.5,
                             frac_diffusion_skipped=0.5, num_inference_steps=STEPS)
@@ -1230,6 +1227,7 @@ def phase_comparison(torch, pipe, env):
     from phendiff_tpu_torch.core import scheduler as S
     from phendiff_tpu_torch.experiments.comparison import (
         METHODS, ComparisonConfig, ComparisonExperiment)
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
 
     root = tempfile.mkdtemp(prefix="phd_cmp_")
     pipe.save_pretrained(os.path.join(root, "pipe"))
@@ -1242,7 +1240,7 @@ def phase_comparison(torch, pipe, env):
         "metrics": {"fid": True, "isc": True, "kid": True, "kid_subset_size": 16},
     })
     exp = ComparisonExperiment(cfg, device="cuda")
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     exp.run_transfers()
     torch.cuda.synchronize()
@@ -1283,6 +1281,7 @@ def phase_comparison(torch, pipe, env):
 def phase_evaluator(torch, pipe, data):
     """``Trainer.run`` with ``compute_metrics=True``: one step, then one
     eval of one batch of 32 per class at 10 steps, best model saved."""
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train.eval_loop import EvalConfig
     from phendiff_tpu_torch.train.train_loop import TrainConfig
@@ -1297,7 +1296,7 @@ def phase_evaluator(torch, pipe, data):
     )
     paths = RunPaths.create(tempfile.mkdtemp(prefix="phd_eval_"), "exp", "run0")
     trainer = for_ddim_pipeline(pipe, cfg, paths)
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     state = trainer.run()
     torch.cuda.synchronize()
@@ -1341,32 +1340,8 @@ def phase_moments():
     return rec
 
 
-def reset_sd_launches() -> None:
-    from phendiff_tpu_torch.ops import attention
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
-
-    reset_launches()
-    fused_group_norm.stream_launches = fused_group_norm_bwd.stream_launches = 0
-    attention.multi_head_attention.xla_route_calls = 0
-    attention.single_head_attention.calls = 0
-
-
-def read_sd_launches() -> dict:
-    from phendiff_tpu_torch.ops import attention
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm, fused_group_norm_bwd
-
-    return {**read_launches(),
-            "flash_attn_fwd_wgmma": flash_attention.wgmma_launches,
-            "flash_attn_bwd_wgmma": flash_attention_bwd.wgmma_launches,
-            "group_norm_silu_stream": fused_group_norm.stream_launches,
-            "group_norm_silu_stream_bwd": fused_group_norm_bwd.stream_launches,
-            "attention_plain_route": attention.multi_head_attention.xla_route_calls,
-            "single_head_attention": attention.single_head_attention.calls}
-
-
 def predicted_launches(calls: dict, forward: bool = True, backward: bool = False) -> dict:
-    """The launches one recorded forward (``obs.forward_profile.record_calls``)
+    """The launches one recorded forward (``ops.routes.record_calls``)
     makes on the card, by ``gn_route``, ``attention.takes_kernel`` and
     ``attention_design``, and those of its input backward."""
     import torch
@@ -1542,8 +1517,8 @@ def sd_streamed_calls() -> set:
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.config import UNet2DConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls, vae_calls
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
+    from phendiff_tpu_torch.tools.kernel_calls import sd_unet_calls, unet_calls, vae_calls
 
     out = {}  # key -> the VAE's image px where the call is the VAE's, else 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1603,7 +1578,7 @@ def phase_sd_forward_check(torch, pipe, pipe32):
     bf16, the kernel path no further from the float32 plain output than the
     bf16 plain path is (within SD_BF16_VS_PLAIN), since both round through
     the same ~60 layers."""
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     x = torch.randn(2, 16, 16, 4, generator=gen, device="cuda")
@@ -1644,6 +1619,7 @@ def phase_sd_forward_check(torch, pipe, pipe32):
 
 def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res):
     """50-step DDIB from images through the VAE: encode, transfer, decode."""
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.pipelines.transfer import ddib
 
     b, res = SD_RUNS[name]
@@ -1659,7 +1635,7 @@ def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_sd_launches()
+    reset_launch_counts()
     with counting_plain_calls() as plain:
         t0 = time.perf_counter()
         lat = pipe.encode_images(images)
@@ -1671,7 +1647,7 @@ def phase_sd_path(torch, pipe, name, env, unet_calls_by_latent, vae_calls_by_res
         img = pipe.decode_latents(out)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-    launches = read_sd_launches()
+    launches = read_launches(SD_KEYS)
     want = add_launches((2 * STEPS, predicted_launches(unet_calls_by_latent[lat_res])),
                         (1, predicted_launches(vae_calls_by_res[res])))
     rec = {
@@ -1699,7 +1675,7 @@ def phase_sd_guided_check(torch, pipe, pipe32, unet_calls_by_latent, unet32_call
     """One guided step in bf16 (latent 16, batch 4) and in f32 (latent 64,
     batch 1), weights frozen, kernels against the plain path."""
     from phendiff_tpu_torch.core import scheduler as S
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels, reset_launch_counts
     from phendiff_tpu_torch.pipelines.transfer import guided_gradient
 
     t = int(S.timestep_pairs(pipe.scheduler_config, STEPS)[0][1])
@@ -1715,11 +1691,11 @@ def phase_sd_guided_check(torch, pipe, pipe32, unet_calls_by_latent, unet32_call
         seq = p.encode_class(torch.tensor([1, 0, 1, 0][:b]))
         den = p.denoiser_fn()
         with p.frozen():
-            reset_sd_launches()
+            reset_launch_counts()
             with counting_plain_calls() as plain:
                 out_k, grad_k = guided_gradient(den, p.schedule, x, t, target, seq)
                 torch.cuda.synchronize()
-            launches = read_sd_launches()
+            launches = read_launches(SD_KEYS)
             with plain_kernels():
                 out_p, grad_p = guided_gradient(den, p.schedule, x, t, target, seq)
         want = predicted_launches(calls, backward=True)
@@ -1744,6 +1720,7 @@ def phase_sd_comparison(torch, pipe32, env, unet_calls_by_latent, vae_calls_by_r
     from phendiff_tpu_torch.core import scheduler as S
     from phendiff_tpu_torch.experiments.comparison import (
         METHODS, ComparisonConfig, ComparisonExperiment)
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
 
     root = tempfile.mkdtemp(prefix="phd_sdcmp_")
     t0 = time.perf_counter()
@@ -1760,13 +1737,13 @@ def phase_sd_comparison(torch, pipe32, env, unet_calls_by_latent, vae_calls_by_r
     t0 = time.perf_counter()
     exp = ComparisonExperiment(cfg, device="cuda")
     t_load = time.perf_counter() - t0
-    reset_sd_launches()
+    reset_launch_counts()
     with counting_plain_calls() as plain:
         t0 = time.perf_counter()
         exp.run_transfers()
         torch.cuda.synchronize()
         t_transfers = time.perf_counter() - t0
-    launches = read_sd_launches()
+    launches = read_launches(SD_KEYS)
     t0 = time.perf_counter()
     metrics = exp.compute_metrics()
     t_metrics = time.perf_counter() - t0
@@ -1805,11 +1782,51 @@ def phase_sd_comparison(torch, pipe32, env, unet_calls_by_latent, vae_calls_by_r
     return rec, os.path.join(root, "pipe"), data
 
 
+def sd_pipeline(dtype, seed: int = 0, cast: bool = True):
+    """Full-width SD-2.1 (``SDUNetConfig()``, ``AutoencoderKLConfig()``) with
+    random weights from ``seed`` on the card, the transfer scheduler of
+    ``bench.py``; compute in ``dtype``, and conv and linear weights too
+    unless ``cast`` is False (f32 weights, as a trainer takes them)."""
+    import torch
+
+    from phendiff_tpu_torch.core.scheduler import SchedulerConfig
+    from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
+    from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
+    from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
+
+    pipe = SDImg2ImgPipeline.init_random(
+        SDUNetConfig(), AutoencoderKLConfig(),
+        SchedulerConfig(num_train_timesteps=1000, timestep_spacing="trailing",
+                        clip_sample=False), seed=seed, dtype=dtype, device="cuda")
+    return pipe.cast_params(dtype) if cast and dtype != torch.float32 else pipe
+
+
+def sd_train_step(pipe, remat: bool = False, components_to_train=("denoiser", "class_embedding"),
+                  proba_uncond: float = 0.1, mixed_precision: str = "bf16",
+                  moment_dtype: str = "float32"):
+    """``for_sd_pipeline``'s step on ``pipe`` (the optimizer of ``bench.py``'s
+    ``bench_sd_train``, Adam's first moment in ``moment_dtype``):
+    ``(step, state, kwargs, optimizer)``, where ``kwargs`` are the Trainer's
+    (``sd_trainer_kwargs``)."""
+    from phendiff_tpu_torch.train.train_loop import (
+        OptimizerConfig, TrainConfig, init_train_state, make_optimizer, make_train_step)
+    from phendiff_tpu_torch.train.trainer import TrainerConfig, sd_trainer_kwargs
+
+    cfg = TrainConfig(proba_uncond=proba_uncond, optimizer=OptimizerConfig(
+        learning_rate=1e-5, moment_dtype=moment_dtype))
+    kw = sd_trainer_kwargs(
+        pipe, TrainerConfig(mixed_precision=mixed_precision, remat=remat, train=cfg),
+        components_to_train)
+    opt = make_optimizer(cfg.optimizer, kw["trainable_mask"])
+    step = make_train_step(kw["model_apply"], kw["embed_fn"], kw["schedule"], cfg, opt,
+                           kw["encode_fn"], kw["encode_inside_grad"])
+    return step, init_train_state(kw["trainable_params"], opt), kw, opt
+
+
 def sd_train_run(torch, pipe, images, labels, draws, mixed_precision="bf16", remat=False,
                  components=("denoiser", "class_embedding")):
     """One SD train step (``for_sd_pipeline``'s) from ``pipe``'s weights: its
     metrics and the gradients its optimizer was given."""
-    from phendiff_tpu_torch.obs.forward_profile import sd_train_step
 
     step, state, _, opt = sd_train_step(pipe, remat, components, proba_uncond=0.0,
                                         mixed_precision=mixed_precision)
@@ -1842,7 +1859,7 @@ def phase_sd_train_check(torch):
     under the plain versions, both held against the step in f32 (plain
     versions, f32 VAE); with remat against without; and with the VAE's
     encoder trained."""
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels, sd_pipeline
+    from phendiff_tpu_torch.ops.routes import plain_kernels
     from phendiff_tpu_torch.train.train_loop import make_draws
 
     pipe = sd_pipeline(torch.bfloat16, SEED, cast=False)
@@ -1915,9 +1932,9 @@ def phase_sd_train_path(torch, env, train_calls):
     grad_check's rule, a sanity check only, since at count 1 the moment is
     still zero and both updates are the same arithmetic; and its second
     step's update against ``host_update_check``); launches against the
-    recorded calls; device time against wall time from a trace of 2 more
-    steps."""
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step, trace
+    recorded calls.  Its device-time breakdown is the ``sd21_128.finetune``
+    cell's (``portbench/run.py --trace 1``)."""
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.train.train_loop import make_draws
 
     pipe = sd_pipeline(torch.bfloat16, SEED, cast=False)
@@ -1960,25 +1977,20 @@ def phase_sd_train_path(torch, env, train_calls):
             run(warm - 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_sd_launches()
+        reset_launch_counts()
         with counting_plain_calls() as plain:
             t0 = time.perf_counter()
             losses = run(steps)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        launches = read_sd_launches()
+        launches = read_launches(SD_KEYS)
         calls = train_calls[remat]
         want = add_launches((steps, predicted_launches(calls["forward"])),
                             (steps, predicted_launches(calls["backward"], False, True)))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        traced = trace(lambda: run(1), 2)
         r = {"steps": steps, "seconds": dt, "samples_per_s": TRAIN_BATCH * steps / dt,
-             "ms_per_step": 1e3 * dt / steps, "peak_mem_gib": peak,
-             "traced_wall_ms_per_step": traced["wall_ms_per_call"],
-             "traced_device_ms_per_step": traced["device_ms_per_call"],
-             "device_idle_share": traced["device_idle_share"],
-             "device_ms_per_step_by_category": traced["ms_per_call_by_category"],
-             "launches": launches, "launches_expected": want, "plain_version_calls": dict(plain),
+             "ms_per_step": 1e3 * dt / steps, "peak_mem_gib": peak, "launches": launches,
+             "launches_expected": want, "plain_version_calls": dict(plain),
              "losses": [float(x) for x in losses],
              "loss_finite": bool(torch.isfinite(losses).all()),
              "mu_dtypes": sorted({str(t.dtype) for t in state.opt_state.mu.values()}),
@@ -2286,7 +2298,7 @@ def phase_serving(torch, pipe, ucfg, sched_cfg, env):
 def vae_part_calls(torch, res: int, part: str) -> dict:
     """The recorded calls of the full-width VAE's encode or decode alone."""
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
-    from phendiff_tpu_torch.obs.forward_profile import record_calls
+    from phendiff_tpu_torch.ops.routes import record_calls
 
     cfg = AutoencoderKLConfig()
 
@@ -2312,7 +2324,6 @@ def phase_sd_serving(torch, sd, sd_outputs, env, unet_by_lat, vae_by_res):
 
     import numpy as np
 
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline
     from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
     from phendiff_tpu_torch.pipelines.transfer import ddib
     from phendiff_tpu_torch.serving import EngineConfig, InferenceEngine
@@ -2394,6 +2405,7 @@ def dp_train(torch, model_parallel=1):
     from phendiff_tpu_torch.models import unet2d
     from phendiff_tpu_torch.models.config import super_small
     from phendiff_tpu_torch.ops import group_norm as GN
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.parallel import tp
     from phendiff_tpu_torch.parallel.mesh import (
         data_size, local_rows, make_mesh, replicate, shard_batch)
@@ -2447,7 +2459,7 @@ def dp_train(torch, model_parallel=1):
     GN.fused_group_norm, unet2d.multi_head_attention = gn_recording, attn_recording
     times, losses, first_params = [], [], {}
     try:
-        reset_launches()
+        reset_launch_counts()
         with counting_plain_calls() as plain:
             for i in range(DP_STEPS):
                 t0 = time.perf_counter()
@@ -2654,7 +2666,7 @@ def phase_dp(torch, env, data):
 
     from phendiff_tpu_torch.models.config import super_small
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.parallel import mesh
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.train import train_loop as TL
@@ -2691,7 +2703,7 @@ def phase_dp(torch, env, data):
                             compute_metrics=False, train=TrainConfig(proba_uncond=0.1))
         trainer = for_ddim_pipeline(ddim, cfg, RunPaths.create(root, "exp", tag))
         reduce_events.clear()
-        reset_launches()
+        reset_launch_counts()
         t0 = time.perf_counter()
         state = trainer.run()
         torch.cuda.synchronize()
@@ -2870,8 +2882,9 @@ def phase_reco(torch, env, sfu_rate):
     at 64 px on a toy set, then a 50-step sample -> invert -> regenerate at
     batch 16 in f32, gated on ``reco_err``'s threshold; first each kernel at
     the shapes this path gives it."""
-    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.tools import trained_round_trip as R
+    from phendiff_tpu_torch.tools.kernel_calls import group_norm_calls
 
     res, b_train, b_rt = R.QUICK_RES, R.QUICK_BATCH, R.RT_BATCH
     ok = True
@@ -2887,7 +2900,7 @@ def phase_reco(torch, env, sfu_rate):
     root = tempfile.mkdtemp(prefix="phd_reco_")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reset_launches()
+    reset_launch_counts()
     with counting_plain_calls() as plain:
         run = R.quick_round_trip(root, RECO_TRAIN_STEPS, "cuda")
     launches = read_launches()
@@ -2911,7 +2924,7 @@ def tp_sd_forward(torch, dtype_name):
     and the weights (before the bf16 cast) are the same in both dtypes."""
     from torch.func import functional_call
 
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.parallel import tp
 
     unet = sd_pipeline(getattr(torch, dtype_name), SEED).unet
@@ -2925,7 +2938,7 @@ def tp_sd_forward(torch, dtype_name):
     with torch.no_grad():
         functional_call(unet, params, (x, t, ctx))
         torch.cuda.synchronize()
-        reset_launches()
+        reset_launch_counts()
         t0 = time.perf_counter()
         out = functional_call(unet, params, (x, t, ctx)).float()
         torch.cuda.synchronize()
@@ -2966,9 +2979,9 @@ def phase_tp(torch, env, sfu_rate, dp_ref):
     full-width SD UNet forward at 128 px, batch 8, in f32 and in bf16,
     against world 1."""
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, sd_unet_calls
     from phendiff_tpu_torch.ops.attention import takes_kernel
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
+    from phendiff_tpu_torch.tools.kernel_calls import group_norm_calls, sd_unet_calls
     from phendiff_tpu_torch.train.train_loop import TrainConfig
 
     t_phase = time.perf_counter()
@@ -3154,9 +3167,10 @@ def phase_sd_segmented(torch, env, sd_folder, data):
     from phendiff_tpu_torch.models.autoencoder_kl import encode_to_latents
     from phendiff_tpu_torch.models.sd_segmented import SegmentedSDUNet
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_pipeline, sd_train_step, sd_unet_calls
+    from phendiff_tpu_torch.ops.routes import reset_launch_counts
     from phendiff_tpu_torch.parallel.pp import PipelinedSDUNet
     from phendiff_tpu_torch.pipelines.sd_img2img import SDImg2ImgPipeline
+    from phendiff_tpu_torch.tools.kernel_calls import sd_unet_calls
     from phendiff_tpu_torch.train.segmented_trainer import SegmentedSDTrainer
     from phendiff_tpu_torch.train.train_loop import make_draws
     from phendiff_tpu_torch.train.trainer import RunPaths
@@ -3208,11 +3222,11 @@ def phase_sd_segmented(torch, env, sd_folder, data):
         with pipe32.frozen():
             xx = xb.clone().requires_grad_()
             (want_dx,) = torch.autograd.grad(pipe32.unet(xx, tb, sb), xx, w)
-            reset_sd_launches()
+            reset_launch_counts()
             out, vjp_fn = SegmentedSDUNet(pipe32.unet).forward_with_input_vjp(xb, tb, sb)
             got_dx = vjp_fn(w)
             torch.cuda.synchronize()
-            launches = read_sd_launches()
+            launches = read_launches(SD_KEYS)
         calls32 = sd_unet_calls(SDUNetConfig(), lat, torch.float32)
         want = add_launches((2, predicted_launches(calls32)),
                             (1, predicted_launches(calls32, False, True)))
@@ -3267,7 +3281,7 @@ def phase_sd_segmented(torch, env, sd_folder, data):
                  "loss_rel_err": abs(float(m["loss"]) - one["loss"]) / abs(one["loss"]),
                  "grad_norm_rel_err": abs(float(m["grad_norm"]) - one["grad_norm"])
                  / one["grad_norm"], **param_rule(params, ref, lr, share=SEG_SHARE[mode])}
-            reset_sd_launches()
+            reset_launch_counts()
             t0 = time.perf_counter()
             for k in range(1, 1 + SEG_STEPS):
                 m = run(k, make_draws(SEED, k, shape, pipe.schedule.num_train_timesteps, 0.0,
@@ -3282,7 +3296,7 @@ def phase_sd_segmented(torch, env, sd_folder, data):
             r.update({"ms_per_step": 1e3 * dt / SEG_STEPS,
                       "samples_per_s": TRAIN_BATCH * SEG_STEPS / dt,
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                      "launches": read_sd_launches(), "launches_expected": want,
+                      "launches": read_launches(SD_KEYS), "launches_expected": want,
                       "loss_finite": math.isfinite(float(m["loss"]))})
             rec["train"][mode] = r
             ok &= (r["loss_rel_err"] <= 1e-2 and r["ok"] and r["launches"] == want
@@ -3444,9 +3458,7 @@ def phase_dit(torch):
     forward's time."""
     from phendiff_tpu_torch.models import dit as dit_mod
     from phendiff_tpu_torch.models.dit import DiT, DiTConfig
-    from phendiff_tpu_torch.ops.adaln_norm import adaln_norm
-    from phendiff_tpu_torch.ops.attention import multi_head_attention
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention
+    from phendiff_tpu_torch.ops.routes import launch_counts, reset_launch_counts
     from phendiff_tpu_torch.pipelines.latent_vae import build_on
 
     cfg = DiTConfig()
@@ -3461,15 +3473,14 @@ def phase_dit(torch):
     with torch.no_grad():
         model(x, t, y)  # warm-up
         torch.cuda.synchronize()
-        flash_attention.launches = flash_attention.wgmma_launches = 0
-        adaln_norm.launches = adaln_norm.plain_calls = dit_mod.glue_launches = 0
-        plain_before = multi_head_attention.xla_route_calls
+        reset_launch_counts()
+        dit_mod.glue_launches = 0
         out = model(x, t, y)
         torch.cuda.synchronize()
-        launches = attn_launches(flash_attention)
-        plain_route = multi_head_attention.xla_route_calls - plain_before
-        boundary = {"glue": dit_mod.glue_launches, "launches": adaln_norm.launches,
-                    "plain_calls": adaln_norm.plain_calls}
+        launches, counts = attn_launches("fwd"), launch_counts()
+        plain_route = counts["attention_plain_route"]
+        boundary = {"glue": dit_mod.glue_launches, "launches": counts["adaln_norm"],
+                    "plain_calls": counts["adaln_norm_plain_calls"]}
         ms = cuda_ms(lambda: model(x, t, y), iters=5, warmup=1)
     want_boundary = {"glue": 1 + 3 * cfg.depth, "launches": 1 + 2 * cfg.depth, "plain_calls": 0}
     rec = {"phase": "dit", "batch": BATCH, "res": 8 * cfg.input_size, "depth": cfg.depth,
@@ -3509,11 +3520,10 @@ def main() -> None:
 
     from phendiff_tpu_torch.core.scheduler import SchedulerConfig
     from phendiff_tpu_torch.models.config import super_small
-    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls, plain_kernels, unet_calls
-    from phendiff_tpu_torch.ops.flash_attention import flash_attention
-    from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+    from phendiff_tpu_torch.ops.routes import launch_counts, plain_kernels, reset_launch_counts
     from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
     from phendiff_tpu_torch.pipelines.transfer import ddib
+    from phendiff_tpu_torch.tools.kernel_calls import group_norm_calls, unet_calls
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3544,16 +3554,16 @@ def main() -> None:
     # the GroupNorm calls of one forward, by shape, and the launches of one
     per_forward = group_norm_calls(RES)
     addend_per_forward = unet_calls(ucfg, RES)["group_norm_addend"]
-    flash_attention.launches = fused_group_norm.launches = 0
-    fused_group_norm.addend_launches = fused_group_norm.addend_materialised = 0
+    reset_launch_counts()
     denoise(images, torch.full((BATCH,), 500, device="cuda"), src)
     torch.cuda.synchronize()
-    attn_per_forward, gn_per_forward = flash_attention.launches, fused_group_norm.launches
+    counts = launch_counts()
+    attn_per_forward, gn_per_forward = counts["flash_attn_fwd"], counts["group_norm_silu"]
     if sum(per_forward.values()) != 41 or gn_per_forward != 41 or attn_per_forward != 6:
         fail(f"expected 41 GroupNorm and 6 attention calls per forward, got "
              f"{sum(per_forward.values())} recorded, {gn_per_forward} and {attn_per_forward}")
     # the 17 ResnetBlocks' time embeddings go into the GroupNorm kernel
-    addend_counts = (fused_group_norm.addend_launches, fused_group_norm.addend_materialised)
+    addend_counts = (counts["group_norm_silu_addend"], counts["group_norm_addend_materialised"])
     if sum(addend_per_forward.values()) != 17 or addend_counts != (17, 0):
         fail(f"expected 17 GroupNorm launches with an addend and none materialised per "
              f"forward, got {sum(addend_per_forward.values())} recorded, {addend_counts}")
@@ -3636,7 +3646,7 @@ def main() -> None:
     ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = ddib(denoise, pipe.schedule, images, src, tgt, num_inference_steps=STEPS)
     torch.cuda.synchronize()
@@ -3683,10 +3693,9 @@ def main() -> None:
     # -- 17-22. SD-2.1 class transfer and its serving engine ------------------
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import (
-        sd_pipeline, sd_train_calls, sd_unet_calls, vae_calls)
     from phendiff_tpu_torch.ops.attention import takes_kernel
     from phendiff_tpu_torch.ops.gn_kernels import gn_route
+    from phendiff_tpu_torch.tools.kernel_calls import sd_train_calls, sd_unet_calls, vae_calls
 
     unet_by_lat = {lat: sd_unet_calls(SDUNetConfig(), lat) for lat in (16, 64)}
     unet32_64 = sd_unet_calls(SDUNetConfig(), 64, torch.float32)

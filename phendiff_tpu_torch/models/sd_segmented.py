@@ -324,7 +324,7 @@ class SegmentedSDUNet:
         meta device (matrix products and convolutions only)."""
         from torch.utils.flop_counter import FlopCounterMode
 
-        from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+        from phendiff_tpu_torch.ops.routes import plain_kernels
 
         with torch.device("meta"):
             meta = SegmentedSDUNet(SDUNet(self.cfg, dtype=self.dtype))

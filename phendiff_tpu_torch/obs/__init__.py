@@ -1,6 +1,6 @@
 """Observability: trackers, images, logging, the port's spans, profiling
-hooks and step timing, and device-time profiles of the port on the card
-(``obs/forward_profile.py``, imported from its module)."""
+hooks and step timing.  A device-time breakdown of a cell is the
+benchmark's (``portbench/run.py --trace 1``)."""
 
 from phendiff_tpu_torch.obs.images import (  # noqa: F401
     image_grid,

@@ -46,8 +46,7 @@ import numpy as np
 import torch
 
 from phendiff_tpu_torch.obs.profiling import annotate, force_sync
-from phendiff_tpu_torch.ops.flash_attention import flash_attention
-from phendiff_tpu_torch.ops.gn_kernels import fused_group_norm
+from phendiff_tpu_torch.ops.routes import launch_counts
 from phendiff_tpu_torch.pipelines import conditional_ddim as sampler
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
@@ -63,14 +62,15 @@ class EngineConfig:
     ops: tuple = ("generate", "transfer", "invert")
 
 
+# The forward kernels' launch counters, with the attention launches that
+# took the warpgroup design among them (serving runs no backward).
+_LAUNCH_KEYS = ("flash_attn_fwd", "group_norm_silu", "group_norm_silu_stream",
+                "flash_attn_fwd_wgmma")
+
+
 def _kernel_launches() -> Dict[str, int]:
-    """The forward kernel wrappers' launch counters, with the attention
-    launches that took the warpgroup design among them (serving runs no
-    backward)."""
-    return {"flash_attn_fwd": flash_attention.launches,
-            "group_norm_silu": fused_group_norm.launches,
-            "group_norm_silu_stream": fused_group_norm.stream_launches,
-            "flash_attn_fwd_wgmma": flash_attention.wgmma_launches}
+    counts = launch_counts()
+    return {k: counts[k] for k in _LAUNCH_KEYS}
 
 
 @dataclasses.dataclass

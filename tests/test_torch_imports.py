@@ -52,7 +52,8 @@ NEW_MODULES = [
     "phendiff_tpu_torch.tools.make_toy_dataset", "phendiff_tpu_torch.tools.trained_round_trip",
     "phendiff_tpu_torch.models.sd_segmented", "phendiff_tpu_torch.parallel.pp",
     "phendiff_tpu_torch.train.segmented_train", "phendiff_tpu_torch.train.segmented_trainer",
-    "phendiff_tpu_torch.tools.attention_designs",
+    "phendiff_tpu_torch.tools.attention_designs", "phendiff_tpu_torch.ops.routes",
+    "phendiff_tpu_torch.tools.kernel_calls",
 ]
 
 

@@ -387,7 +387,7 @@ def test_group_norm_stream_variant_matches_plain(cuda, monkeypatch, s, c, groups
 def test_sd_unet_on_the_card_routes_self_and_cross_attention(cuda, monkeypatch, dtype):
     from phendiff_tpu_torch.core.precision import cast_matmul_weights
     from phendiff_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels
 
     # f32 convolutions and products in full f32: with TF32 the two paths'
     # last-bit differences flip TF32 roundings

@@ -272,10 +272,42 @@ def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
     ("void (anonymous namespace)::stream_bwd_dx<__nv_bfloat16, true>(...)",
      "group_norm_silu_stream_bwd"),
 ])
-def test_forward_profile_attributes_the_attention_kernels(kernel, category):
-    from phendiff_tpu_torch.obs.forward_profile import categorize
+def test_benchmark_trace_table_attributes_the_port_kernels(kernel, category):
+    """The category table behind the benchmark's device-time breakdown."""
+    from portbench.harness.trace import categorize
 
     assert categorize(kernel) == category
+
+
+def test_launch_counts_read_and_reset_every_counter_of_the_ops_wrappers():
+    """Every int attribute of an ``ops`` function (its launch or call
+    counter) is read by ``launch_counts`` under a key of its own and zeroed
+    by ``reset_launch_counts``, so a new kernel's counter cannot be missed."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import phendiff_tpu_torch.ops as ops
+    from phendiff_tpu_torch.ops.routes import launch_counts, reset_launch_counts
+
+    found = []
+    for info in pkgutil.iter_modules(ops.__path__, "phendiff_tpu_torch.ops."):
+        mod = importlib.import_module(info.name)
+        for fn in vars(mod).values():
+            if inspect.isfunction(fn) and fn.__module__ == mod.__name__:
+                found += [(fn, a) for a, v in vars(fn).items()
+                          if isinstance(v, int) and not isinstance(v, bool)]
+    assert len(found) >= 17
+    saved = [getattr(fn, a) for fn, a in found]
+    try:
+        for i, (fn, a) in enumerate(found):
+            setattr(fn, a, i + 1)
+        assert sorted(launch_counts().values()) == list(range(1, len(found) + 1))
+        reset_launch_counts()
+        assert all(getattr(fn, a) == 0 for fn, a in found)
+    finally:
+        for (fn, a), v in zip(found, saved):
+            setattr(fn, a, v)
 
 
 def test_kernel_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
@@ -419,7 +451,7 @@ def _check_gn_plan(p, s, c, groups, itemsize, backward, batch=1):
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_gn_plan_fits_every_main_path_call(itemsize, backward):
-    from phendiff_tpu_torch.obs.forward_profile import group_norm_calls
+    from phendiff_tpu_torch.tools.kernel_calls import group_norm_calls
 
     calls = group_norm_calls()
     assert sum(calls.values()) == 41 and len({(s, c) for s, c, _, _ in calls}) == 12
@@ -444,7 +476,7 @@ def test_gn_backward_plan_fits_every_sd_unet_call(latent, batch):
     whole samples where a sample's tile fits one block, the batch covered
     once, and no more blocks than one wave where one wave can hold them."""
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls
+    from phendiff_tpu_torch.tools.kernel_calls import sd_unet_calls
     from phendiff_tpu_torch.ops.gn_kernels import _BWD_BLOCK_BYTES, _BWD_WAVE, gn_route
 
     calls = sd_unet_calls(SDUNetConfig(), latent, torch.bfloat16)["group_norm"]
@@ -484,7 +516,7 @@ def _preset_records(dtype):
     from phendiff_tpu_torch.models.autoencoder_kl import AutoencoderKLConfig
     from phendiff_tpu_torch.models.config import UNet2DConfig
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls, vae_calls
+    from phendiff_tpu_torch.tools.kernel_calls import sd_unet_calls, unet_calls, vae_calls
 
     root = os.path.join(os.path.dirname(__file__), "..", "configs", "denoiser")
     records = {}
@@ -577,7 +609,7 @@ def test_attention_design_takes_wgmma_for_bf16_d72_at_every_s():
 def test_attention_routes_count_the_calls_that_skip_the_kernel():
     from phendiff_tpu_torch.models.config import UNet2DConfig
     from phendiff_tpu_torch.models.unet2d import CondUNet2D
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
+    from phendiff_tpu_torch.ops.routes import plain_kernels
 
     cfg = UNet2DConfig.from_json(os.path.join(os.path.dirname(__file__), "..", "configs",
                                               "denoiser", "ddpm_unconditional_256.json"))
@@ -604,7 +636,7 @@ def test_every_resnet_block_hands_its_time_embedding_to_the_second_group_norm(pr
     each takes the addend into the kernel and no broadcast add is launched."""
     from phendiff_tpu_torch.models.config import super_small
     from phendiff_tpu_torch.models.sd_unet import SDUNetConfig
-    from phendiff_tpu_torch.obs.forward_profile import sd_unet_calls, unet_calls
+    from phendiff_tpu_torch.tools.kernel_calls import sd_unet_calls, unet_calls
 
     rec = (unet_calls(super_small(), 128) if preset.startswith("ddim")
            else sd_unet_calls(SDUNetConfig(), 16))
@@ -615,8 +647,8 @@ def test_every_resnet_block_hands_its_time_embedding_to_the_second_group_norm(pr
 
 
 def test_plain_kernels_route_the_unet_through_plain_versions_and_restore():
-    from phendiff_tpu_torch.obs.forward_profile import plain_kernels
     from phendiff_tpu_torch.ops import attention, group_norm
+    from phendiff_tpu_torch.ops.routes import plain_kernels
 
     saved = group_norm.fused_group_norm, attention.flash_attention
     x = torch.randn(1, 4, 8, device="meta")  # the kernels' wrappers refuse meta tensors

@@ -19,7 +19,7 @@ import torch
 
 from phendiff_tpu_torch.core.scheduler import SchedulerConfig
 from phendiff_tpu_torch.models.config import UNet2DConfig
-from phendiff_tpu_torch.obs.forward_profile import unet_calls
+from phendiff_tpu_torch.tools.kernel_calls import unet_calls
 from phendiff_tpu_torch.pipelines import transfer as T
 from phendiff_tpu_torch.pipelines.conditional_ddim import to_images
 from phendiff_tpu_torch.pipelines.ddim_pipeline import ConditionalDDIMPipeline
