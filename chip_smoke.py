@@ -187,7 +187,15 @@ failure exits non-zero before the final line:
     D = 72 warpgroup kernel, none on the plain route, the output finite,
     and the forward's time.  The D = 72 forward itself is held against its
     plain version in phase 3, at that shape in bf16 and at S 300 and 17 in
-    bf16 and f32.
+    bf16 and f32;
+31. resnet_bias: the residual kernel (``csrc/residual_bias.cu``) at the
+    DDIM's largest residual map, (128, 128, 128, 64) in bf16, with one bias
+    and with two, bit-equal to its plain version, its device time in a CUDA
+    graph against its byte bound (at least RESIDUAL_MIN_SHARE_OF_BOUND),
+    ATen's bias and residual adds as the convs ran them (the library
+    yardstick) and the plain version, and the same times at SD-2.1's
+    (256, 16, 16, 320).  (Phase 3 holds a batch-32 forward to one launch
+    for each of the 17 ResnetBlocks and no plain call.)
 
 Then a JSON line of all kernels (the D = 64 warpgroup attention kernels as
 rows of their own: their forward's launches on the 512 px SD transfer, their
@@ -218,6 +226,10 @@ HBM_BYTES_PER_S = 3.35e12
 # The fused DiT boundary kernel's least share of its byte bound at
 # DiT-XL/2's shape in bf16 (80% measured on an H100 80GB HBM3 at 700 W).
 ADALN_MIN_SHARE_OF_BOUND = 0.75
+# The residual kernel's least share of its byte bound at the DDIM's largest
+# residual map, (128, 128, 128, 64) in bf16 (92% measured on an H100 80GB
+# HBM3 at 700 W).
+RESIDUAL_MIN_SHARE_OF_BOUND = 0.85
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 # Special-function unit: 16 exp2 results per clock per SM (CUDA C
@@ -293,6 +305,10 @@ DESIGN = {
                   "LN(x') (1 + scale) + shift rounded once; the [B, C] rows through L1 at "
                   "their row stride; 8 warps a block on consecutive rows, 2 rows a warp, 64 "
                   "registers",
+    "residual_bias": "a ResnetBlock's residual with conv2's and the shortcut's biases: a "
+                     "thread 4 16-byte vectors of x and h 256 vectors apart (all loads issued "
+                     "first), ((x + h) + bias) + bias2 in f32 rounded once, the [C] biases "
+                     "through the read-only cache",
     "group_norm_silu": "one launch: a (sample, channel slice of whole groups) tile split over "
                        "a thread-block cluster, each block's rows in shared memory by TMA "
                        "boxes, f32 sums as the boxes land, combined in rank order through "
@@ -334,6 +350,9 @@ INCEPTION_REL_L2_TOL = 1e-3
 CMP_PER_CLASS, CMP_STEPS = 32, 10
 GN_PTXAS = {}  # ptxas -v of the GroupNorm library's functions, from the build phase
 KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "group_norm_silu_bwd")
+# The residual kernel's launches and its plain calls: a ResnetBlock that
+# defers its conv biases makes one call
+RESIDUAL_KEYS = ("residual_bias", "residual_bias_plain_calls")
 # The SD paths' launch counts: the kernels, those of the attention kernels
 # that took the warpgroup design (bf16, D = 64, S >= WGMMA_MIN_S: a subset
 # of flash_attn_fwd / flash_attn_bwd), the streaming GroupNorm variant, the
@@ -515,6 +534,10 @@ def phase_build():
     adaln = {fn: p for fn, p in ptxas["adaln_norm"].items() if "adaln_norm_kernel" in fn}
     if len(adaln) != 30 or any(p.get("spill_bytes", 0) for p in adaln.values()):
         fail(f"DiT boundary kernels: expected 30 without spills, got {adaln}")
+    # bf16 and f32, with one bias and with two
+    residual = ptxas["residual_bias"]
+    if len(residual) != 4 or any(p.get("spill_bytes", 0) for p in residual.values()):
+        fail(f"residual kernels: expected 4 without spills, got {residual}")
 
 
 def bound_unit(t_bytes, flops, flop_rate, exps, sfu_rate, dtype) -> str:
@@ -1387,12 +1410,14 @@ def counting_plain_calls():
 
     from phendiff_tpu_torch.ops import flash_attention as fa
     from phendiff_tpu_torch.ops import gn_kernels as gk
+    from phendiff_tpu_torch.ops import residual_bias as rb
 
     @contextlib.contextmanager
     def ctx():
         counts = collections.Counter()
         names = ((fa, "attention_plain"), (fa, "flash_attention_bwd_plain"),
-                 (gk, "group_norm_plain"), (gk, "group_norm_bwd_plain"))
+                 (gk, "group_norm_plain"), (gk, "group_norm_bwd_plain"),
+                 (rb, "residual_bias_plain"))
         saved = [(mod, name, getattr(mod, name)) for mod, name in names]
         for mod, name, fn in saved:
             def counted(*a, _fn=fn, _name=name, **kw):
@@ -3502,6 +3527,52 @@ def phase_dit(torch):
     return rec
 
 
+def residual_times(torch, shape):
+    """Device times (CUDA graphs) of the residual kernel at ``shape`` in bf16,
+    with one bias and with two, each call first held bit-equal to the plain
+    version; ATen's adds as the convs ran them (a [C] broadcast add after
+    each conv, then the residual add: the library yardstick); the plain
+    version; the byte bound (x and h read, out written)."""
+    from phendiff_tpu_torch.ops.residual_bias import residual_bias, residual_bias_plain
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x, h = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    b, b2 = (torch.randn(shape[-1], generator=g, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    rec = {"shape": list(shape), "dtype": "bfloat16",
+           "bound_ms": 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3}
+    ok = True
+    with torch.no_grad():
+        for name, biases, library in (("one_bias", (b,), lambda: x + (h + b)),
+                                      ("two_biases", (b, b2), lambda: (x + b2) + (h + b))):
+            ok &= bool(torch.equal(residual_bias(x, h, *biases),
+                                   residual_bias_plain(x, h, *biases)))
+            ms = graph_ms(lambda: residual_bias(x, h, *biases))
+            rec[name] = {"ms": ms, "pct_of_bound": 100 * rec["bound_ms"] / ms,
+                         "library_ms": graph_ms(library),
+                         "plain_ms": graph_ms(lambda: residual_bias_plain(x, h, *biases),
+                                              iters=5)}
+    rec["ok"] = ok
+    return rec
+
+
+def phase_resnet_bias(torch):
+    """The residual kernel at the DDIM's largest residual map and at SD's:
+    bit-equal to its plain version, and its device time against its byte
+    bound."""
+    ddim = residual_times(torch, (128, RES, RES, 64))
+    sd = residual_times(torch, (256, 16, 16, 320))
+    worst = min(ddim["one_bias"]["pct_of_bound"], ddim["two_biases"]["pct_of_bound"])
+    rec = {"phase": "resnet_bias", "ddim": ddim, "sd": sd}
+    emit(rec)
+    if not (ddim["ok"] and sd["ok"]):
+        fail(f"the residual kernel against its plain version: {rec}")
+    if worst < 100 * RESIDUAL_MIN_SHARE_OF_BOUND:
+        fail(f"the residual kernel reads {worst:.1f}% of its byte bound, below "
+             f"{100 * RESIDUAL_MIN_SHARE_OF_BOUND:.0f}%")
+    return rec
+
+
 def mean_of(xs) -> float:
     return sum(xs) / len(xs) if xs else float("nan")
 
@@ -3567,6 +3638,11 @@ def main() -> None:
     if sum(addend_per_forward.values()) != 17 or addend_counts != (17, 0):
         fail(f"expected 17 GroupNorm launches with an addend and none materialised per "
              f"forward, got {sum(addend_per_forward.values())} recorded, {addend_counts}")
+    # and their conv biases to the GroupNorm addend and the residual kernel
+    residual_per_forward = {k: counts[k] for k in RESIDUAL_KEYS}
+    if tuple(residual_per_forward.values()) != (17, 0):
+        fail(f"expected 17 residual launches and no plain call per forward (one a deferring "
+             f"ResnetBlock), got {residual_per_forward}")
 
     checks_ok = True
     attn = attention_check(torch, BATCH, 1024, 32, 8, sfu_rate)
@@ -3745,6 +3821,9 @@ def main() -> None:
     adaln = adaln_check(torch)
     dit = phase_dit(torch)
 
+    # -- 31. the ResnetBlock's deferred conv biases and the residual kernel ---
+    resnet = phase_resnet_bias(torch)
+
     # Forward times are per batch-32 UNet forward and backward times per
     # batch-32 train step, each summed over the kernel's calls in it (the
     # GroupNorm backward's 41 calls have the forward's shapes).
@@ -3903,6 +3982,21 @@ def main() -> None:
             "bound_by": "bytes",
             "launches_by_path": {"dit_forward_b32": dit["boundary"]["launches"]},
             "design": DESIGN["adaln_norm"],
+        },
+        {
+            # a ResnetBlock's residual with its convs' biases, no TPU counterpart:
+            # ms etc. per call at (128, 128, 128, 64) bf16 with one bias (device
+            # time in a CUDA graph); launches on phase 3's batch-32 forward
+            "name": "residual_bias", "route": "cuda",
+            "source": "phendiff_tpu_torch/csrc/residual_bias.cu",
+            "replaces": "none (ATen's conv bias adds and the residual add)",
+            "launches": residual_per_forward["residual_bias"],
+            **{k: resnet["ddim"]["one_bias"][k]
+               for k in ("ms", "plain_ms", "library_ms", "pct_of_bound")},
+            "bound_ms": resnet["ddim"]["bound_ms"], "bound_by": "bytes",
+            "two_biases": resnet["ddim"]["two_biases"], "sd_256x16x16x320": resnet["sd"],
+            "launches_by_path": {"ddim_forward_b32": residual_per_forward["residual_bias"]},
+            "design": DESIGN["residual_bias"],
         },
         {
             "name": "flash_attn_bwd", "route": "cuda",

@@ -21,6 +21,9 @@ a precomputed ``class_emb`` (the CFG unconditional pass feeds zeros).
 * Under tensor parallelism (``parallel/tp.py::shard_module``) a block
   marked with a ``tp`` shard runs on this rank's channels or heads, with
   the shards ``functional_call`` hands in; an unmarked block runs whole.
+* Where no autograd records and no shard is marked, a ResnetBlock's conv
+  biases ride in the next hand-written kernel that reads each conv's output
+  (``ResnetBlock``): the same sums, rounded at other places.
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ from phendiff_tpu_torch.models.embeddings import (
     TimestepEmbedMLP,
     sinusoidal_timestep_embedding,
 )
+from phendiff_tpu_torch.ops import residual_bias as RB
 from phendiff_tpu_torch.ops.attention import multi_head_attention
+from phendiff_tpu_torch.ops.gn_kernels import _records
 from phendiff_tpu_torch.ops.group_norm import group_norm
 from phendiff_tpu_torch.parallel import tp as TP
 
@@ -58,12 +63,14 @@ class Conv(nn.Conv2d):
     """``nn.Conv2d`` over NHWC tensors, in the input's dtype.
 
     The NHWC tensor is handed to cuDNN as a channels_last NCHW view and the
-    result comes back the same way, so no layout copy is made."""
+    result comes back the same way, so no layout copy is made.  ``bias=False``
+    leaves the bias out, for a ``ResnetBlock`` that adds it in the next
+    kernel that reads the output."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype),
-            self.stride, self.padding,
+            x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+            self.bias.to(x.dtype) if bias else None, self.stride, self.padding,
         )
         return y.permute(0, 2, 3, 1)
 
@@ -140,7 +147,17 @@ def init_flax_weights(module: nn.Module, generator: torch.Generator) -> nn.Modul
 
 
 class ResnetBlock(nn.Module):
-    """GroupNorm -> SiLU -> conv3x3 -> (+temb) -> GroupNorm -> SiLU -> conv3x3 + skip."""
+    """GroupNorm -> SiLU -> conv3x3 -> (+temb) -> GroupNorm -> SiLU -> conv3x3 + skip.
+
+    Where no autograd records through the call and no tensor parallelism
+    shards it, each conv's bias rides in the next hand-written kernel that
+    reads the conv's output, so no broadcast pass adds it: conv1's joins the
+    time embedding in the second GroupNorm's addend (``"default"`` time
+    embedding only), and conv2's and the shortcut's go to the residual
+    (``ops/residual_bias.py``), where its ``refusal`` is empty.  Elsewhere
+    (training, an input gradient, shards) the convs add their own biases, as
+    before.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int, *,
                  norm_num_groups: int = 32, norm_eps: float = 1e-5,
@@ -165,11 +182,13 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         dt, tp = x.dtype, self.tp
+        defer = tp is None and not _records(x, temb, *self.parameters())
+        fold1 = defer and self.time_scale_shift == "default"
         h = group_norm(x, num_groups=self.groups1, eps=self.eps, scale=self.norm1_scale,
                        bias=self.norm1_bias, act="silu", out_dtype=dt)
         t = self.time_emb_proj(F.silu(temb))
         if tp is None:
-            h = self.conv1(h)
+            h = self.conv1(h, bias=not fold1)
             norm2 = dict(num_groups=self.groups2, eps=self.eps, scale=self.norm2_scale,
                          bias=self.norm2_bias, out_dtype=dt)
         else:  # conv1 column-parallel: this rank's channels, their groups
@@ -183,10 +202,19 @@ class ResnetBlock(nn.Module):
             h = group_norm(h, **norm2)
             h = F.silu(h * (1 + scale) + shift)
         else:  # group_norm(h + t): the kernel adds t as it loads h where it can
+            if fold1:
+                t = t + self.conv1.bias.to(dt)
             h = group_norm(h, addend=t, act="silu", **norm2)
+        sc = self.conv_shortcut
+        if defer:
+            biases = (self.conv2.bias.to(dt),) + (() if sc is None else (sc.bias.to(dt),))
+            # conv2's output, and the shortcut's, have h's shape, dtype, device and layout
+            if RB.refusal(x if sc is None else h, h, *biases) is None:
+                skip = x if sc is None else sc(x, bias=False)
+                return RB.residual_bias(skip, self.conv2(h, bias=False), *biases)
         h = self.conv2(h) if tp is None else TP.row_conv(h, self.conv2)
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+        if sc is not None:
+            x = sc(x)
         return x + h
 
 

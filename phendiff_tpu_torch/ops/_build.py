@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "adaln_norm")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "group_norm_silu", "adaln_norm",
+           "residual_bias")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,9 +1,10 @@
 """Kernel routing and launch counting of the ``ops`` wrappers.
 
-``plain_kernels`` routes the models' GroupNorm and attention through their
-plain versions; ``record_calls`` runs a callable so routed (on the meta
-device: no data, no kernels) and records every call by shape.  The
-model-level recorders built on it are in ``tools/kernel_calls.py``.
+``plain_kernels`` routes the models' GroupNorm, attention and ResnetBlock
+residual through their plain versions; ``record_calls`` runs a callable so
+routed (on the meta device: no data, no kernels) and records every call by
+shape.  The model-level recorders built on it are in
+``tools/kernel_calls.py``.
 
 ``launch_counts`` reads every launch counter of the wrappers (the function
 attributes ``fused_group_norm.launches``, ``flash_attention.wgmma_launches``,
@@ -22,6 +23,7 @@ from phendiff_tpu_torch.ops import adaln_norm as an
 from phendiff_tpu_torch.ops import attention
 from phendiff_tpu_torch.ops import flash_attention as fa
 from phendiff_tpu_torch.ops import gn_kernels, group_norm
+from phendiff_tpu_torch.ops import residual_bias as rb
 
 # key -> (wrapper, counter attribute)
 COUNTERS = {
@@ -42,6 +44,8 @@ COUNTERS = {
     "adaln_norm": (an.adaln_norm, "launches"),
     "adaln_norm_plain_calls": (an.adaln_norm, "plain_calls"),
     "adaln_norm_plain_ops": (an.adaln_norm_plain, "ops"),
+    "residual_bias": (rb.residual_bias, "launches"),
+    "residual_bias_plain_calls": (rb.residual_bias, "plain_calls"),
 }
 
 
@@ -57,16 +61,18 @@ def reset_launch_counts() -> None:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the UNet's GroupNorm and attention through their plain
-    versions; restores the kernels on exit."""
-    saved = group_norm.fused_group_norm, attention.flash_attention
+    """Route the UNet's GroupNorm, attention and the ResnetBlock's residual
+    with its conv biases through their plain versions; restores the kernels
+    on exit."""
+    saved = group_norm.fused_group_norm, attention.flash_attention, rb.residual_bias
     group_norm.fused_group_norm = lambda x, s, b, **kw: gn_kernels.group_norm_plain(x, s, b, **kw)
     attention.flash_attention = lambda q, k, v, scale=None: attention.attention_plain(
         q, k, v, scale=scale)
+    rb.residual_bias = lambda x, h, bias, bias2=None: rb.residual_bias_plain(x, h, bias, bias2)
     try:
         yield
     finally:
-        group_norm.fused_group_norm, attention.flash_attention = saved
+        group_norm.fused_group_norm, attention.flash_attention, rb.residual_bias = saved
 
 
 def record_calls(run: Callable[[], object]) -> dict:

@@ -39,7 +39,9 @@ boundary kernel forms x' as ``addcmul`` does (one rounding of f32
 fma(gate, y, x)), so x' sits within one ulp of it; its z, rounded once,
 is no farther from the f32 composition than the bf16 composition (two
 roundings) is, and in f32 within rel L2 1e-6 of the float64 composition
-(f32 rounding of ~10 operations an element, 7.5e-8 measured).
+(f32 rounding of ~10 operations an element, 7.5e-8 measured).  The
+residual kernel sums in f32 in the plain version's order and rounds once,
+so it is held bit-equal to it.
 """
 
 import math
@@ -74,6 +76,7 @@ GN_TOL = {torch.bfloat16: dict(rtol=2.0**-7, atol=1e-3),
 GN_STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_REL_L2 = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 UNET_GRAD_REL_L2 = 1e-3
+FORWARD_REL_L2 = 2e-2  # a bf16 UNet forward through 41 GroupNorms and 6 attentions
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
@@ -705,6 +708,106 @@ def test_adaln_norm_on_the_card_raises_where_the_kernel_cannot(cuda, why):
         adaln_mod.adaln_norm(x, gate, y, shift, scale1p, eps=1e-6)
     assert (adaln_mod.adaln_norm.launches, adaln_mod.adaln_norm.plain_calls,
             adaln_mod.adaln_norm_plain.ops) == counts
+
+
+# The main paths' residual maps: DDIM's super_small at batch 128 (C = 64,
+# 128, 256 at 128, 64, 32 px) and SD-2.1's UNet at 16x16 latents, batch 256
+# (C = 320, 640, 1280), and a ragged one
+RESIDUAL_SHAPES = [(128, 128, 128, 64), (128, 64, 64, 128), (128, 32, 32, 256),
+                   (256, 16, 16, 320), (256, 16, 16, 640), (256, 16, 16, 1280), (1, 3, 5, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", RESIDUAL_SHAPES)
+def test_residual_bias_kernel_is_the_f32_sum_rounded_once(cuda, shape, dtype, two):
+    """One launch, bit-equal to the plain version: ((x + h) + bias) + bias2
+    in f32 rounded once (in f32 the sum itself; in bf16 one rounding of
+    it, so within half a bf16 ulp of the exact sum)."""
+    from phendiff_tpu_torch.ops import residual_bias as RB
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, h = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(2))
+    b, b2 = (torch.randn(shape[-1], generator=g, device=cuda).to(dtype) for _ in range(2))
+    b2 = b2 if two else None
+    launches, plain = RB.residual_bias.launches, RB.residual_bias.plain_calls
+    got = RB.residual_bias(x, h, b, b2)
+    torch.cuda.synchronize()
+    assert (RB.residual_bias.launches, RB.residual_bias.plain_calls) == (launches + 1, plain)
+    want = x.float() + h.float() + b.float() + (0 if b2 is None else b2.float())
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want.to(dtype))
+    assert torch.equal(got, RB.residual_bias_plain(x, h, b, b2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["shape", "autograd records", "dtype", "layout"])
+def test_residual_bias_on_the_card_raises_where_the_kernel_cannot(cuda, why):
+    """C % 8 != 0, a recording autograd, float16 or a transposed map: no
+    launch, an error that names why."""
+    from phendiff_tpu_torch.ops import residual_bias as RB
+
+    c = 12 if why == "shape" else 16
+    dtype = torch.float16 if why == "dtype" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, h = (torch.randn(2, 4, 6, c, generator=g, device=cuda).to(dtype) for _ in range(2))
+    b = torch.randn(c, generator=g, device=cuda).to(dtype)
+    if why == "layout":
+        h = h.transpose(1, 2).contiguous().transpose(1, 2)
+    h.requires_grad_(why == "autograd records")
+    assert RB.refusal(x, h, b) == why
+    launches = RB.residual_bias.launches
+    with pytest.raises(TypeError if why == "dtype" else ValueError, match=f"\\({why}\\)"):
+        RB.residual_bias(x, h, b)
+    assert RB.residual_bias.launches == launches
+
+
+@pytest.mark.cuda
+def test_ddim_forward_defers_every_resnet_block_and_a_train_step_none(cuda):
+    """The ddim_super_small_128 UNet in bf16: a batch-128 forward under
+    no_grad launches the residual kernel once for each of its 17 ResnetBlocks
+    (no plain call), and is as close to the forward that adds each bias in
+    its conv (autograd recording) as bf16 rounding allows (FORWARD_REL_L2);
+    under ``plain_kernels`` the blocks defer to the plain residual (no launch,
+    no counted call); a train step's forward and backward defer none."""
+    from phendiff_tpu_torch.core.precision import cast_matmul_weights
+    from phendiff_tpu_torch.models.config import super_small
+    from phendiff_tpu_torch.models.unet2d import CondUNet2D
+    from phendiff_tpu_torch.ops.routes import launch_counts, plain_kernels
+
+    model = CondUNet2D(super_small(), dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(0))
+    with torch.no_grad():  # Flax's initialisers zero the biases: draw them
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.1)
+    model = cast_matmul_weights(model.to(cuda))
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(128, 128, 128, 3, generator=g, device=cuda)
+    t = torch.randint(0, 1000, (128,), generator=g, device=cuda)
+    labels = torch.arange(128, device=cuda) % 2
+    keys = ("residual_bias", "residual_bias_plain_calls")
+
+    def counted(fn):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return out, tuple(after[k] - before[k] for k in keys)
+
+    with torch.no_grad():
+        got, n = counted(lambda: model(x, t, class_labels=labels))
+        assert n == (17, 0)
+        with plain_kernels():
+            plain, n = counted(lambda: model(x[:8], t[:8], class_labels=labels[:8]))
+        assert n == (0, 0)
+    assert _rel_l2(got[:8], plain) < FORWARD_REL_L2
+    want, n = counted(lambda: model(x[:8], t[:8], class_labels=labels[:8]))
+    assert n == (0, 0) and want.grad_fn is not None
+    assert _rel_l2(got[:8], want.detach()) < FORWARD_REL_L2
+    _, n = counted(lambda: want.float().square().mean().backward())
+    assert n == (0, 0)
 
 
 GN_AUTOGRAD_DX_REL_L2 = 1e-4

@@ -271,6 +271,8 @@ def test_attention_plain_versions_match_xla_at_ragged_s(dtype):
      "group_norm_silu_stream_bwd"),
     ("void (anonymous namespace)::stream_bwd_dx<__nv_bfloat16, true>(...)",
      "group_norm_silu_stream_bwd"),
+    # the ResnetBlock's residual with its conv biases: no fragment names it
+    ("void (anonymous namespace)::residual_bias_kernel<__nv_bfloat16, true>(...)", "other"),
 ])
 def test_benchmark_trace_table_attributes_the_port_kernels(kernel, category):
     """The category table behind the benchmark's device-time breakdown."""
@@ -297,7 +299,7 @@ def test_launch_counts_read_and_reset_every_counter_of_the_ops_wrappers():
             if inspect.isfunction(fn) and fn.__module__ == mod.__name__:
                 found += [(fn, a) for a, v in vars(fn).items()
                           if isinstance(v, int) and not isinstance(v, bool)]
-    assert len(found) >= 17
+    assert len(found) >= 19
     saved = [getattr(fn, a) for fn, a in found]
     try:
         for i, (fn, a) in enumerate(found):
@@ -648,18 +650,22 @@ def test_every_resnet_block_hands_its_time_embedding_to_the_second_group_norm(pr
 
 def test_plain_kernels_route_the_unet_through_plain_versions_and_restore():
     from phendiff_tpu_torch.ops import attention, group_norm
+    from phendiff_tpu_torch.ops import residual_bias as RB
     from phendiff_tpu_torch.ops.routes import plain_kernels
 
-    saved = group_norm.fused_group_norm, attention.flash_attention
+    saved = group_norm.fused_group_norm, attention.flash_attention, RB.residual_bias
     x = torch.randn(1, 4, 8, device="meta")  # the kernels' wrappers refuse meta tensors
     with pytest.raises(ValueError):
         group_norm.fused_group_norm(x, None, None, num_groups=2, eps=1e-5)
+    with pytest.raises(ValueError):
+        RB.residual_bias(x, x, x[0, 0])
     with pytest.raises(KeyError), plain_kernels():
         assert group_norm.fused_group_norm(x, None, None, num_groups=2, eps=1e-5).shape == x.shape
         q = torch.randn(1, 4, 2, 8, device="meta")
         assert attention.flash_attention(q, q, q).shape == q.shape
+        assert RB.residual_bias(x, x, x[0, 0], x[0, 0]).shape == x.shape
         raise KeyError  # restored on the way out of an error too
-    assert (group_norm.fused_group_norm, attention.flash_attention) == saved
+    assert (group_norm.fused_group_norm, attention.flash_attention, RB.residual_bias) == saved
 
 
 def test_channel_moments_plain_matches_float64():
